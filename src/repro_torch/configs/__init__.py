@@ -1,1 +1,37 @@
-"""Configurations ported so far: the paper's FIR testbed (``fir30``)."""
+"""Configurations: the LM architectures and the paper's FIR testbed.
+
+``get_arch`` knows every name the reference registry has; the ones whose
+model family is not ported yet raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
+"""
+import importlib
+
+from .base import AmmConfig, ArchConfig, reduced
+
+_PORTED = {"qwen2-0.5b": "qwen2_0_5b"}
+_NOT_PORTED = {
+    "qwen1.5-110b": "A7 (the other dense configs)",
+    "llama3.2-3b": "A7 (the other dense configs)",
+    "yi-34b": "A7 (the other dense configs)",
+    "deepseek-v3-671b": "A12 (MoE and MLA)",
+    "grok-1-314b": "A12 (MoE)",
+    "mamba2-370m": "A12 (SSM)",
+    "whisper-base": "A12 (encoder-decoder)",
+    "chameleon-34b": "A12 (VLM)",
+    "zamba2-2.7b": "A12 (hybrid)",
+}
+
+ARCH_NAMES = sorted(_PORTED.keys() | _NOT_PORTED.keys())
+
+
+def get_arch(name: str) -> ArchConfig:
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported yet (ROADMAP item "
+            f"{_NOT_PORTED[name]})")
+    if name not in _PORTED:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    return importlib.import_module(f".{_PORTED[name]}", __package__).CONFIG
+
+
+__all__ = ["AmmConfig", "ArchConfig", "ARCH_NAMES", "get_arch", "reduced"]

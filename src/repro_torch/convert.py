@@ -1,8 +1,10 @@
 """Carry the reference's parameters across to the port, through numpy.
 
-For the filterbank slice the parameters are the tap banks: the arrays of
-a reference ``PrecodedBank`` (real taps, int64 codes, digit planes)
-become the port's bank, so both packages then compute the same thing.
+Two kinds: the FIR tap banks (the arrays of a reference ``PrecodedBank``:
+real taps, int64 codes, digit planes) become the port's bank; the LM's
+parameter tree (``repro.models.lm_init``'s nested dict, layer-stacked,
+as numpy arrays) becomes the port's tree.  Both packages then compute on
+the same numbers.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ from .core.multipliers import MulSpec
 from .device import resolve_device
 from .dsp.fir import PrecodedBank
 
-__all__ = ["precoded_bank_from_numpy"]
+__all__ = ["lm_params_from_numpy", "precoded_bank_from_numpy"]
 
 
 def precoded_bank_from_numpy(h_real, hq, mag, neg, spec, *,
@@ -47,3 +49,20 @@ def precoded_bank_from_numpy(h_real, hq, mag, neg, spec, *,
             torch.from_numpy(p.astype(np.int32)).to(bank.device)
             for p in planes)
     return bank
+
+
+def lm_params_from_numpy(tree, *, device=None, dtype=torch.float32):
+    """The port's LM parameters from the reference's tree as numpy.
+
+    ``tree`` is ``repro.models.lm_init``'s nested dict with every leaf
+    turned into a numpy array (e.g. ``jax.tree.map(np.asarray, params)``);
+    the keys and the layer-stacked shapes are the port's own, so the tree
+    is copied leaf for leaf onto ``device`` (the GPU unless told
+    otherwise).
+    """
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device=dev, dtype=dtype)
+                for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
+        device=dev, dtype=dtype)

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["pin_fp32", "resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -22,3 +22,16 @@ def resolve_device(device=None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def pin_fp32() -> None:
+    """Keep float32 matmuls and convolutions in full float32 (no TF32).
+
+    The port's f32 paths (the model's projections, attention, the plain
+    versions' chunk products) are held against the reference at float32
+    tolerances; TF32 keeps about three decimal digits.  The entry points
+    of those paths call this, so a caller that turned TF32 on does not
+    change their answers.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -27,18 +27,24 @@ from pathlib import Path
 __all__ = ["BUILD_DIR", "SOURCES", "build_all", "library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"fir_bank": CSRC / "fir_bank.cu"}
+SOURCES = {"fir_bank": CSRC / "fir_bank.cu",
+           "quant_matmul": CSRC / "quant_matmul.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures of every exported function, per library
 _SIGNATURES = {
     "fir_bank": {
         "fir_bank_rows_launch": ([_P, _P, _P, _P] + [_I] * 7 + [_P], _I),
         "fir_bank_dot_launch": ([_P] * 5 + [_I] * 7 + [_P], _I),
         "fir_bank_error_string": ([_I], ctypes.c_char_p),
+    },
+    "quant_matmul": {
+        "quant_matmul_launch": ([_P] * 6 + [_I] * 7 + [_U, _F, _F, _P], _I),
+        "qm_hash_words_launch": ([_P, _P] + [_I] * 4 + [_U, _P], _I),
+        "quant_matmul_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

@@ -1,0 +1,102 @@
+"""Serving launcher: batched greedy decoding with the slot scheduler.
+
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
+        --requests 6 --max-new 16 --amm noise --amm-pallas
+
+Counterpart of ``repro.launch.serve`` with the same flags.  It runs on
+the GPU (``--device cpu`` runs the kernels' plain versions).  ``--amm
+noise --amm-pallas`` serves through the hand-written ``quant_matmul``
+kernel: every MLP product is quantized to WL-bit codes and carries the
+calibrated noise of the multiplier ``--mul`` at ``--vbl``.  The
+parameters are random, from a seeded generator.
+
+``--continuous`` switches the Scheduler to continuous batching.  ``--amm
+bitexact``, ``--amm-attn`` and ``--kv-codes`` are ROADMAP slice 3 and
+raise.  The reference's ``--flash-attn`` is left out: under the Scheduler
+every call carries a cache, so it changes nothing there (ROADMAP C3).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+
+from ..configs import ARCH_NAMES, get_arch, reduced
+from ..configs.base import AmmConfig
+from ..device import resolve_device
+from ..models import ModelRuntime, lm_init
+from ..serve.engine import Request, Scheduler, make_serve_fns
+from . import (add_amm_attn_arg, resolve_amm_apply_to, validate_amm_args,
+               validate_serve_flags)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve random-weight LM requests with the slot "
+                    "scheduler, on the GPU unless --device cpu.",
+        epilog="The reference's --flash-attn is left out: under the "
+               "Scheduler every call carries a KV cache, so the flag "
+               "changes nothing there (ROADMAP C3).  --amm bitexact, "
+               "--amm-attn and --kv-codes are ROADMAP slice 3 and raise.")
+    ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen2-0.5b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=6)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--amm", choices=["off", "noise", "bitexact"],
+                    default="off")
+    ap.add_argument("--mul", default="bbm0")
+    ap.add_argument("--wl", type=int, default=16)
+    ap.add_argument("--vbl", type=int, default=13)
+    ap.add_argument("--amm-pallas", action="store_true",
+                    help="mode=noise: the fused quant_matmul CUDA kernel")
+    ap.add_argument("--continuous", action="store_true",
+                    help="continuous batching: per-step admission into "
+                         "free slots, per-request eviction, prefill on "
+                         "batch-1 slot slices")
+    ap.add_argument("--kv-codes", action="store_true",
+                    help="int-code KV cache (ROADMAP slice 3; raises)")
+    ap.add_argument("--device", default=None,
+                    help="'cuda' (the default) or 'cpu'")
+    add_amm_attn_arg(ap)
+    args = ap.parse_args(argv)
+    apply_to = resolve_amm_apply_to(ap, args)
+    validate_amm_args(ap, args)
+    validate_serve_flags(ap, args)
+    dev = resolve_device(args.device)
+
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    cfg = dataclasses.replace(
+        cfg, amm=AmmConfig(mode=args.amm, mul=args.mul, wl=args.wl,
+                           param=args.vbl, use_pallas=args.amm_pallas,
+                           apply_to=apply_to))
+    rt = ModelRuntime.build(cfg)
+    params = lm_init(cfg, 0, device=dev)
+    prefill_fn, decode_fn = make_serve_fns(cfg, rt)
+    sched = Scheduler(cfg, rt, params, args.slots, args.max_len,
+                      decode_fn=decode_fn,
+                      prefill_fn=prefill_fn if args.continuous else None,
+                      continuous=args.continuous, device=dev)
+
+    rng = np.random.default_rng(0)
+    for rid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab, rng.integers(4, 12)).tolist()
+        sched.submit(Request(rid=rid, prompt=prompt, max_new=args.max_new))
+
+    t0 = time.perf_counter()
+    steps = 0
+    while sched.step():
+        steps += 1
+    dt = time.perf_counter() - t0
+    print(f"[serve] {args.requests} requests in {steps} decode steps, "
+          f"{dt:.2f}s on {dev}")
+    return steps
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,170 @@
+"""Decoder-only LM, dense family: [attention + gated MLP] x L.
+
+Counterpart of the dense half of ``repro.models.transformer``:
+``ModelRuntime``, ``lm_table``/``lm_init``, ``init_cache`` and
+``lm_apply`` in train, prefill and decode modes.  The reference scans
+its layers with ``jax.lax.scan``; here a Python loop walks the
+layer-stacked parameters.  The residual stream is bf16 and the float
+cache bf16, as in the reference.
+
+The noise seeds follow the reference's key chain: ``lm_apply`` starts
+from ``jax.random.key(rng)`` (``rng`` defaults to 0, as the reference's
+serving path never passes one), splits it once per layer, and the
+layer's ``amm_dense`` calls share ``randint(layer key)``.  ``core.prng``
+computes those integers on the host once per (rng, depth).
+
+The other families (MoE, SSM, hybrid, encoder-decoder, VLM) are ROADMAP
+item A12 and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..core.prng import layer_seeds
+from ..device import pin_fp32, resolve_device
+from .attention import attention, attn_table
+from .common import AmmRuntime, Spec, init_params, rmsnorm
+from .moe import mlp_apply, mlp_table
+
+__all__ = ["ModelRuntime", "lm_table", "lm_init", "lm_apply", "init_cache"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelRuntime:
+    """Static knobs threaded through apply.
+
+    ``use_pallas_attention`` is kept for the reference's signature: it
+    only changes the cacheless forward, whose flash kernels are not
+    ported yet (ROADMAP B3, B4).  The reference's other knobs (remat,
+    head sharding, causal skipping, bf16 probabilities) are performance
+    levers of its TPU build and are not carried over.
+    """
+    amm: AmmRuntime
+    use_pallas_attention: bool = False
+
+    @staticmethod
+    def build(cfg: ArchConfig, use_pallas: bool = False) -> "ModelRuntime":
+        return ModelRuntime(AmmRuntime.build(cfg.amm), use_pallas)
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family != "dense" or cfg.is_encoder_decoder or cfg.use_mla:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} of {cfg.name!r} is not ported yet "
+            f"(ROADMAP item A12); the dense family is")
+
+
+def _stack(table: Dict, n: int) -> Dict:
+    """Prefix every Spec with a stacked 'layers' axis."""
+    if isinstance(table, Spec):
+        return Spec((n,) + table.shape, ("layers",) + table.axes, table.init,
+                    table.scale)
+    return {k: _stack(v, n) for k, v in table.items()}
+
+
+def lm_table(cfg: ArchConfig) -> Dict[str, Any]:
+    _check_family(cfg)
+    d, v = cfg.d_model, cfg.vocab
+    t: Dict[str, Any] = {
+        "embed": Spec((v, d), ("vocab", "embed"), "normal", 0.01),
+        "final_norm": Spec((d,), ("embed",), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        t["lm_head"] = Spec((d, v), ("embed", "vocab"), "normal", 0.01)
+    layer = {"attn_norm": Spec((d,), ("embed",), "ones"),
+             "attn": attn_table(cfg),
+             "mlp_norm": Spec((d,), ("embed",), "ones"),
+             "mlp": mlp_table(d, cfg.d_ff)}
+    t["layers"] = _stack(layer, cfg.n_layers)
+    return t
+
+
+def lm_init(cfg: ArchConfig, seed: int = 0, *, device=None,
+            dtype=torch.float32):
+    """Random parameters on ``device`` (the GPU unless told otherwise),
+    drawn from a ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return init_params(lm_table(cfg), gen, device=dev, dtype=dtype)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
+               dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
+    """Layer-stacked float KV cache: k, v (L, B, max_len, KV, head_dim)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def _attn_block(p, h, cfg, rt, *, positions, cache=None, pos=None):
+    amm = rt.amm if rt.amm.attn_active else None
+    y, new_cache = attention(p["attn"], rmsnorm(h, p["attn_norm"],
+                                                cfg.norm_eps),
+                             cfg, positions=positions, cache=cache, pos=pos,
+                             use_pallas=rt.use_pallas_attention, amm=amm)
+    return h + y.to(h.dtype), new_cache
+
+
+def _dense_block(p, h, cfg, rt, seed, *, positions, cache=None, pos=None):
+    h, new_cache = _attn_block(p, h, cfg, rt, positions=positions,
+                               cache=cache, pos=pos)
+    y = mlp_apply(p["mlp"], rmsnorm(h, p["mlp_norm"], cfg.norm_eps), rt.amm,
+                  seed)
+    return h + y.to(h.dtype), new_cache
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a layer-stacked parameter tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
+             mode: str = "train", caches=None, pos=None,
+             rng: Optional[int] = None):
+    """Forward pass.
+
+    tokens: (B, S) integer tokens (S == 1 to decode against caches).
+    caches: optional ``init_cache`` dict, updated in place at ``pos`` (a
+    scalar, or a (B,) per-slot vector under continuous batching) and
+    returned; without caches the attention is the cacheless causal
+    chunked schedule (train and prefill).  rng: the seed of the key the
+    noise seeds derive from (``jax.random.key(rng)``; default 0).
+    Returns (logits f32 (B, S, vocab), aux losses, caches).
+    """
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_family(cfg)
+    pin_fp32()
+    embed = params["embed"]
+    dev = embed.device
+    tokens = torch.as_tensor(tokens, device=dev).to(torch.int64)
+    seeds = layer_seeds(0 if rng is None else int(rng), cfg.n_layers)
+    h = embed[tokens].to(torch.bfloat16)
+    b, s = tokens.shape
+    off = torch.as_tensor(0 if pos is None else pos, device=dev).to(
+        torch.int32)
+    if off.ndim == 1:
+        off = off[:, None]
+    positions = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+                 + off) * torch.ones((b, 1), dtype=torch.int32, device=dev)
+    for i in range(cfg.n_layers):
+        cache_l = None if caches is None else {"k": caches["k"][i],
+                                               "v": caches["v"][i]}
+        h, _ = _dense_block(_layer(params["layers"], i), h, cfg, rt,
+                            seeds[i], positions=positions, cache=cache_l,
+                            pos=pos)
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    head = embed.T if cfg.tie_embeddings else params["lm_head"]
+    logits = (h @ head.to(h.dtype)).to(torch.float32)
+    new_caches = caches if caches is not None else {}
+    return logits, {"moe_aux": 0.0}, new_caches

@@ -1,28 +1,77 @@
-"""Serving engine for the paper's workload: the batched FIR filterbank.
+"""Serving engines: the LM ``Scheduler`` and the batched FIR filterbank.
 
-Counterpart of ``FilterRequest`` and ``FilterbankEngine`` in
-``repro.serve.engine`` (the LM ``Scheduler`` joins this module in a later
-slice).  Filtering requests accumulate into channel slots and are served
-by one multi-channel Broken-Booth filterbank dispatch per flush
-(``dsp.fir_apply``).  The tap banks are fixed for the engine's lifetime,
-so their quantization and Booth recode happen once, at construction
-(``dsp.PrecodedBank``), and every flush gathers the cached digit planes
-by request index.
+Counterpart of ``repro.serve.engine``.
+
+``make_serve_fns`` gives the LM's two entry points as plain closures
+(PyTorch runs eagerly: there is no ``jit`` to carry over):
+
+  prefill(params, tokens, caches)        -> (logits_last, caches)
+  decode(params, tokens_1, caches, pos)  -> (logits, caches)
+
+``Scheduler`` serves LM requests from a fixed pool of batch slots, in the
+reference's flush mode (lockstep, one prompt token per step) or its
+continuous mode (per-step FIFO admission, whole-prompt prefill on a
+batch-1 slot slice, per-slot-position decode, eviction on completion or
+failure), with its retries, poison-request probes, deadlines and guards.
+The caches live on the scheduler's device and are updated in place (the
+reference replaces them with each call's result).
+
+``FilterbankEngine`` serves the paper's own workload: filtering requests
+accumulate into channel slots and are served by one multi-channel
+Broken-Booth filterbank dispatch per flush (``dsp.fir_apply``).  The tap
+banks are fixed for the engine's lifetime, so their quantization and
+Booth recode happen once, at construction (``dsp.PrecodedBank``), and
+every flush gathers the cached digit planes by request index.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
-from ..core.guards import GuardConfig, guard_rows
+from ..configs.base import ArchConfig
+from ..core.guards import GuardConfig, finite_rows, guard_rows
 from ..core.multipliers import MulSpec
-from ..device import resolve_device
+from ..device import pin_fp32, resolve_device
 from ..dsp.fir import BBM_KINDS, PrecodedBank, fir_apply
 from ..kernels.booth_rows import resolve_form
+from ..models import AmmRuntime, ModelRuntime, init_cache, lm_apply
+from .kv_cache import batch_axis_tree, reset_slot, slot_put, slot_take
 
-__all__ = ["FilterRequest", "FilterbankEngine"]
+__all__ = ["cache_logical_axes", "make_serve_fns", "Request", "Scheduler",
+           "FilterRequest", "FilterbankEngine"]
+
+_CODES = ("kv_codes (the int-code KV cache) is ROADMAP slice 3, with the "
+          "bitexact datapath")
+
+
+def cache_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+    """Logical axes of every cache leaf of the dense family's
+    ``models.init_cache`` (the only family ported)."""
+    kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    return {"k": kvax, "v": kvax}
+
+
+def make_serve_fns(cfg: ArchConfig, rt: ModelRuntime):
+    """(prefill_fn, decode_fn): ``lm_apply`` in decode mode against the
+    caches, each returning the last position's logits.  Prefill writes
+    the prompt at position 0; decode takes a scalar position or a (B,)
+    per-slot vector.  Both run on the device the parameters live on."""
+    def prefill(params, tokens, caches):
+        logits, _, new_caches = lm_apply(params, cfg, rt, tokens,
+                                         mode="decode", caches=caches, pos=0)
+        return logits[:, -1], new_caches
+
+    def decode(params, tokens, caches, pos):
+        logits, _, new_caches = lm_apply(params, cfg, rt, tokens,
+                                         mode="decode", caches=caches,
+                                         pos=pos)
+        return logits[:, -1], new_caches
+
+    return prefill, decode
 
 
 @dataclasses.dataclass
@@ -187,3 +236,402 @@ class FilterbankEngine:
                         self._exact_spec(), backend="host", form=None,
                         device=self.device)
         return np.asarray(y)[0]
+
+
+# ------------------------------------------------------------ LM serving
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new: int
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    # degradation-path fields: why the request failed (None = healthy),
+    # an optional per-request deadline in scheduler steps, whether the
+    # output was re-served on the exact datapath after a guard trip
+    error: Optional[str] = None
+    deadline: Optional[int] = None
+    exact: bool = False
+    _pending: List[int] = dataclasses.field(default_factory=list)
+    _steps: int = 0
+
+
+def _argmax_rows(logits: torch.Tensor) -> np.ndarray:
+    return torch.argmax(logits, dim=-1).cpu().numpy().reshape(-1)
+
+
+class Scheduler:
+    """Slot-based LM batch scheduler over the decode step.
+
+    The reference's two modes, its degradation policy and its ``stats``,
+    step for step:
+
+      * ``continuous=False`` (flush mode): admission only into an idle
+        batch, prompts fed one token per step through the batched decode,
+        every resident walking in lockstep;
+      * ``continuous=True``: FIFO admission into free slots, at most
+        ``max_prefills_per_step`` per step, the prompt prefilled as one
+        batch-1 dispatch on the slot's cache slice, then one decode over
+        all residents at their own positions; slots are evicted (and
+        zeroed on the next admission) on completion or failure.
+
+    Degradation (all opt-in): a raising decode step is retried
+    ``max_retries`` times with capped exponential backoff; then each live
+    slot is probed alone against a copy of the caches and the requests
+    the failure follows fail alone (a failure no probe reproduces
+    re-raises); ``guard`` runs per-slot guards on each step's logits and
+    re-serves a tripped request from scratch on the exact datapath;
+    ``Request.deadline`` bounds the steps a request may hold a slot.
+
+    ``device``: where the caches live and the steps run (the GPU unless
+    told otherwise); ``params`` must already be there.  The default step
+    functions update the caches in place; a retry rewrites the same
+    positions from the same inputs.  A supplied ``decode_fn`` counts as
+    consuming its caches, as a donating jitted step does in the
+    reference: retries then snapshot the caches first.
+    """
+
+    def __init__(self, cfg: ArchConfig, rt: ModelRuntime, params,
+                 batch_slots: int, max_len: int, decode_fn=None, *,
+                 prefill_fn=None, continuous: bool = False,
+                 kv_codes: bool = False, max_prefills_per_step: int = 1,
+                 guard: Optional[GuardConfig] = None, max_retries: int = 0,
+                 backoff: float = 0.0, backoff_cap: float = 1.0,
+                 device=None):
+        if kv_codes:
+            raise NotImplementedError(_CODES)
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"parameters on {params['embed'].device}, "
+                             f"scheduler on {self.device}")
+        pin_fp32()
+        self.cfg, self.rt, self.params = cfg, rt, params
+        self.slots: List[Optional[Request]] = [None] * batch_slots
+        self.pos = np.zeros(batch_slots, np.int32)
+        self.max_len = max_len
+        self.caches = init_cache(cfg, batch_slots, max_len,
+                                 device=self.device)
+        self.continuous = continuous
+        self.max_prefills_per_step = max_prefills_per_step
+        self._bax = batch_axis_tree(cache_logical_axes(cfg))
+        self.queue: List[Request] = []
+        self.decode_fn = decode_fn
+        self.prefill_fn = prefill_fn
+        self.guard = guard
+        self.max_retries = max_retries
+        self.backoff = backoff
+        self.backoff_cap = backoff_cap
+        self.stats = {"steps": 0, "decoded": 0, "completed": 0,
+                      "prefills": 0, "retries": 0, "probes": 0,
+                      "failed": 0, "guard_trips": 0, "exact_reserves": 0,
+                      "deadline_expired": 0}
+        self._prefill_default, self._default_fn = make_serve_fns(cfg, rt)
+
+    def submit(self, req: Request):
+        """Queue one request; invalid specs raise here, not mid-serve.
+
+        A prompt of ``max_len`` or more tokens can never produce a token,
+        so it is rejected; an empty prompt decodes from token 0.
+        """
+        if req.max_new < 1:
+            raise ValueError(f"request {req.rid}: max_new must be >= 1, "
+                             f"got {req.max_new}")
+        if len(req.prompt) >= self.max_len:
+            raise ValueError(
+                f"request {req.rid}: prompt of {len(req.prompt)} tokens "
+                f"cannot fit max_len={self.max_len} (needs at least one "
+                f"free position to decode)")
+        self.queue.append(req)
+
+    def _admit(self):
+        for i, s in enumerate(self.slots):
+            if s is None and self.queue:
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                self.pos[i] = 0
+                req._pending = list(req.prompt)     # tokens still to feed
+                req._steps = 0
+
+    def _tokens(self, toks) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(toks), dtype=torch.int64,
+                               device=self.device)
+
+    def _pos_arr(self, pos):
+        """Decode position operand: an int (flush mode) or a (B,) tensor."""
+        if np.ndim(pos) == 0:
+            return int(pos)
+        return torch.as_tensor(np.asarray(pos, np.int32), device=self.device)
+
+    def _fail(self, i: int, reason: str):
+        s = self.slots[i]
+        s.error = reason
+        s.done = True
+        self.slots[i] = None
+        self.pos[i] = 0
+        self.stats["failed"] += 1
+
+    def _snapshot(self):
+        """A copy of the caches (retries, probes, audits)."""
+        return {k: v.clone() for k, v in self.caches.items()}
+
+    def _probe_poison(self, fn, toks, pos, live) -> List[int]:
+        """Which live slots does the decode failure follow?  Each probe
+        decodes one slot's token, padding elsewhere, on a cache copy."""
+        poison = []
+        for i in live:
+            t = np.zeros_like(toks)
+            t[i] = toks[i]
+            self.stats["probes"] += 1
+            try:
+                fn(self.params, self._tokens(t), self._snapshot(),
+                   self._pos_arr(pos))
+            except Exception:
+                poison.append(i)
+        return poison
+
+    def _decode_isolated(self, fn, toks, pos, live):
+        """The decode step with retry and poison isolation.
+
+        Returns (logits, live); (None, live) when nothing is left to
+        decode this step; re-raises when the failure is systemic.
+        """
+        donating = self.decode_fn is not None
+        last = None
+        for attempt in range(self.max_retries + 1):
+            backup = self._snapshot() if donating and self.max_retries \
+                else None
+            try:
+                logits, self.caches = fn(self.params, self._tokens(toks),
+                                         self.caches, self._pos_arr(pos))
+                return logits, live
+            except Exception as e:
+                last = e
+                if backup is not None:
+                    self.caches = backup
+                if attempt < self.max_retries:
+                    self.stats["retries"] += 1
+                    if self.backoff > 0:
+                        time.sleep(min(self.backoff * (2 ** attempt),
+                                       self.backoff_cap))
+        if self.max_retries == 0 and donating:
+            # no retry budget means no snapshot was taken and a consuming
+            # fn may have spent the caches: nothing to salvage
+            raise last
+        poison = self._probe_poison(fn, toks, pos, live)
+        if not poison:
+            raise last            # systemic: every single-slot probe passed
+        for i in poison:
+            self._fail(i, f"decode failed: {last!r}")
+        live = [i for i in live if i not in poison]
+        if not live:
+            return None, live
+        toks = toks.copy()
+        for i in poison:
+            toks[i] = 0
+        logits, self.caches = fn(self.params, self._tokens(toks),
+                                 self.caches, self._pos_arr(pos))
+        return logits, live
+
+    def _guard_slots(self, logits, toks, pos, pre_caches, live) -> List[int]:
+        """Live slots whose runtime guards tripped on this step's logits."""
+        if self.guard is None:
+            return []
+        arr = logits.to(torch.float32).cpu().numpy()
+        ok = finite_rows(arr) if self.guard.finite \
+            else np.ones(arr.shape[0], bool)
+        if self.guard.budget_active and pre_caches is not None \
+                and self.stats["steps"] % self.guard.budget_every == 0:
+            # sampled accuracy audit: the same step on the exact datapath
+            exact_logits, _ = self._exact_fn()(self.params,
+                                               self._tokens(toks),
+                                               pre_caches,
+                                               self._pos_arr(pos))
+            err = np.abs(arr.astype(np.float64)
+                         - exact_logits.cpu().numpy().astype(np.float64))
+            ok &= np.where(np.isfinite(err), err, np.inf).mean(axis=-1) \
+                <= self.guard.budget_abs
+        tripped = [i for i in live if not ok[i]]
+        self.stats["guard_trips"] += len(tripped)
+        return tripped
+
+    def _rt_exact(self) -> ModelRuntime:
+        """This scheduler's runtime with the approximate datapath off."""
+        cfg_off = dataclasses.replace(self.rt.amm.cfg, mode="off")
+        return dataclasses.replace(self.rt, amm=AmmRuntime(cfg_off))
+
+    def _exact_fn(self):
+        return make_serve_fns(self.cfg, self._rt_exact())[1]
+
+    def _reserve_exact(self, req: Request):
+        """Regenerate one guard-tripped request on the exact datapath:
+        from-scratch greedy decode at batch 1."""
+        self.stats["exact_reserves"] += 1
+        fn = self._exact_fn()
+        caches = init_cache(self.cfg, 1, self.max_len, device=self.device)
+        req.out = []
+        pending = list(req.prompt)
+        tok = pending.pop(0) if pending else 0
+        pos = 0
+        while len(req.out) < req.max_new and pos < self.max_len - 1:
+            logits, caches = fn(self.params, self._tokens([[tok]]), caches,
+                                pos)
+            pos += 1
+            if pending:
+                tok = pending.pop(0)
+            else:
+                tok = int(_argmax_rows(logits)[0])
+                req.out.append(tok)
+        req.exact = True
+        req.done = True
+
+    # ------------------------------------------------- continuous batching
+    def _finish(self, i: int):
+        """Complete slot ``i``: evict and free it for the next admission."""
+        s = self.slots[i]
+        s.done = True
+        self.slots[i] = None
+        self.pos[i] = 0
+        self.stats["completed"] += 1
+
+    def _prefill_slot(self, i: int):
+        """Prefill slot ``i``'s prompt as one batch-1 dispatch on a copy
+        of the slot's cache slice, written back on success; the prefill's
+        last logits give the first generated token.  An empty prompt
+        prefills the pad token 0."""
+        req = self.slots[i]
+        toks = list(req.prompt) or [0]
+        fn = self.prefill_fn or self._prefill_default
+        sub = slot_take(self.caches, self._bax, i)
+        last = None
+        for attempt in range(self.max_retries + 1):
+            try:
+                logits, sub = fn(self.params, self._tokens([toks]), sub)
+                break
+            except Exception as e:
+                last = e
+                if attempt < self.max_retries:
+                    self.stats["retries"] += 1
+                    if self.backoff > 0:
+                        time.sleep(min(self.backoff * (2 ** attempt),
+                                       self.backoff_cap))
+        else:
+            self._fail(i, f"prefill failed: {last!r}")
+            return
+        self.caches = slot_put(self.caches, self._bax, sub, i)
+        self.pos[i] = len(toks)
+        self.stats["prefills"] += 1
+        self.stats["decoded"] += len(toks)
+        req._pending = []
+        req.out.append(int(_argmax_rows(logits)[0]))
+        if len(req.out) >= req.max_new or self.pos[i] >= self.max_len - 1:
+            self._finish(i)
+
+    def _step_continuous(self) -> int:
+        """One continuous-batching step: admit, prefill, decode residents."""
+        admitted = 0
+        for i in range(len(self.slots)):
+            if not self.queue or admitted >= self.max_prefills_per_step:
+                break
+            if self.slots[i] is None:
+                req = self.queue.pop(0)
+                self.slots[i] = req
+                req._steps = 0
+                req._pending = []
+                self.pos[i] = 0
+                self.caches = reset_slot(self.caches, self._bax, i)
+                self._prefill_slot(i)    # may fail or finish the slot
+                admitted += 1
+        live = [i for i, s in enumerate(self.slots) if s is not None]
+        if not live:
+            return 0
+        self.stats["steps"] += 1
+        toks = np.zeros((len(self.slots), 1), np.int32)
+        for i in live:
+            toks[i, 0] = self.slots[i].out[-1]
+        pos = self.pos.copy()   # (B,): dead slots write pad at 0, wiped on
+        fn = self.decode_fn or self._default_fn       # the next admission
+        audit = (self.guard is not None and self.guard.budget_active
+                 and self.stats["steps"] % self.guard.budget_every == 0)
+        pre_caches = self._snapshot() if audit else None
+        n_live = len(live)
+        logits, live = self._decode_isolated(fn, toks, pos, live)
+        if logits is None:
+            return n_live
+        for i in self._guard_slots(logits, toks, pos, pre_caches, live):
+            self._reserve_exact(self.slots[i])
+            self.slots[i] = None
+            self.pos[i] = 0
+            live = [j for j in live if j != i]
+        nxt = _argmax_rows(logits)
+        for i in live:
+            s = self.slots[i]
+            self.pos[i] += 1
+            s._steps += 1
+            self.stats["decoded"] += 1
+            s.out.append(int(nxt[i]))
+            if len(s.out) >= s.max_new or self.pos[i] >= self.max_len - 1:
+                self._finish(i)
+            elif s.deadline is not None and s._steps >= s.deadline:
+                self._fail(i, "deadline")
+                self.stats["deadline_expired"] += 1
+        return n_live
+
+    def step(self) -> int:
+        """One decode step over all live slots; returns #live requests."""
+        if self.continuous:
+            return self._step_continuous()
+        self._admit()
+        live = [i for i, s in enumerate(self.slots) if s is not None]
+        if not live:
+            return 0
+        self.stats["steps"] += 1
+        toks = np.zeros((len(self.slots), 1), np.int32)
+        for i in live:
+            s = self.slots[i]
+            # peek, don't pop: the prompt token is consumed only once the
+            # decode call commits, so a retried step does not lose it
+            toks[i, 0] = (s._pending[0] if s._pending
+                          else (s.out[-1] if s.out else 0))
+        pos = int(self.pos[live[0]])   # homogeneous-pos simplification
+        fn = self.decode_fn or self._default_fn
+        audit = (self.guard is not None and self.guard.budget_active
+                 and self.stats["steps"] % self.guard.budget_every == 0)
+        pre_caches = self._snapshot() if audit else None
+        n_live = len(live)
+        logits, live = self._decode_isolated(fn, toks, pos, live)
+        if logits is None:
+            return n_live
+        for i in self._guard_slots(logits, toks, pos, pre_caches, live):
+            self._reserve_exact(self.slots[i])
+            self.slots[i] = None
+            live = [j for j in live if j != i]
+        nxt = _argmax_rows(logits)
+        for i in live:
+            s = self.slots[i]
+            self.pos[i] += 1
+            s._steps += 1
+            self.stats["decoded"] += 1
+            if s._pending:
+                s._pending.pop(0)       # committed: the step consumed it
+            if not s._pending:
+                # prompt drained: this step's logits predict past the
+                # prompt, so the step that consumes the last prompt token
+                # also emits the first generated token
+                s.out.append(int(nxt[i]))
+                if len(s.out) >= s.max_new:
+                    s.done = True
+                    self.slots[i] = None
+                    self.stats["completed"] += 1
+                    continue
+            if self.pos[i] >= self.max_len - 1:
+                # cache positions exhausted: finish (or fail, mid-prompt)
+                if s._pending:
+                    self._fail(i, "context exhausted mid-prompt")
+                else:
+                    s.done = True
+                    self.slots[i] = None
+                    self.stats["completed"] += 1
+            elif s.deadline is not None and s._steps >= s.deadline:
+                self._fail(i, "deadline")
+                self.stats["deadline_expired"] += 1
+        return n_live

@@ -142,6 +142,107 @@ def test_entry_points_default_to_the_gpu(entry):
         calls[entry](device="cpu")      # the plain versions need no card
 
 
+def _tiny_lm():
+    import dataclasses
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import AmmConfig
+    return dataclasses.replace(
+        reduced(get_arch("qwen2-0.5b"), layers=1, d_model=16, vocab=32),
+        amm=AmmConfig(mode="noise", use_pallas=True))
+
+
+@pytest.mark.parametrize("entry", ["lm_init", "init_cache", "Scheduler",
+                                   "lm_params_from_numpy", "launch.serve"])
+def test_lm_entry_points_default_to_the_gpu(entry):
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.launch import serve as t_launch
+    from repro_torch.models import ModelRuntime, init_cache, lm_init
+    from repro_torch.serve import Scheduler
+    cfg = _tiny_lm()
+
+    def sched(**kw):
+        dev = kw.get("device", "cuda")
+        params = lm_init(cfg, device="cpu" if dev == "cpu" else None)
+        return Scheduler(cfg, ModelRuntime.build(cfg), params, 2, 8, **kw)
+
+    def launch(**kw):
+        argv = ["--reduced", "--requests", "1", "--max-new", "1",
+                "--amm", "noise", "--amm-pallas"]
+        dev = kw.get("device")
+        return t_launch.main(argv + ([] if dev is None
+                                     else ["--device", dev]))
+    calls = {
+        "lm_init": lambda **kw: lm_init(cfg, **kw),
+        "init_cache": lambda **kw: init_cache(cfg, 2, 8, **kw),
+        "Scheduler": sched,
+        "lm_params_from_numpy": lambda **kw: lm_params_from_numpy(
+            {"embed": np.ones((4, 2), np.float32)}, **kw),
+        "launch.serve": launch,
+    }
+    with _no_gpu():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[entry]()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            calls[entry](device="cuda")
+        calls[entry](device="cpu")      # the plain versions need no card
+
+
+def test_tf32_is_off_on_the_f32_paths():
+    """The port's f32 paths pin TF32 off (matmul and cuDNN), whatever the
+    caller set: the entry points call ``device.pin_fp32``."""
+    from repro_torch.kernels import quant_matmul
+    from repro_torch.kernels.ref import quant_matmul_ref
+    from repro_torch.models import (ModelRuntime, amm_dense, init_cache,
+                                    lm_apply, lm_init)
+    from repro_torch.serve import Scheduler
+    cfg = _tiny_lm()
+    rt = ModelRuntime.build(cfg)
+    params = lm_init(cfg, device="cpu")
+    x, w = torch.ones((2, 16)), torch.ones((16, 4))
+    runs = {
+        "lm_apply": lambda: lm_apply(params, cfg, rt, torch.ones(
+            (1, 3), dtype=torch.int64), mode="decode",
+            caches=init_cache(cfg, 1, 8, device="cpu"), pos=0),
+        "amm_dense": lambda: amm_dense(x, w, rt.amm, 5),
+        "quant_matmul": lambda: quant_matmul(x, w, 0.1, 0.1),
+        "quant_matmul_ref": lambda: quant_matmul_ref(x, w, 0.1, 0.1),
+        "Scheduler": lambda: Scheduler(cfg, rt, params, 1, 8,
+                                       device="cpu"),
+    }
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    try:
+        for name, run in runs.items():
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            run()
+            assert not torch.backends.cuda.matmul.allow_tf32, name
+            assert not torch.backends.cudnn.allow_tf32, name
+            assert torch.get_float32_matmul_precision() == "highest", name
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old[0]
+        torch.backends.cudnn.allow_tf32 = old[1]
+
+
+def test_unported_parts_name_their_roadmap_item():
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as t_launch
+    from repro_torch.models import ModelRuntime
+    from repro_torch.models.attention import attention, attn_table
+    with pytest.raises(NotImplementedError, match="A12"):
+        get_arch("deepseek-v3-671b")
+    for flag in (["--amm", "bitexact"], ["--amm-attn"], ["--kv-codes"]):
+        with pytest.raises(NotImplementedError, match="slice 3"):
+            t_launch.main(["--reduced", "--device", "cpu"] + flag)
+    cfg = _tiny_lm()
+    x = torch.ones((1, 2, 16))
+    p = {k: torch.ones(v.shape) for k, v in attn_table(cfg).items()}
+    with pytest.raises(NotImplementedError, match="B4 and B3"):
+        attention(p, x, cfg, positions=torch.zeros((1, 2)),
+                  use_pallas=True)
+    assert ModelRuntime.build(cfg).amm.mlp_active
+
+
 def test_bank_and_call_must_share_a_device():
     bank = t_fir.PrecodedBank(t_fir.design_lowpass(), SPEC, device="cpu")
     with _no_gpu():
@@ -239,6 +340,34 @@ def test_kernels_equal_plain_versions_on_the_card(kind):
         == before + 2
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("wl", [8, 16])
+def test_kernel_within_bound_of_plain_version_on_the_card(wl):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+    from repro_torch.kernels.ref import amm_scale
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((8, 896)).astype(
+        np.float32)).cuda()
+    w = torch.from_numpy((0.02 * rng.standard_normal((896, 200))).astype(
+        np.float32)).cuda()
+    mu, sigma = -18779.225471496582, 6859.595897768407
+    sx, sw = amm_scale(x, wl), amm_scale(w, wl)
+    before = t_qm.quant_matmul.launches
+    got = t_qm.quant_matmul(x, w, sx, sw, mu, sigma, wl=wl, seed=3)
+    want = t_qm.quant_matmul_plain(x, w, sx, sw, mu, sigma, wl=wl,
+                                   seed=3, bm=128, bk=512, bn=128)
+    tol = t_qm.quant_matmul_tolerance(x, w, sx, sw, mu, sigma, wl=wl)
+    torch.cuda.synchronize()
+    assert bool(((got.double() - want.double()).abs() <= tol).all())
+    assert t_qm.quant_matmul.launches == before + 1
+    w1, w2 = t_qm.hash_words(8, 200, 3, bm=8, bn=128)
+    p1, p2 = t_qm.hash_words_plain(8, 200, 3, bm=8, bn=128, device="cuda")
+    assert torch.equal(w1, p1) and torch.equal(w2, p2)
+
+
 # --------------------------------------------------------------- the build
 def test_build_directory_is_git_ignored():
     ignored = [ln.strip().rstrip("/") for ln in
@@ -247,7 +376,8 @@ def test_build_directory_is_git_ignored():
     rel = _build.BUILD_DIR.relative_to(ROOT).as_posix()
     assert any(rel == p or rel.startswith(p + "/") for p in ignored), rel
     assert "chiprun_out" in ignored
-    assert _build.SOURCES["fir_bank"].is_file()
-    assert _build.SOURCES["fir_bank"].relative_to(PKG).as_posix() \
-        == "kernels/csrc/fir_bank.cu"
+    for name in ("fir_bank", "quant_matmul"):
+        assert _build.SOURCES[name].is_file()
+        assert _build.SOURCES[name].relative_to(PKG).as_posix() \
+            == f"kernels/csrc/{name}.cu"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
