@@ -47,7 +47,36 @@ of the JAX package.  Phases, each of which fails the run:
   9. LM timing: tokens/s, decode-step ms, the card's idle share of a
      decode step (torch.profiler), and quant_matmul at the decode and a
      prefill shape against its bound, its plain version and f32
-     ``torch.matmul`` as a yardstick.
+     ``torch.matmul`` as a yardstick;
+ 10. training sweeps: ``bbm_dot_scaled`` bit-equal to its plain version
+     over wl in {8, 12, 16}, both kinds, K one below, at and one past
+     ``amm_chunk_len``, envelope-edge operands (the plain version on CPU
+     copies where the operating point has no f32 envelope);
+     ``flash_attention`` within ``flash_tolerance`` of its plain version
+     and ``flash_attention_amm`` held against its plain version by
+     ``flash_amm_compare`` (score products bit-equal, P's codes and tile
+     scales within what float rounding moves, P V products bit-equal
+     where P's codes agree, the output within the bound of the codes
+     that moved) at S in {128, 384, 512}, causal and not, and the amm
+     kernel bit-equal outright where P is one-hot;
+ 11. training T1: ``python -m repro_torch.launch.train --amm bitexact
+     --mul bbm0 --wl 16 --vbl 13 --amm-attn --flash-attn`` through its
+     ``main``: full-width qwen2-0.5b (24 layers, random weights), batch
+     4 x seq 512 from the data pipeline, AdamW, 3 steps; exactly 72
+     ``bbm_dot_scaled`` and 24 ``flash_attention_amm`` launches per step,
+     none of the other kernels, every loss finite;
+ 12. training T2: ``--amm off --flash-attn``, the same sizes: exactly 24
+     ``flash_attention`` launches per step;
+ 13. the card against the CPU: a 2-layer cut at full width, one sequence
+     of 256 tokens, T1's settings: the loss within 2^-12 of the CPU
+     port's, every gradient leaf within 2^-5 of its largest element, the
+     first MLP product's ``_amm_bitexact_approx`` bit-equal;
+ 14. training timing: step ms, tokens/s, device ms per kernel per step
+     and the idle share of a step (torch.profiler over T1's and T2's
+     last steps), and each new kernel at its main-path shapes against
+     its bound, its plain version and, for ``flash_attention``,
+     ``scaled_dot_product_attention`` on the same f32 operands (a
+     yardstick only).
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -78,7 +107,18 @@ INT32_OPS_PER_S = 67e12 / 4
 SOURCE = "src/repro_torch/kernels/csrc/fir_bank.cu"
 REPLACES = {"fir_bank_rows": "src/repro/kernels/fir_kernel.py:106",
             "fir_bank_dot": "src/repro/kernels/fir_kernel.py:136",
-            "quant_matmul": "src/repro/kernels/quant_matmul.py:69"}
+            "quant_matmul": "src/repro/kernels/quant_matmul.py:69",
+            "bbm_dot_scaled": "src/repro/kernels/bbm_matmul.py:112",
+            "flash_attention": "src/repro/kernels/flash_attention.py:65",
+            "flash_attention_amm":
+                "src/repro/kernels/flash_attention.py:209"}
+TRAIN_SOURCES = {
+    "bbm_dot_scaled": "src/repro_torch/kernels/csrc/bbm_dot.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "flash_attention_amm": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+TRAIN_KERNELS = {"bbm_dot_scaled": ("bbm_dot_kernel",),
+                 "flash_attention": ("flash_exact_kernel",),
+                 "flash_attention_amm": ("flash_amm_kernel",)}
 QM_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 QM_KERNELS = ("qm_partial_kernel", "qm_finish_kernel")
@@ -155,8 +195,11 @@ def kernel_device_ms(torch, fn, reps: int, kernel):
     total_us = 0.0
     for ev in prof.key_averages():
         if any(n in ev.key for n in names):
-            t = getattr(ev, "device_time_total", None)
-            total_us += t if t is not None else ev.cuda_time_total
+            t = getattr(ev, "self_device_time_total", None)
+            t = t if t is not None else ev.self_cuda_time_total
+            if not t:
+                t = getattr(ev, "device_time_total", None) or 0.0
+            total_us += t
     return total_us / reps / 1e3 if total_us > 0 else None
 
 
@@ -544,6 +587,425 @@ def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
     return rows, lines, idle
 
 
+# ---------------------------------------------------------------- training
+def train_modules():
+    import importlib
+    return (importlib.import_module("repro_torch.kernels.bbm_matmul"),
+            importlib.import_module("repro_torch.kernels.flash_attention"))
+
+
+def b2_sweep(torch, tb, dev) -> int:
+    """bbm_dot_scaled == its plain version, bit for bit; returns cases.
+    The plain version runs on the card where the operating point has an
+    f32 envelope, else on CPU copies (torch has no int32 matmul on the
+    card)."""
+    from repro_torch.kernels.booth_rows import (amm_chunk_len,
+                                                f32_exact_chunk_len)
+    rng = np.random.default_rng(7)
+    cases = 0
+    for wl, vbl in ((8, 5), (12, 7), (16, 13), (16, 3), (16, 0)):
+        c = amm_chunk_len(wl, vbl)
+        lim = 1 << (wl - 1)
+        for kind in (0, 1):
+            for k in sorted({max(1, c - 1), c, c + 1}):
+                m, n = (3, 5) if k > 100_000 else (37, 70)
+                x = rng.integers(-lim, lim, (m, k)).astype(np.int32)
+                w = rng.integers(-lim, lim, (k, n)).astype(np.int32)
+                x[0], x[1] = lim - 1, -lim              # envelope edges
+                w[:, 0], w[:, 1] = lim - 1, -lim
+                x, w = (torch.from_numpy(a).to(dev) for a in (x, w))
+                got = tb.bbm_dot_scaled(x, w, wl=wl, vbl=vbl, kind=kind)
+                on = dev if f32_exact_chunk_len(wl, vbl) else "cpu"
+                want = tb.bbm_dot_scaled_plain(x.to(on), w.to(on), wl=wl,
+                                               vbl=vbl, kind=kind)
+                torch.cuda.synchronize()
+                if not torch.equal(got.to(on), want):
+                    fail(f"bbm_dot_scaled != plain at wl={wl} vbl={vbl} "
+                         f"kind={kind} K={k}: "
+                         f"{int((got != want).sum())} elements differ")
+                cases += 1
+    return cases
+
+
+def flash_amm_check(torch, tf, q, k, v, *, kind, causal, what) -> dict:
+    """The amm kernel against its plain version on the same inputs, held
+    by ``flash_amm_compare``: score products bit-equal, P's codes and
+    scales within what float rounding moves, P V products bit-equal where
+    P's codes agree, the output within the bound of the codes that moved.
+    Returns the report."""
+    b, h, s_len, d = q.shape
+    ops = tf.flash_amm_operands(q, k, v, wl=16)
+    got, res = tf.flash_attention_amm(q, k, v, wl=16, vbl=13, kind=kind,
+                                      causal=causal, residuals=True)
+    want, wres = tf.flash_amm_plain(ops, wl=16, vbl=13, kind=kind,
+                                    causal=causal, residuals=True)
+    rep = tf.flash_amm_compare(
+        ops, dict(res, out=got.reshape(b * h, s_len, d)),
+        dict(wres, out=want[:, :s_len]), wl=16, vbl=13, causal=causal)
+    if not rep["ok"]:
+        fail(f"flash_attention_amm disagrees with its plain version {what} "
+             f"kind={kind}: {rep}")
+    return rep
+
+
+def flash_sweep(torch, tf, dev) -> tuple:
+    """Both flash kernels within their bounds of their plain versions
+    (the amm kernel through ``flash_amm_check``), and the whole amm
+    output bit-equal where P is one-hot; returns (cases, worst error /
+    bound of each kernel, codes moved / codes)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    cases, worst = 0, {"flash_attention": 0.0, "flash_attention_amm": 0.0}
+    moved = [0, 0]
+    for s_len in (128, 384, 512):
+        for causal in (True, False):
+            q, k, v = (torch.randn((4, 14, s_len, 64), generator=gen,
+                                   device=dev) for _ in range(3))
+            got = tf.flash_attention(q, k, v, causal=causal)
+            want = tf.flash_attention_plain(q, k, v, causal=causal)
+            tol = tf.flash_tolerance(q, k, v)
+            err = (got.double() - want.double()).abs()
+            if not bool((err <= tol).all()):
+                fail(f"flash_attention off its plain version by "
+                     f"{float(err.max())} at S={s_len} causal={causal}")
+            worst["flash_attention"] = max(worst["flash_attention"], float(
+                (err / tol).max()))
+            for kind in (0, 1):
+                rep = flash_amm_check(torch, tf, q, k, v, kind=kind,
+                                      causal=causal,
+                                      what=f"at S={s_len} causal={causal}")
+                worst["flash_attention_amm"] = max(
+                    worst["flash_attention_amm"], rep["worst_ratio"])
+                moved[0] += rep["codes_moved"]
+                moved[1] += rep["codes"]
+                cases += 1
+            cases += 1
+    # one-hot P (scores 125 apart): the whole output is integer-exact
+    s_len = 256
+    q = torch.zeros((1, 2, s_len, 64), device=dev)
+    k = torch.zeros((1, 2, s_len, 64), device=dev)
+    idx = torch.arange(s_len, device=dev)
+    q[:, :, idx, idx % 64] = 1000.0
+    k[:, :, idx[:64], idx[:64]] = 1.0
+    v = torch.randn((1, 2, s_len, 64), generator=gen, device=dev)
+    ops = tf.flash_amm_operands(q, k, v, wl=16)
+    for kind in (0, 1):
+        got, res = tf.flash_attention_amm(q, k, v, wl=16, vbl=13, kind=kind,
+                                          causal=False, residuals=True)
+        want, wres = tf.flash_amm_plain(ops, wl=16, vbl=13, kind=kind,
+                                        causal=False, residuals=True)
+        if not (torch.equal(got, want.reshape(q.shape))
+                and torch.equal(res["pv"], wres["pv"])):
+            fail(f"flash_attention_amm differs from its plain version "
+                 f"where P is one-hot (kind={kind})")
+        cases += 1
+    return cases, worst, moved
+
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 512, 3
+T1_FLAGS = ["--amm", "bitexact", "--mul", "bbm0", "--wl", "16", "--vbl",
+            "13", "--amm-attn", "--flash-attn"]
+T2_FLAGS = ["--amm", "off", "--flash-attn"]
+
+
+def train_run(torch, flags, counters) -> dict:
+    """One run of the training launcher's ``main`` at full width; the
+    launch counts of every kernel per step, the steps' wall times, and a
+    torch.profiler breakdown of the last step."""
+    import shutil
+    from torch.profiler import ProfilerActivity, profile
+    import repro_torch.launch.train as launch
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps, prof_box = [], {}
+    make = launch.make_train_step
+
+    def counted_make(cfg, rt, tc):
+        step = make(cfg, rt, tc)
+
+        def counted(params, opt, tokens, labels, key):
+            before = {n: f.launches for n, f in counters.items()}
+            last = len(steps) == TRAIN_STEPS - 1
+            prof = profile(activities=[ProfilerActivity.CUDA]) if last \
+                else None
+            torch.cuda.synchronize()
+            if prof is not None:
+                prof.start()
+            t0 = time.perf_counter()
+            out = step(params, opt, tokens, labels, key)
+            loss = float(out[2]["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if prof is not None:
+                prof.stop()
+                prof_box["prof"], prof_box["wall"] = prof, wall
+            steps.append({"wall": wall, "loss": loss, "launches": {
+                n: f.launches - before[n] for n, f in counters.items()}})
+            return out
+        return counted
+
+    for f in counters.values():
+        f.launches = 0
+    launch.make_train_step = counted_make
+    try:
+        t0 = time.perf_counter()
+        hist = launch.main(flags + [
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            str(TRAIN_STEPS), "--ckpt-dir", str(ckpt)])
+        run_s = time.perf_counter() - t0
+    finally:
+        launch.make_train_step = make
+        shutil.rmtree(ckpt, ignore_errors=True)
+    totals = {n: f.launches for n, f in counters.items()}
+    busy, by_kernel = 0.0, []
+    for ev in prof_box["prof"].key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = t if t is not None else ev.self_cuda_time_total
+        if t > 0:
+            busy += t
+            by_kernel.append((t / 1e3, ev.count, ev.key))
+    return {"hist": hist, "steps": steps, "totals": totals, "run_s": run_s,
+            "busy_ms": busy / 1e3, "prof_wall_ms": prof_box["wall"] * 1e3,
+            "by_kernel": sorted(by_kernel, reverse=True)}
+
+
+def check_train_run(name, res, want_per_step) -> None:
+    hist = res["hist"]
+    if len(hist) != TRAIN_STEPS or len(res["steps"]) != TRAIN_STEPS:
+        fail(f"{name}: {len(hist)} steps recorded of {TRAIN_STEPS}")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        fail(f"{name}: a loss is not finite: {[h['loss'] for h in hist]}")
+    for i, st in enumerate(res["steps"]):
+        if st["launches"] != want_per_step:
+            fail(f"{name}: step {i} launched {st['launches']}, expected "
+                 f"{want_per_step}")
+    want_total = {n: TRAIN_STEPS * c for n, c in want_per_step.items()}
+    if res["totals"] != want_total:
+        fail(f"{name}: the run launched {res['totals']}, expected "
+             f"{want_total}")
+
+
+# bf16 residual stream over 2 layers: last-place differences of the f32
+# products flip bf16 roundings (2^-8 of an element); the mean loss over
+# 256 tokens moves far less than one flip, a gradient leaf by a few flips
+# of its largest element (tests/test_torch_train.py holds the port to JAX
+# at the same bounds)
+TRAIN_LOSS_RTOL = 2.0 ** -12
+TRAIN_GRAD_RTOL = 2.0 ** -5
+
+
+def train_cpu_check(torch, dev) -> dict:
+    """A 2-layer cut of qwen2-0.5b at full width, one sequence of 256
+    tokens, T1's settings: the card's loss and gradients against the CPU
+    port's, and the first MLP product's approximate value bit for bit."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import AmmConfig
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models import ModelRuntime, common, lm_init
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainstep import loss_and_grads
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b"), n_layers=2,
+                              amm=AmmConfig(mode="bitexact", mul="bbm0",
+                                            wl=16, param=13, apply_to="all"))
+    rt = ModelRuntime.build(cfg, use_pallas=True)
+    params = lm_init(cfg, 1, device=dev)
+    toks, labels = global_batch(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                           global_batch=1), 0)
+    captured = []
+    approx = common._amm_bitexact_approx
+
+    def first(x, w, rt_, planes=None):
+        out = approx(x, w, rt_, planes=planes)
+        if not captured:
+            captured.append((x, w, out))
+        return out
+    common._amm_bitexact_approx = first
+    try:
+        card, card_g, _ = loss_and_grads(
+            params, cfg, rt, torch.from_numpy(toks).to(dev),
+            torch.from_numpy(labels).to(dev), None)
+        card = float(card)
+    finally:
+        common._amm_bitexact_approx = approx
+    def to_cpu(tree):
+        return {k: to_cpu(v) for k, v in tree.items()} \
+            if isinstance(tree, dict) else tree.cpu()
+    cpu_params = to_cpu(params)
+    t0 = time.perf_counter()
+    cpu, cpu_g, _ = loss_and_grads(cpu_params, cfg, rt,
+                                   torch.from_numpy(toks),
+                                   torch.from_numpy(labels), None)
+    cpu = float(cpu)
+    cpu_s = time.perf_counter() - t0
+    if not (np.isfinite(card) and abs(card - cpu) <= TRAIN_LOSS_RTOL
+            * abs(cpu)):
+        fail(f"the card's loss {card!r} is off the CPU port's {cpu!r}")
+    worst = 0.0
+    for g, w in zip(tree_leaves(card_g), tree_leaves(cpu_g)):
+        ratio = float((g.cpu().double() - w.double()).abs().max()
+                      / w.double().abs().max().clamp_min(1e-30))
+        if not ratio <= TRAIN_GRAD_RTOL:
+            fail(f"a gradient leaf {tuple(w.shape)} on the card is off the "
+                 f"CPU port's by {ratio} of its largest element")
+        worst = max(worst, ratio)
+    x, w, out = captured[0]
+    want = approx(x.cpu(), w.cpu(), rt.amm)
+    if not torch.equal(out.cpu(), want):
+        fail("the first MLP product's _amm_bitexact_approx differs between "
+             "the card and the CPU")
+    return {"card": card, "cpu": cpu, "cpu_s": cpu_s, "grad_worst": worst,
+            "shape": (tuple(x.shape), tuple(w.shape))}
+
+
+def dot_scaled_bound_ms(m: int, k: int, n: int, rows: int) -> tuple:
+    """(bound ms, what bounds it) of one bbm_dot_scaled call: the
+    kernel's int32 instructions per product (one multiply-add for x*bq,
+    and per truncated row a multiply, a shift and an add; kind 0) over
+    the int32 peak, against both code operands read once (int32) and the
+    f32 output written once over 3.35 TB/s."""
+    t_ops = m * k * n * (1 + 3 * rows) / INT32_OPS_PER_S
+    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def flash_bound_ms(pairs: int, d: int, amm_rows: int = 0) -> float:
+    """Operations bound (ms) of one flash call over ``pairs`` live
+    (query, key) pairs (the causal triangle counted, not the full grid)
+    and ``d`` head dims: 4 f32 operations per pair and dim (the two
+    products' multiply-adds) over 67 TFLOP/s, and for the amm kernel also
+    2 Broken-Booth products per pair and dim, ``1 + 3 R`` int32
+    instructions each, over the int32 peak; the caller compares it with
+    the bytes of its shapes (q, k, v, out in f32, codes in int32)."""
+    t_f32 = 4 * pairs * d / F32_OPS_PER_S
+    t_int = 2 * pairs * d * (1 + 3 * amm_rows) / INT32_OPS_PER_S \
+        if amm_rows else 0.0
+    return max(t_f32, t_int) * 1e3
+
+
+def train_timing(torch, dev, tb, tf) -> tuple:
+    """Each new kernel at the main path's shapes: device ms (profiler),
+    wrapper ms, plain ms, bound, max abs error against the plain
+    version, and SDPA beside the exact flash kernel."""
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    rng = np.random.default_rng(9)
+    lines, entries = [], {}
+    b2 = []
+    for m, k, n in ((TRAIN_BATCH * TRAIN_SEQ, 896, 4864),
+                    (TRAIN_BATCH * TRAIN_SEQ, 4864, 896)):
+        x = torch.from_numpy(rng.integers(-32768, 32768, (m, k)).astype(
+            np.int32)).to(dev)
+        w = torch.from_numpy(rng.integers(-32768, 32768, (k, n)).astype(
+            np.int32)).to(dev)
+        run = lambda: tb.bbm_dot_scaled(x, w, wl=16, vbl=13, kind=0)  # noqa
+        plain = lambda: tb.bbm_dot_scaled_plain(  # noqa: E731
+            x, w, wl=16, vbl=13, kind=0)
+        dev_ms = kernel_device_ms(torch, run, 5, TRAIN_KERNELS[
+            "bbm_dot_scaled"])
+        call_ms = cuda_ms(torch, run, 5)
+        plain_ms = cuda_ms(torch, plain, 1)
+        err = float((run() - plain()).abs().max())
+        if err != 0:
+            fail(f"bbm_dot_scaled differs from its plain version at "
+                 f"({m}, {k}) x ({k}, {n})")
+        bound, by = dot_scaled_bound_ms(m, k, n, num_corr_rows(16, 13))
+        ms = call_ms if dev_ms is None else dev_ms
+        b2.append((ms, plain_ms, bound, by, err))
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
+        lines.append(f"bbm_dot_scaled at ({m}, {k}) x ({k}, {n}), wl 16 "
+                     f"vbl 13: kernel {dev_txt} on the device (profiler), "
+                     f"wrapper call {call_ms:.6f} ms, plain {plain_ms:.6f} "
+                     f"ms, bound {bound:.6f} ms ({by}), max abs error {err}")
+    # a step's mix: gate and up at the first shape, down at the second
+    mix = lambda a, b: (2 * a + b) / 3  # noqa: E731
+    entries["bbm_dot_scaled"] = dict(
+        max_abs_err=max(b2[0][4], b2[1][4]), ms=mix(b2[0][0], b2[1][0]),
+        plain_ms=mix(b2[0][1], b2[1][1]), bound_ms=mix(b2[0][2], b2[1][2]),
+        bound_by=b2[0][3], library_ms=None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    bh = TRAIN_BATCH * 14
+    q, k, v = (torch.randn((TRAIN_BATCH, 14, TRAIN_SEQ, 64), generator=gen,
+                           device=dev) for _ in range(3))
+    pairs = bh * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    for name in ("flash_attention", "flash_attention_amm"):
+        if name == "flash_attention":
+            run = lambda: tf.flash_attention(q, k, v, causal=True)  # noqa
+            plain = lambda: tf.flash_attention_plain(  # noqa: E731
+                q, k, v, causal=True)
+            tol = tf.flash_tolerance(q, k, v)
+            t_ops = flash_bound_ms(pairs, 64)
+            nbytes = 16 * bh * TRAIN_SEQ * 64
+        else:
+            run = lambda: tf.flash_attention_amm(  # noqa: E731
+                q, k, v, wl=16, vbl=13, kind=0, causal=True)
+            plain = lambda: tf.flash_amm_plain(  # noqa: E731
+                tf.flash_amm_operands(q, k, v, wl=16), wl=16, vbl=13,
+                kind=0, causal=True).reshape(q.shape)
+            t_ops = flash_bound_ms(pairs, 64, num_corr_rows(16, 13))
+            nbytes = 28 * bh * TRAIN_SEQ * 64
+        dev_ms = kernel_device_ms(torch, run, 5, TRAIN_KERNELS[name])
+        call_ms = cuda_ms(torch, run, 5)
+        plain_ms = cuda_ms(torch, plain, 2)
+        if name == "flash_attention":
+            err_t = (run().double() - plain().double()).abs()
+            if not bool((err_t <= tol).all()):
+                fail(f"{name} off its plain version at the main path's "
+                     f"shape")
+            err, tol_txt = float(err_t.max()), f"{float(tol.min()):.4g}"
+        else:
+            rep = flash_amm_check(torch, tf, q, k, v, kind=0, causal=True,
+                                  what="at the main path's shape")
+            err = rep["max_err"]
+            tol_txt = (f"{rep['max_bound']:.4g}; {rep['codes_moved']} of "
+                       f"{rep['codes']} P codes moved, by at most "
+                       f"{rep['max_code_step']}")
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        lib_ms = None
+        if name == "flash_attention":
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=True), 5)
+        ms = call_ms if dev_ms is None else dev_ms
+        entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=lib_ms)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
+        lib_txt = "" if lib_ms is None else \
+            f"; yardstick scaled_dot_product_attention {lib_ms:.6f} ms"
+        lines.append(f"{name} at ({TRAIN_BATCH}, 14, {TRAIN_SEQ}, 64) "
+                     f"causal: kernel {dev_txt} on the device (profiler), "
+                     f"wrapper call {call_ms:.6f} ms, plain {plain_ms:.6f} "
+                     f"ms, bound {bound:.6f} ms ({by}), max abs error {err} "
+                     f"(bound of the difference {tol_txt})"
+                     f"{lib_txt}")
+    return entries, lines
+
+
+def report_train_run(name, res, counters) -> None:
+    steps = res["steps"]
+    st_ms = [s["wall"] * 1e3 for s in steps]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    idle = 1.0 - res["busy_ms"] / res["prof_wall_ms"]
+    print(f"{name}: {TRAIN_STEPS} steps of {tokens} tokens, losses "
+          f"{[round(s['loss'], 6) for s in steps]}, step ms "
+          f"{[round(t, 3) for t in st_ms]}; unprofiled step "
+          f"{st_ms[1]:.3f} ms = {tokens / st_ms[1] * 1e3:.6g} tokens/s; "
+          f"launches per step {steps[0]['launches']}; whole run with "
+          f"set-up and the final checkpoint {res['run_s']:.2f} s")
+    print(f"{name} profiled step: {res['prof_wall_ms']:.3f} ms wall, device "
+          f"busy {res['busy_ms']:.3f} ms, idle share {idle:.4f}")
+    for t, count, key in res["by_kernel"][:8]:
+        print(f"  {name} step device time: {t:.4f} ms in {count} launches "
+              f"of {key[:90]}")
+    for kname, parts in TRAIN_KERNELS.items():
+        t = sum(ms for ms, _, key in res["by_kernel"]
+                if any(p in key for p in parts))
+        if t:
+            print(f"  {name}: {kname} {t:.4f} device ms per step")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -780,6 +1242,55 @@ def main() -> None:
         else mix(d_gu, d_dn),
         "plain_ms": mix(p_gu, p_dn), "bound_ms": mix(b_gu, b_dn),
         "bound_by": by, "library_ms": None})
+
+    # ------------------------------------------------------------ training
+    tb, tf = train_modules()
+    t0 = time.perf_counter()
+    b2_cases = b2_sweep(torch, tb, dev)
+    fl_cases, fl_worst, moved = flash_sweep(torch, tf, dev)
+    print(f"training sweeps: bbm_dot_scaled {b2_cases} cases bit-equal to "
+          f"its plain version; flash kernels {fl_cases} cases within their "
+          f"bounds (worst error/bound: flash_attention "
+          f"{fl_worst['flash_attention']:.3g}, flash_attention_amm "
+          f"{fl_worst['flash_attention_amm']:.3g}; {moved[0]} of {moved[1]} "
+          f"P codes moved by float rounding), score products bit-equal, P V "
+          f"products bit-equal where P's codes agree, one-hot outputs "
+          f"bit-equal ({time.perf_counter() - t0:.1f} s)")
+    counters = {"bbm_dot_scaled": tb.bbm_dot_scaled,
+                "flash_attention": tf.flash_attention,
+                "flash_attention_amm": tf.flash_attention_amm,
+                "quant_matmul": qm.quant_matmul}
+    layers = 24
+    t1 = train_run(torch, T1_FLAGS, counters)
+    check_train_run("T1", t1, {"bbm_dot_scaled": 3 * layers,
+                               "flash_attention": 0,
+                               "flash_attention_amm": layers,
+                               "quant_matmul": 0})
+    report_train_run("T1 (bitexact bbm0 WL 16 VBL 13, --amm-attn "
+                     "--flash-attn)", t1, counters)
+    t2 = train_run(torch, T2_FLAGS, counters)
+    check_train_run("T2", t2, {"bbm_dot_scaled": 0,
+                               "flash_attention": layers,
+                               "flash_attention_amm": 0, "quant_matmul": 0})
+    report_train_run("T2 (amm off, --flash-attn)", t2, counters)
+    chk = train_cpu_check(torch, dev)
+    print(f"train card vs CPU (2 layers, full width, 256 tokens, T1): loss "
+          f"{chk['card']!r} on the card, {chk['cpu']!r} on the CPU "
+          f"(tolerance {TRAIN_LOSS_RTOL} relative); every gradient leaf "
+          f"within {chk['grad_worst']:.3g} of its largest element "
+          f"(tolerance {TRAIN_GRAD_RTOL}; CPU {chk['cpu_s']:.1f} s); the "
+          f"first MLP product {chk['shape']} bit-equal")
+    entries, lines = train_timing(torch, dev, tb, tf)
+    for line in lines:
+        print(line)
+    runs = {"bbm_dot_scaled": t1, "flash_attention_amm": t1,
+            "flash_attention": t2}
+    for name in ("bbm_dot_scaled", "flash_attention", "flash_attention_amm"):
+        kernels.append(dict({"name": name, "route": "cuda",
+                             "source": TRAIN_SOURCES[name],
+                             "replaces": REPLACES[name],
+                             "launches": runs[name]["totals"][name]},
+                            **entries[name]))
 
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

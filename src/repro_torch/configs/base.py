@@ -20,8 +20,8 @@ class AmmConfig:
       "off"      exact f32 matmuls (baseline hardware)
       "noise"    WL-bit fixed-point quantization plus calibrated white-noise
                  error injection (paper section II.B)
-      "bitexact" the true Broken-Booth datapath (not ported yet: ROADMAP
-                 slice 3 raises where it is used)
+      "bitexact" the true Broken-Booth datapath (the dot form on the
+                 ``bbm_dot_scaled`` kernel)
     apply_to: "mlp", "attn" or "all" -- which matmul families route
     through the approximation.  use_pallas (mode="noise"): the fused
     ``quant_matmul`` kernel (the name is the reference's flag; here it

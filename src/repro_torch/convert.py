@@ -15,7 +15,8 @@ from .core.multipliers import MulSpec
 from .device import resolve_device
 from .dsp.fir import PrecodedBank
 
-__all__ = ["lm_params_from_numpy", "precoded_bank_from_numpy"]
+__all__ = ["lm_params_from_numpy", "opt_state_from_numpy",
+           "precoded_bank_from_numpy"]
 
 
 def precoded_bank_from_numpy(h_real, hq, mag, neg, spec, *,
@@ -66,3 +67,26 @@ def lm_params_from_numpy(tree, *, device=None, dtype=torch.float32):
                 for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
         device=dev, dtype=dtype)
+
+
+def opt_state_from_numpy(state, *, device=None):
+    """The port's ``OptState`` from the reference's, as numpy arrays.
+
+    ``state`` is ``repro.train.optimizer.OptState`` (or any (step, m, v)
+    triple) with every leaf a numpy array (``jax.tree.map(np.asarray,
+    state)``); the moments keep their dtypes and tree (Adafactor's
+    factored (row, col) pairs stay pairs), so both packages can take one
+    step from the same state.
+    """
+    from .train.optimizer import OptState
+    dev = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return tuple(conv(v) for v in tree)
+        return torch.from_numpy(np.array(tree)).to(dev)
+    step, m, v = state
+    return OptState(torch.from_numpy(np.array(step, np.int32)).to(dev),
+                    conv(m), conv(v))

@@ -22,8 +22,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-__all__ = ["Key", "key", "split", "random_bits32", "randint", "threefry2x32",
-           "layer_seeds"]
+__all__ = ["Key", "key", "split", "fold_in", "random_bits32", "randint",
+           "threefry2x32", "layer_seeds"]
 
 Key = Tuple[int, int]
 
@@ -73,6 +73,15 @@ def split(k: Key, num: int = 2) -> List[Key]:
     return [(int(a), int(b)) for a, b in zip(b1, b2)]
 
 
+def fold_in(k: Key, data: int) -> Key:
+    """``jax.random.fold_in(k, data)``: the threefry block of the key on
+    the count ``(0, data)`` (``data`` as uint32), as JAX seeds a key from
+    a 32-bit integer."""
+    b1, b2 = threefry2x32(k[0], k[1], np.uint32(0),
+                          np.uint32(int(data) & 0xFFFFFFFF))
+    return (int(b1), int(b2))
+
+
 def random_bits32(k: Key) -> int:
     """One uint32 of ``jax.random.bits(k, (), uint32)``: the threefry
     block of count 0, its two words xor-ed."""
@@ -105,14 +114,15 @@ def randint(k: Key, minval: int = 0, maxval: int = 2 ** 31 - 1) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def layer_seeds(seed: int, n_layers: int) -> Tuple[int, ...]:
+def layer_seeds(seed, n_layers: int) -> Tuple[int, ...]:
     """The noise seed ``amm_dense`` derives in each layer of ``lm_apply``.
 
-    Starts from ``key(seed)``; each layer splits the running key into
-    (next key, layer key) and draws ``randint(layer key)``.  A tuple of
-    ``n_layers`` Python ints, cached: an engine computes it once.
+    Starts from ``key(seed)`` (or from ``seed`` itself when it is a
+    ``Key``); each layer splits the running key into (next key, layer
+    key) and draws ``randint(layer key)``.  A tuple of ``n_layers``
+    Python ints, cached: an engine computes it once.
     """
-    k = key(seed)
+    k = tuple(seed) if isinstance(seed, tuple) else key(seed)
     out = []
     for _ in range(n_layers):
         k, sub = split(k)

@@ -7,15 +7,21 @@ from .booth_rows import (amm_chunk_len, bbm_rows_product_dotform,
                          booth_correction, booth_high_value, booth_precode,
                          booth_value, dotform_scaled_bound,
                          f32_exact_chunk_len, resolve_form)
+from .bbm_matmul import (bbm_dot_scaled, bbm_matmul_dynamic,
+                         bbm_matmul_scaled, dot_scaled_chunked)
 from .fir_kernel import (fir_bank_dot, fir_bank_rows, fir_bbm, fir_bbm_bank,
                          fir_bbm_bank_precoded, min_safe_shift)
-from .ops import fir_filterbank, fir_filterbank_precoded
+from .flash_attention import flash_attention_amm
+from .ops import fir_filterbank, fir_filterbank_precoded, flash_attention
 from .quant_matmul import quant_matmul, quant_matmul_plain
 
-__all__ = ["amm_chunk_len", "bbm_rows_product_dotform", "booth_correction",
+__all__ = ["amm_chunk_len", "bbm_dot_scaled", "bbm_matmul_dynamic",
+           "bbm_matmul_scaled", "bbm_rows_product_dotform", "booth_correction",
            "booth_high_value", "booth_precode", "booth_value",
-           "dotform_scaled_bound", "f32_exact_chunk_len", "fir_bank_dot",
+           "dot_scaled_chunked", "dotform_scaled_bound",
+           "f32_exact_chunk_len", "fir_bank_dot",
            "fir_bank_rows", "fir_bbm", "fir_bbm_bank",
            "fir_bbm_bank_precoded", "fir_filterbank",
-           "fir_filterbank_precoded", "min_safe_shift", "quant_matmul",
+           "fir_filterbank_precoded", "flash_attention",
+           "flash_attention_amm", "min_safe_shift", "quant_matmul",
            "quant_matmul_plain", "resolve_form"]

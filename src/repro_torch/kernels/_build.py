@@ -7,8 +7,9 @@ C interface (no PyTorch headers, so a build takes seconds):
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
 
 Libraries land in ``build/repro_torch_kernels/`` at the repository root
-(git-ignored), named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once.  Nothing compiles at
+(git-ignored), named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one loads at once.  Nothing compiles at
 import time: ``library(name)`` builds on first use, and ``build_all()``
 starts one nvcc per unbuilt source, all at once, for callers that want
 the whole build up front.
@@ -28,7 +29,9 @@ __all__ = ["BUILD_DIR", "SOURCES", "build_all", "library", "nvcc_path"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"fir_bank": CSRC / "fir_bank.cu",
-           "quant_matmul": CSRC / "quant_matmul.cu"}
+           "quant_matmul": CSRC / "quant_matmul.cu",
+           "bbm_dot": CSRC / "bbm_dot.cu",
+           "flash_attention": CSRC / "flash_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -45,6 +48,16 @@ _SIGNATURES = {
         "quant_matmul_launch": ([_P] * 6 + [_I] * 7 + [_U, _F, _F, _P], _I),
         "qm_hash_words_launch": ([_P, _P] + [_I] * 4 + [_U, _P], _I),
         "quant_matmul_error_string": ([_I], ctypes.c_char_p),
+    },
+    "bbm_dot": {
+        "bbm_dot_scaled_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
+        "bbm_dot_error_string": ([_I], ctypes.c_char_p),
+    },
+    "flash_attention": {
+        "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _P], _I),
+        "flash_attention_amm_launch": ([_P] * 14 + [_I] * 13 + [_F, _P],
+                                       _I),
+        "flash_attention_error_string": ([_I], ctypes.c_char_p),
     },
 }
 
@@ -69,6 +82,8 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 

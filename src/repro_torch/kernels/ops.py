@@ -1,8 +1,8 @@
 """Public entry points on the port's kernels.
 
-Counterpart of ``repro.kernels.ops``: the filterbank entry points and
-``quant_matmul`` (which takes the tensors' device, as every kernel
-wrapper does).  Where the
+Counterpart of ``repro.kernels.ops``: the filterbank entry points,
+``quant_matmul`` and ``flash_attention`` (which take the tensors'
+device, as every kernel wrapper does).  Where the
 reference picks Pallas' interpreter off-TPU, these take ``device``:
 ``None`` means the GPU (and raises without one), ``"cpu"`` runs the
 kernels' plain versions.  Inputs may be numpy arrays or tensors; outputs
@@ -16,9 +16,11 @@ import torch
 
 from ..device import resolve_device
 from .fir_kernel import fir_bbm_bank, fir_bbm_bank_precoded
+from .flash_attention import flash_attention
 from .quant_matmul import quant_matmul
 
-__all__ = ["fir_filterbank", "fir_filterbank_precoded", "quant_matmul"]
+__all__ = ["fir_filterbank", "fir_filterbank_precoded", "flash_attention",
+           "quant_matmul"]
 
 
 def _on(t, dev: torch.device) -> torch.Tensor:

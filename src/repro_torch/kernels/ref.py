@@ -5,9 +5,24 @@ from __future__ import annotations
 import torch
 
 from ..core.bbm import bbm_type0, bbm_type1
+from ..core.multipliers import MulSpec
+from ..core.multipliers import mul as core_mul
 from ..device import pin_fp32
+from .booth_rows import amm_chunk_len
 
-__all__ = ["amm_quantize", "amm_scale", "fir_bank_ref", "quant_matmul_ref"]
+__all__ = ["AMM_BOOTH_KINDS", "amm_approx_ref", "amm_attention_ref",
+           "amm_dense_ref", "amm_dot_ref", "amm_effective_vbl",
+           "amm_flash_attention_ref", "amm_quantize", "amm_scale",
+           "attention_ref", "fir_bank_ref", "quant_matmul_ref"]
+
+# Booth-family specs and their closed-form truncation kind; every other
+# multiplier family has no dot-form lowering
+AMM_BOOTH_KINDS = {"booth": 0, "bbm0": 0, "bbm1": 1}
+
+
+def amm_effective_vbl(spec: MulSpec) -> int:
+    """VBL the accumulation scale is derived from (exact booth: 0)."""
+    return 0 if spec.name == "booth" else spec.param
 
 
 def amm_scale(v, wl: int) -> torch.Tensor:
@@ -71,3 +86,109 @@ def fir_bank_ref(x, w, *, wl: int, vbl: int, kind: int = 0, shift: int = 0):
     if shift:
         prod = prod >> shift
     return torch.sum(prod, dim=-1, dtype=torch.int32)
+
+
+def _chunked_yq(prod: torch.Tensor, wl: int, vbl: int) -> torch.Tensor:
+    """Products (..., K, N) / 2^vbl summed int32 per K-chunk of
+    ``amm_chunk_len``, the chunk partials added in f32 in chunk order,
+    times 2^vbl: the dot form's reduction, on the closed forms."""
+    scaled = prod >> vbl                      # exact: divisible by 2^vbl
+    k = prod.shape[-2]
+    chunk = amm_chunk_len(wl, vbl)
+    yq = None
+    for lo in range(0, k, chunk):
+        part = torch.sum(scaled[..., lo:lo + chunk, :], dim=-2,
+                         dtype=torch.int32).to(torch.float32)
+        yq = part if yq is None else yq + part
+    return yq * float(1 << vbl)
+
+
+def amm_approx_ref(x, w, spec: MulSpec):
+    """Scalar outer-product oracle of ``amm_dense`` mode="bitexact".
+
+    Quantizes both operands (``amm_quantize``), forms every scalar product
+    through the closed forms of ``core.multipliers`` over the whole
+    (..., K, N) grid (which is why this is the oracle and not the
+    datapath), divides by 2^vbl, sums int32 per K-chunk and combines the
+    chunks in f32 in order, then descales.  Booth-family specs only: the
+    other families are ROADMAP item A14.  x: (..., K), w: (K, N).
+    """
+    if spec.name not in AMM_BOOTH_KINDS:
+        raise NotImplementedError(
+            f"multiplier {spec.name!r} is not ported yet (ROADMAP item A14)")
+    wl = spec.wl
+    xq, s_x = amm_quantize(x, wl)
+    wq, s_w = amm_quantize(w, wl)
+    prod = core_mul(spec)(xq[..., :, None], wq[None, :, :])  # (..., K, N)
+    yq = _chunked_yq(prod, wl, amm_effective_vbl(spec))
+    return (yq * (s_x * s_w)).to(x.dtype)
+
+
+def amm_dense_ref(x, w, spec: MulSpec):
+    """The bitexact ``amm_dense`` oracle with the straight-through sum
+    ``exact + (approx - exact)`` as the layer writes it."""
+    pin_fp32()
+    exact = x @ w
+    return exact + (amm_approx_ref(x, w, spec) - exact)
+
+
+def amm_dot_ref(a, b, spec: MulSpec):
+    """Oracle of ``bbm_matmul_dynamic`` batched over the shared leading
+    axes: every (M, K) x (K, N) slice quantized with its own scales."""
+    if a.ndim != b.ndim:
+        raise ValueError(f"operand ranks differ: {a.shape} vs {b.shape}")
+    lead = a.shape[:-2]
+    a2 = a.reshape((-1,) + a.shape[-2:])
+    b2 = b.reshape((-1,) + b.shape[-2:])
+    out = [amm_approx_ref(a2[i], b2[i], spec) for i in range(a2.shape[0])]
+    return torch.stack(out).reshape(lead + out[0].shape)
+
+
+def _attn_runtime(spec: MulSpec):
+    """AmmRuntime carrying ``spec`` with attention routing on."""
+    from ..configs.base import AmmConfig
+    from ..models.common import AmmRuntime
+    if spec.name not in AMM_BOOTH_KINDS:
+        raise ValueError(f"no attention lowering for family {spec.name!r}")
+    return AmmRuntime(AmmConfig(mode="bitexact", mul=spec.name, wl=spec.wl,
+                                param=spec.param, apply_to="all"))
+
+
+def amm_attention_ref(q, k, v, spec: MulSpec, *, causal: bool = True,
+                      q_offset=0, bq: int = 512, bk: int = 1024,
+                      kv_len=None):
+    """Attention oracle of the approximate datapath: the schedule of
+    ``models.attention.chunked_attention`` with every score and value
+    product through the closed forms (``amm_dot_ref``).  q: (B, Sq, H,
+    D), k/v: (B, Skv, KV, D)."""
+    from ..models.attention import chunked_attention
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             bq=bq, bk=bk, kv_len=kv_len,
+                             amm=_attn_runtime(spec), amm_oracle=True)
+
+
+def amm_flash_attention_ref(q, k, v, spec: MulSpec, *, causal: bool = True):
+    """Oracle of ``flash_attention_amm``: ``amm_attention_ref`` at the
+    flash tile sizes, in the kernel's (B, H, S, D) layout (matched head
+    counts)."""
+    from .flash_attention import FLASH_AMM_BK, FLASH_AMM_BQ
+    out = amm_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), spec, causal=causal,
+                            bq=FLASH_AMM_BQ, bk=FLASH_AMM_BK)
+    return out.transpose(1, 2)
+
+
+def attention_ref(q, k, v, *, causal: bool = True):
+    """Naive softmax attention, f32 internals.  q, k, v: (B, H, S, D)."""
+    pin_fp32()
+    d = q.shape[-1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32),
+                     k.to(torch.float32)) / (d ** 0.5)
+    if causal:
+        sq, skv = s.shape[-2], s.shape[-1]
+        mask = torch.ones((sq, skv), dtype=torch.bool,
+                          device=s.device).tril(diagonal=skv - sq)
+        s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p,
+                        v.to(torch.float32)).to(q.dtype)

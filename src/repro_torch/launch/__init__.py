@@ -4,7 +4,8 @@ from __future__ import annotations
 __all__ = ["add_amm_attn_arg", "resolve_amm_apply_to", "validate_amm_args",
            "validate_serve_flags"]
 
-_SLICE3 = "ROADMAP slice 3 (the bitexact datapath and its int-code cache)"
+_SERVE_BITEXACT = ("bitexact serving with the int-code KV cache is ROADMAP "
+                   "slice 5")
 
 
 def validate_amm_args(ap, args) -> None:
@@ -29,25 +30,36 @@ def validate_amm_args(ap, args) -> None:
 
 
 def validate_serve_flags(ap, args) -> None:
-    """``--kv-codes`` and ``--amm bitexact`` belong to a later slice."""
+    """The serve launcher's ``--kv-codes``, ``--amm bitexact`` and
+    ``--amm-attn`` belong to a later slice; the train launcher takes the
+    last two."""
     if getattr(args, "kv_codes", False):
-        raise NotImplementedError(f"--kv-codes: {_SLICE3}")
+        raise NotImplementedError(f"--kv-codes: {_SERVE_BITEXACT}")
     if args.amm == "bitexact":
-        raise NotImplementedError(f"--amm bitexact: {_SLICE3}")
+        raise NotImplementedError(f"--amm bitexact: {_SERVE_BITEXACT}")
+    if args.amm_attn is not None:
+        raise NotImplementedError(f"--amm-attn: {_SERVE_BITEXACT}")
 
 
 def add_amm_attn_arg(ap) -> None:
     """The shared ``--amm-attn`` flag (bare: apply_to="all"; ``attn``:
-    attention only).  Attention routing needs the bitexact datapath."""
+    attention only).  Attention routing needs --amm bitexact with a
+    Booth-family --mul."""
     ap.add_argument("--amm-attn", nargs="?", const="all", default=None,
                     choices=["attn", "all"],
                     help="route the attention QK^T/PV products through the "
-                         "approximate datapath too; needs --amm bitexact, "
-                         f"which is {_SLICE3}")
+                         "approximate datapath too (bare flag: MLPs + "
+                         "attention; 'attn': attention only); needs --amm "
+                         "bitexact with a Booth-family --mul")
 
 
 def resolve_amm_apply_to(ap, args) -> str:
-    """The (--amm, --mul, --amm-attn) combination -> apply_to."""
-    if args.amm_attn is not None:
-        raise NotImplementedError(f"--amm-attn: {_SLICE3}")
-    return "mlp"
+    """The (--amm, --mul, --amm-attn) combination -> apply_to; rejects
+    ``--amm-attn attn`` where it would approximate nothing."""
+    from ..kernels.ref import AMM_BOOTH_KINDS
+    if args.amm_attn == "attn" and not (
+            args.amm == "bitexact" and args.mul in AMM_BOOTH_KINDS):
+        ap.error("--amm-attn attn routes *only* attention, which needs "
+                 "--amm bitexact with a Booth-family --mul; this "
+                 "combination would approximate nothing")
+    return args.amm_attn or "mlp"

@@ -11,8 +11,9 @@ calibrated noise of the multiplier ``--mul`` at ``--vbl``.  The
 parameters are random, from a seeded generator.
 
 ``--continuous`` switches the Scheduler to continuous batching.  ``--amm
-bitexact``, ``--amm-attn`` and ``--kv-codes`` are ROADMAP slice 3 and
-raise.  The reference's ``--flash-attn`` is left out: under the Scheduler
+bitexact``, ``--amm-attn`` and ``--kv-codes`` are bitexact serving,
+ROADMAP slice 5, and raise (the train launcher takes the first two).
+The reference's ``--flash-attn`` is left out: under the Scheduler
 every call carries a cache, so it changes nothing there (ROADMAP C3).
 """
 from __future__ import annotations
@@ -39,7 +40,8 @@ def main(argv=None):
         epilog="The reference's --flash-attn is left out: under the "
                "Scheduler every call carries a KV cache, so the flag "
                "changes nothing there (ROADMAP C3).  --amm bitexact, "
-               "--amm-attn and --kv-codes are ROADMAP slice 3 and raise.")
+               "--amm-attn and --kv-codes are bitexact serving, ROADMAP "
+               "slice 5, and raise.")
     ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen2-0.5b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
@@ -58,14 +60,14 @@ def main(argv=None):
                          "free slots, per-request eviction, prefill on "
                          "batch-1 slot slices")
     ap.add_argument("--kv-codes", action="store_true",
-                    help="int-code KV cache (ROADMAP slice 3; raises)")
+                    help="int-code KV cache (ROADMAP slice 5; raises)")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
     add_amm_attn_arg(ap)
     args = ap.parse_args(argv)
+    validate_serve_flags(ap, args)
     apply_to = resolve_amm_apply_to(ap, args)
     validate_amm_args(ap, args)
-    validate_serve_flags(ap, args)
     dev = resolve_device(args.device)
 
     cfg = get_arch(args.arch)

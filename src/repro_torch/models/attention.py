@@ -1,18 +1,30 @@
-"""GQA attention with a float KV cache, amm off.
+"""GQA attention: the float KV cache, the chunked schedule (exact and on
+the amm datapath) and the flash lowerings.
 
-Counterpart of the float-cache half of ``repro.models.attention``:
-``attn_table``, ``chunked_attention`` (the online-softmax block
-schedule), ``decode_attention`` (one position against the cache),
-``_cache_put`` (scalar and per-slot ``(B,)`` positions) and the routing
-in ``attention`` for the cache branches and the cacheless chunked branch.
-The projections and the attention products run in f32 through
-``torch.einsum`` (TF32 pinned off), as the reference leaves them to XLA.
+Counterpart of ``repro.models.attention`` for the dense family:
+``attn_table``, ``chunked_attention`` (the online-softmax block schedule,
+its score and value products optionally through ``amm_dot``),
+``decode_attention``, ``_cache_put`` (scalar and per-slot ``(B,)``
+positions), ``flash_amm_chunked_equiv``, and the routing of
+``attention``.  The projections and the attention products run in f32
+through ``torch.einsum`` (TF32 pinned off), as the reference leaves them
+to XLA.
 
-Not ported here: the int-code cache branch and the attention-side amm
-products (ROADMAP slice 3), and the ``use_pallas`` flash branch, whose
-TPU kernels ``_attn_kernel`` and ``_attn_amm_kernel`` are ROADMAP B4 and
-B3.  Each raises ``NotImplementedError`` where the reference would take
-it.
+Routing of the cacheless call (train and prefill without a cache), as
+in the reference: ``use_pallas`` with amm inactive takes the exact flash
+kernel (``kernels.flash_attention.flash_attention``), with an active
+Booth-family amm the flash-amm kernel (``flash_attention_amm``); a call
+beyond ``_FLASH_SEQ_CAP`` or an amm without a dot-form lowering falls
+back to the chunked path with a ``FlashFallbackWarning``.  Both flash
+calls are ``torch.autograd.Function``s whose backward runs in plain
+PyTorch (the reference has no backward kernel): the exact one
+differentiates the plain exact blockwise attention, the amm one the
+flash-amm plain version, fed the approximate products the kernel kept
+(the reference's straight-through schedule at the flash tiles).
+
+Not ported here: the int-code cache and amm on the cache branches
+(decode), which bitexact serving needs (ROADMAP slice 5).  They raise
+``NotImplementedError`` where the reference would take them.
 
 The port writes the cache in place: ``attention`` updates the given
 ``cache`` tensors and returns the same dict, where the reference returns
@@ -20,23 +32,57 @@ new arrays.
 """
 from __future__ import annotations
 
+import sys
+import warnings
 from typing import Dict
 
 import torch
 
 from ..configs.base import ArchConfig
-from .common import Spec, apply_rope, rmsnorm
+from ..kernels.flash_attention import (FLASH_AMM_BK, FLASH_AMM_BQ,
+                                       flash_amm_operands, flash_amm_plain,
+                                       flash_attention,
+                                       flash_attention_amm,
+                                       flash_attention_plain)
+from .common import Spec, amm_dot, apply_rope, rmsnorm
 
 __all__ = ["attn_table", "attention", "chunked_attention",
-           "decode_attention", "NEG_INF"]
+           "decode_attention", "flash_amm_chunked_equiv",
+           "FlashFallbackWarning", "reset_flash_fallback_dedup", "NEG_INF"]
 
 NEG_INF = -1e30
 
-_CODES = ("the int-code KV cache is ROADMAP slice 3 (A6, with the "
-          "bitexact datapath)")
-_FLASH = ("the flash-attention kernels _attn_kernel and _attn_amm_kernel "
-          "are ROADMAP B4 and B3; the cacheless lm_apply with use_pallas "
-          "reaches them")
+_CODES = ("the int-code KV cache and amm attention against a cache are "
+          "bitexact serving, ROADMAP slice 5")
+
+# flash-path sequence cap: above it the chunked path is taken instead.
+# Module-level so tests can lower it to exercise the fallback warning.
+_FLASH_SEQ_CAP = 32768
+
+
+class FlashFallbackWarning(UserWarning):
+    """A ``use_pallas`` attention call fell back to the chunked path."""
+
+
+# (reason, caller file, caller line) sites that already warned
+_seen_fallbacks: set = set()
+
+
+def reset_flash_fallback_dedup() -> None:
+    """Forget which fallback sites have warned (tests, a new run)."""
+    _seen_fallbacks.clear()
+
+
+def _flash_fallback(reason: str, **ctx) -> None:
+    f = sys._getframe(2)     # the user call site stacklevel=3 attributes to
+    site = (reason, f.f_code.co_filename, f.f_lineno)
+    if site in _seen_fallbacks:
+        return
+    _seen_fallbacks.add(site)
+    detail = ", ".join(f"{k}={v}" for k, v in ctx.items())
+    warnings.warn(FlashFallbackWarning(
+        f"use_pallas requested but attention fell back to the chunked "
+        f"path: {reason} ({detail})"), stacklevel=3)
 
 
 def attn_table(cfg: ArchConfig) -> Dict[str, Spec]:
@@ -65,7 +111,8 @@ def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def chunked_attention(q, k, v, *, causal: bool, q_offset=0, bq: int = 512,
-                      bk: int = 1024, kv_len=None, amm=None):
+                      bk: int = 1024, kv_len=None, amm=None,
+                      amm_oracle: bool = False):
     """Online-softmax blockwise attention, the reference's schedule.
 
     q: (B, Sq, H, D), k/v: (B, Skv, KV, D) with H a multiple of KV (GQA:
@@ -73,10 +120,11 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0, bq: int = 512,
     q[0] (causal masking against a cache); kv_len: number of valid KV
     positions.  Blocks of ``bq`` queries run one after another, each
     scanning the KV blocks of ``bk`` in order with the running max, sum
-    and accumulator in f32.  Returns (B, Sq, H, D) in q's dtype.
+    and accumulator in f32.  ``amm``: an ``AmmRuntime`` whose score and
+    value products go through ``amm_dot``, one pair of scales per
+    (batch, kv-head) block; ``amm_oracle`` forms them through the closed
+    forms.  Returns (B, Sq, H, D) in q's dtype.
     """
-    if amm is not None:
-        raise NotImplementedError(f"attention-side amm: {_CODES}")
     b, sq, h, d = q.shape
     _, skv, kvh, _ = k.shape
     dv = v.shape[-1]
@@ -106,8 +154,12 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0, bq: int = 512,
                           device=dev)
         qpos = q_offset + qi * bq + torch.arange(bq, device=dev)
         for ki in range(nk):
-            s = torch.einsum("bgqd,bgkd->bgqk", qg,
-                             kb[ki].to(torch.float32))
+            if amm is not None:
+                s = amm_dot(qg, kb[ki].to(torch.float32).transpose(-1, -2),
+                            amm, oracle=amm_oracle)
+            else:
+                s = torch.einsum("bgqd,bgkd->bgqk", qg,
+                                 kb[ki].to(torch.float32))
             s4 = s.reshape(b, kvh, groups, bq, bk)
             kpos = ki * bk + torch.arange(bk, device=dev)
             live = (kpos < kv_len)[None, :]
@@ -119,13 +171,94 @@ def chunked_attention(q, k, v, *, causal: bool, q_offset=0, bq: int = 512,
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
-            pv = torch.einsum("bgqk,bgkd->bgqd", p, vb[ki].to(torch.float32))
+            if amm is not None:
+                pv = amm_dot(p, vb[ki].to(torch.float32), amm,
+                             oracle=amm_oracle)
+            else:
+                pv = torch.einsum("bgqk,bgkd->bgqd", p,
+                                  vb[ki].to(torch.float32))
             acc = acc * alpha + pv
             m = m_new
         out = acc / torch.clamp_min(l, 1e-30)
         outs.append(out.reshape(b, h, bq, dv))
     out = torch.stack(outs).permute(1, 0, 3, 2, 4).reshape(b, nq * bq, h, dv)
     return out[:, :sq].to(q.dtype)
+
+
+def flash_amm_chunked_equiv(q, k, v, amm, *, causal: bool = True):
+    """The chunked-amm run that flash-amm computes: (B, H, S, D) operands
+    with matched head counts, the chunked schedule at the flash tile
+    sizes (quantization is per block, so the blocking is part of the
+    function)."""
+    out = chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal,
+                            bq=FLASH_AMM_BQ, bk=FLASH_AMM_BK, amm=amm)
+    return out.transpose(1, 2)
+
+
+def _exact_vjp(q, k, v, g, causal: bool):
+    """Gradients of the plain exact blockwise attention at the flash
+    tiles with respect to (q, k, v), for the output gradient ``g``."""
+    with torch.enable_grad():
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        out = flash_attention_plain(qd, kd, vd, causal=causal,
+                                    bq=FLASH_AMM_BQ, bk=FLASH_AMM_BK)
+        return torch.autograd.grad(out, (qd, kd, vd), g)
+
+
+class _FlashExact(torch.autograd.Function):
+    """The exact flash kernel forward; backward through the plain exact
+    attention."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_exact_vjp(*ctx.saved_tensors, g, ctx.causal), None)
+
+
+class _FlashAmmSTE(torch.autograd.Function):
+    """Flash-amm forward with the reference's straight-through gradient
+    (its ``custom_vjp`` over ``flash_amm_chunked_equiv``): autograd of the
+    plain version fed the approximate products the forward kept, so each
+    tile's scores are ``exact + (approx - exact).detach()``, its P V
+    product ``pe + (approx - pe).detach()``, the softmax's Jacobian is
+    taken where the forward took it, and the backward forms no
+    Broken-Booth product."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, amm, causal):
+        wl, vbl, kind = amm.attn_lowering
+        out, res = flash_attention_amm(q, k, v, wl=wl, vbl=vbl, kind=kind,
+                                       causal=causal, residuals=True)
+        ctx.save_for_backward(q, k, v, res["s"], res["pv"])
+        ctx.lowering, ctx.causal = (wl, vbl, kind), causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, s, pv = ctx.saved_tensors
+        wl, vbl, kind = ctx.lowering
+        with torch.enable_grad():
+            qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+            ops = flash_amm_operands(qd, kd, vd, wl=wl)
+            out = flash_amm_plain(ops, wl=wl, vbl=vbl, kind=kind,
+                                  causal=ctx.causal,
+                                  residuals_in={"s": s, "pv": pv})
+            b, h, sq, d = ops["shape"]
+            out = out[:, :sq].reshape(b, h, sq, d)
+            grads = torch.autograd.grad(out, (qd, kd, vd), g)
+        return (*grads, None, None)
+
+
+def _flash_amm_ste(amm, causal, q, k, v):
+    """Flash-amm with the straight-through gradient (the reference's
+    ``custom_vjp`` of the same name)."""
+    return _FlashAmmSTE.apply(q, k, v, amm, causal)
 
 
 def decode_attention(q, k_cache, v_cache, kv_len, *, amm=None):
@@ -212,9 +345,30 @@ def attention(p, x, cfg: ArchConfig, *, positions, cache=None, pos=None,
             out = chunked_attention(q, cache["k"], cache["v"], causal=causal,
                                     q_offset=int(pos), kv_len=kv_len,
                                     amm=amm)
-    elif use_pallas:
-        raise NotImplementedError(_FLASH)
+    elif use_pallas and s <= _FLASH_SEQ_CAP and (
+            amm is None or amm.attn_lowering is not None):
+        groups = q.shape[2] // k.shape[2]
+        qt = q.transpose(1, 2)
+        kt = torch.repeat_interleave(k, groups, dim=2).transpose(1, 2)
+        vt = torch.repeat_interleave(v, groups, dim=2).transpose(1, 2)
+        if amm is None:
+            out = _FlashExact.apply(qt, kt, vt, causal)
+        else:
+            out = _flash_amm_ste(amm, causal, qt, kt, vt)
+        out = out.transpose(1, 2)
     else:
+        if use_pallas:
+            if s > _FLASH_SEQ_CAP:
+                _flash_fallback(
+                    "sequence length exceeds the flash cap",
+                    shape=tuple(x.shape), seq=s, cap=_FLASH_SEQ_CAP,
+                    amm="inactive" if amm is None else
+                    f"{amm.cfg.mul}/wl={amm.cfg.wl}")
+            else:
+                _flash_fallback(
+                    "amm family has no flash lowering",
+                    shape=tuple(x.shape), seq=s,
+                    amm=f"{amm.cfg.mul}/mode={amm.cfg.mode}")
         out = chunked_attention(q, k, v, causal=causal, amm=amm)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache

@@ -7,10 +7,12 @@ Counterpart of ``repro.models.common``.  Parameters are declared once as
 reproduce ``jax.random``'s normals, so weights that must equal the
 reference's come across through numpy instead (``convert``).
 
-What this slice ports of the amm layer: modes "off" and "noise".  Mode
-"bitexact", ``amm_dot`` (attention-side amm) and the plain noise branch
-with a key and non-zero moments (it draws with ``jax.random.normal``)
-raise ``NotImplementedError`` naming the slice that ports them.
+The amm layer has its three modes: "off", "noise" (through the
+``quant_matmul`` kernel) and "bitexact" (the Broken-Booth dot form, the
+``bbm_dot_scaled`` kernel on the card), and the attention-side
+``amm_dot``.  The plain noise branch with a key and non-zero moments
+(it draws with ``jax.random.normal``) raises ``NotImplementedError``
+naming ROADMAP item A10.
 """
 from __future__ import annotations
 
@@ -24,14 +26,13 @@ from ..configs.base import AmmConfig
 from ..core.multipliers import MulSpec
 from ..core.noise import make_noise_model
 from ..device import pin_fp32
+from ..kernels.bbm_matmul import bbm_dot_scaled, bbm_matmul_dynamic
 from ..kernels.ops import quant_matmul
-from ..kernels.ref import amm_quantize, amm_scale
+from ..kernels.ref import (AMM_BOOTH_KINDS, amm_approx_ref,
+                           amm_effective_vbl, amm_quantize, amm_scale)
 
 __all__ = ["Spec", "init_params", "rmsnorm", "rope_freqs", "apply_rope",
-           "amm_dense", "amm_dot", "AmmRuntime"]
-
-_BITEXACT = ("the bitexact Broken-Booth datapath is ROADMAP slice 3 "
-             "(A4/A5, the _dot_scaled hand kernel B2)")
+           "amm_dense", "amm_dot", "AmmRuntime", "cross_entropy_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,13 +113,21 @@ class AmmRuntime:
 
     @staticmethod
     def build(cfg: AmmConfig) -> "AmmRuntime":
-        if cfg.mode == "bitexact":
-            raise NotImplementedError(f"amm mode 'bitexact': {_BITEXACT}")
         if cfg.mode != "noise":
             return AmmRuntime(cfg)
         spec = MulSpec(cfg.mul, cfg.wl, cfg.param)
         nm = make_noise_model(spec, sample=1 << 18)
         return AmmRuntime(cfg, mu=float(nm.mean), sigma=float(np.sqrt(nm.var)))
+
+    @property
+    def spec(self) -> MulSpec:
+        return MulSpec(self.cfg.mul, self.cfg.wl, self.cfg.param)
+
+    @property
+    def cacheable(self) -> bool:
+        """Does mode="bitexact" run the precodable dot-form datapath?"""
+        return (self.cfg.mode == "bitexact"
+                and self.cfg.mul in AMM_BOOTH_KINDS)
 
     @property
     def mlp_active(self) -> bool:
@@ -134,8 +143,52 @@ class AmmRuntime:
         noise mode keeps attention exact even under apply_to="all".
         """
         return (self.cfg.mode == "bitexact"
-                and self.cfg.mul in ("booth", "bbm0", "bbm1")
+                and self.cfg.mul in AMM_BOOTH_KINDS
                 and self.cfg.apply_to in ("attn", "all"))
+
+    @property
+    def attn_lowering(self):
+        """``(wl, vbl, kind)`` of the Booth-family dot-form lowering, the
+        parameters of every bitexact attention product (``amm_dot`` and
+        the flash-amm kernel), or None without one."""
+        kind = AMM_BOOTH_KINDS.get(self.cfg.mul)
+        if kind is None or self.cfg.mode != "bitexact":
+            return None
+        return (self.cfg.wl, amm_effective_vbl(self.spec), kind)
+
+    def precode(self, w):
+        """The per-weight cache entry of the bitexact datapath for one
+        (K, N) weight: ``{"codes", "s_w"}``, its int32 wl-bit codes and
+        dynamic scale, or None when nothing is cacheable.  The reference
+        caches the codes' digit planes; the port's kernel decodes the
+        digits itself, so it caches what the kernel takes."""
+        if not self.cacheable:
+            return None
+        codes, s_w = amm_quantize(w, self.cfg.wl)
+        return {"codes": codes.contiguous(), "s_w": s_w}
+
+
+def _amm_bitexact_approx(x, w, rt: AmmRuntime, planes=None):
+    """Forward value of mode="bitexact": the dot-form Broken-Booth matmul.
+
+    Quantize x to codes (flattened to (M, K)), contract against the
+    weight's codes on the datapath (``bbm_dot_scaled``: the kernel on the
+    card, the plain dot form on the CPU), descale.  Non-Booth families
+    have no dot lowering and take the scalar oracle.  ``planes``: an
+    optional ``AmmRuntime.precode(w)`` entry.
+    """
+    cfg = rt.cfg
+    kind = AMM_BOOTH_KINDS.get(cfg.mul)
+    if kind is None:
+        return amm_approx_ref(x, w, rt.spec)
+    xq, s_x = amm_quantize(x, cfg.wl)
+    if planes is None:
+        planes = rt.precode(w)
+    yq = bbm_dot_scaled(xq.reshape(-1, x.shape[-1]).contiguous(),
+                        planes["codes"], wl=cfg.wl,
+                        vbl=amm_effective_vbl(rt.spec), kind=kind)
+    yq = yq.reshape(x.shape[:-1] + (w.shape[-1],))
+    return (yq * (s_x * planes["s_w"])).to(x.dtype)
 
 
 def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
@@ -151,6 +204,8 @@ def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
     kept as written.  Noise mode with ``use_pallas`` runs the fused
     ``quant_matmul`` kernel on the activation block flattened to
     (M, K), with the scales of ``amm_quantize`` (device scalars).
+    Bitexact mode computes its forward value without a graph
+    (``_amm_bitexact_approx``).
     """
     pin_fp32()
     cfg = rt.cfg
@@ -181,11 +236,52 @@ def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
         approx = (yq * (s_x * s_w)).to(x.dtype)
         return exact + (approx - exact).detach()
     if cfg.mode == "bitexact":
-        raise NotImplementedError(f"amm mode 'bitexact': {_BITEXACT}")
+        with torch.no_grad():
+            approx = _amm_bitexact_approx(x.detach(), w.detach(), rt)
+        return exact + (approx - exact).detach()
     raise ValueError(f"unknown amm mode {cfg.mode!r}")
 
 
 def amm_dot(a, b, rt: AmmRuntime, *, oracle: bool = False, ste: bool = True):
-    """The attention-side amm product (both operands dynamic): its only
-    lowering is the bitexact datapath, not ported yet."""
-    raise NotImplementedError(f"amm_dot: {_BITEXACT}")
+    """Both-operands-dynamic approximate matmul, the attention-side
+    ``amm_dense``: contracts a's last axis against b's second-to-last,
+    batched over matching leading axes, every (M, K) x (K, N) slice
+    quantized with its own pair of scales (``bbm_matmul_dynamic``).
+
+    Straight-through: ``exact + (approx - exact).detach()``.  ``oracle``
+    forms the products through the closed forms (``amm_dot_ref``);
+    ``ste=False`` returns the approximate product itself.  Without a
+    dot-form lowering this is the exact product.
+    """
+    pin_fp32()
+    lowering = rt.attn_lowering
+    if lowering is None:
+        return a @ b
+    with torch.no_grad():
+        if oracle:
+            from ..kernels.ref import amm_dot_ref
+            approx = amm_dot_ref(a.detach(), b.detach(), rt.spec)
+        else:
+            wl, vbl, kind = lowering
+            a2 = a.detach().reshape((-1,) + a.shape[-2:])
+            b2 = b.detach().reshape((-1,) + b.shape[-2:])
+            approx = torch.stack([
+                bbm_matmul_dynamic(a2[i], b2[i], wl=wl, vbl=vbl, kind=kind)
+                for i in range(a2.shape[0])]).reshape(
+                    a.shape[:-1] + b.shape[-1:])
+    if not ste:
+        return approx
+    exact = a @ b
+    return exact + (approx - exact).detach()
+
+
+# ------------------------------------------------------------------- loss
+def cross_entropy_loss(logits, labels, *, z_loss: float = 1e-4):
+    """Mean token cross entropy (f32 logsumexp) plus the z-loss."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    loss = torch.mean(lse - ll)
+    if z_loss:
+        loss = loss + z_loss * torch.mean(torch.square(lse))
+    return loss

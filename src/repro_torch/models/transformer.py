@@ -14,12 +14,13 @@ layer's ``amm_dense`` calls share ``randint(layer key)``.  ``core.prng``
 computes those integers on the host once per (rng, depth).
 
 The other families (MoE, SSM, hybrid, encoder-decoder, VLM) are ROADMAP
-item A12 and raise ``NotImplementedError``.
+item A12 and raise ``NotImplementedError``.  ``lm_loss`` is the training
+loss of the cacheless train mode.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -27,21 +28,23 @@ from ..configs.base import ArchConfig
 from ..core.prng import layer_seeds
 from ..device import pin_fp32, resolve_device
 from .attention import attention, attn_table
-from .common import AmmRuntime, Spec, init_params, rmsnorm
+from .common import (AmmRuntime, Spec, cross_entropy_loss, init_params,
+                     rmsnorm)
 from .moe import mlp_apply, mlp_table
 
-__all__ = ["ModelRuntime", "lm_table", "lm_init", "lm_apply", "init_cache"]
+__all__ = ["ModelRuntime", "lm_table", "lm_init", "lm_apply", "lm_loss",
+           "init_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelRuntime:
     """Static knobs threaded through apply.
 
-    ``use_pallas_attention`` is kept for the reference's signature: it
-    only changes the cacheless forward, whose flash kernels are not
-    ported yet (ROADMAP B3, B4).  The reference's other knobs (remat,
-    head sharding, causal skipping, bf16 probabilities) are performance
-    levers of its TPU build and are not carried over.
+    ``use_pallas_attention`` (the reference's name) sends the cacheless
+    forward's attention through the flash kernels: the exact one, or the
+    flash-amm one when attention is amm-active.  The reference's other
+    knobs (remat, head sharding, causal skipping, bf16 probabilities) are
+    performance levers of its TPU build and are not carried over.
     """
     amm: AmmRuntime
     use_pallas_attention: bool = False
@@ -130,15 +133,17 @@ def _layer(tree, i: int):
 
 def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
              mode: str = "train", caches=None, pos=None,
-             rng: Optional[int] = None):
+             rng=None):
     """Forward pass.
 
     tokens: (B, S) integer tokens (S == 1 to decode against caches).
     caches: optional ``init_cache`` dict, updated in place at ``pos`` (a
     scalar, or a (B,) per-slot vector under continuous batching) and
     returned; without caches the attention is the cacheless causal
-    chunked schedule (train and prefill).  rng: the seed of the key the
-    noise seeds derive from (``jax.random.key(rng)``; default 0).
+    schedule (train and prefill), or the flash kernels with
+    ``rt.use_pallas_attention``.  rng: the key the noise seeds derive
+    from, as an int seed (``jax.random.key(rng)``; default 0) or a
+    ``core.prng`` key.
     Returns (logits f32 (B, S, vocab), aux losses, caches).
     """
     if mode not in ("train", "prefill", "decode"):
@@ -148,7 +153,8 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     embed = params["embed"]
     dev = embed.device
     tokens = torch.as_tensor(tokens, device=dev).to(torch.int64)
-    seeds = layer_seeds(0 if rng is None else int(rng), cfg.n_layers)
+    seeds = layer_seeds(rng if isinstance(rng, tuple)
+                        else (0 if rng is None else int(rng)), cfg.n_layers)
     h = embed[tokens].to(torch.bfloat16)
     b, s = tokens.shape
     off = torch.as_tensor(0 if pos is None else pos, device=dev).to(
@@ -168,3 +174,16 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     logits = (h @ head.to(h.dtype)).to(torch.float32)
     new_caches = caches if caches is not None else {}
     return logits, {"moe_aux": 0.0}, new_caches
+
+
+def lm_loss(params, cfg: ArchConfig, rt: ModelRuntime, tokens, labels, *,
+            rng=None, moe_aux_weight: float = 1e-2):
+    """Training loss: next-token cross entropy (with the z-loss) plus the
+    MoE auxiliary loss, which the dense family leaves at 0.  Returns
+    (total, {"ce", "moe_aux"})."""
+    logits, aux, _ = lm_apply(params, cfg, rt, tokens, mode="train",
+                              rng=rng)
+    labels = torch.as_tensor(labels, device=logits.device)
+    loss = cross_entropy_loss(logits, labels)
+    total = loss + moe_aux_weight * aux["moe_aux"]
+    return total, {"ce": loss, "moe_aux": aux["moe_aux"]}

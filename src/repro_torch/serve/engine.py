@@ -44,8 +44,8 @@ from .kv_cache import batch_axis_tree, reset_slot, slot_put, slot_take
 __all__ = ["cache_logical_axes", "make_serve_fns", "Request", "Scheduler",
            "FilterRequest", "FilterbankEngine"]
 
-_CODES = ("kv_codes (the int-code KV cache) is ROADMAP slice 3, with the "
-          "bitexact datapath")
+_CODES = ("kv_codes (the int-code KV cache) is bitexact serving, ROADMAP "
+          "slice 5")
 
 
 def cache_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:

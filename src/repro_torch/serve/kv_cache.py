@@ -5,7 +5,7 @@ admission resets it, prefill runs on a batch-1 slice and writes it back.
 Every helper takes a matching dict of batch-axis indices (``ax_tree``),
 derived once from the cache's logical axes.  This slice ports the float
 cache; the int-code cache (``init_code_cache``, ``memory_report``) is
-ROADMAP slice 3.
+bitexact serving, ROADMAP slice 5.
 
 ``slot_take`` returns a copy (a prefill that fails midway leaves the
 cache as it was); ``slot_put`` and ``reset_slot`` write in place and

@@ -61,6 +61,12 @@ def _imported_roots(path: Path):
 def test_no_port_file_imports_jax_or_the_reference():
     files = _port_files()
     assert len(files) > 15
+    rel = {p.relative_to(ROOT).as_posix() for p in files}
+    for part in ("train/optimizer.py", "train/trainstep.py",
+                 "train/checkpoint.py", "train/loop.py", "data/pipeline.py",
+                 "launch/train.py", "kernels/bbm_matmul.py",
+                 "kernels/flash_attention.py"):
+        assert f"src/repro_torch/{part}" in rel, part
     bad = [(p.relative_to(ROOT).as_posix(), root) for p in files
            for root in _imported_roots(p) if root in FORBIDDEN]
     assert bad == []
@@ -152,10 +158,12 @@ def _tiny_lm():
 
 
 @pytest.mark.parametrize("entry", ["lm_init", "init_cache", "Scheduler",
-                                   "lm_params_from_numpy", "launch.serve"])
-def test_lm_entry_points_default_to_the_gpu(entry):
-    from repro_torch.convert import lm_params_from_numpy
+                                   "lm_params_from_numpy", "launch.serve",
+                                   "launch.train", "opt_state_from_numpy"])
+def test_lm_entry_points_default_to_the_gpu(entry, tmp_path):
+    from repro_torch.convert import lm_params_from_numpy, opt_state_from_numpy
     from repro_torch.launch import serve as t_launch
+    from repro_torch.launch import train as t_train
     from repro_torch.models import ModelRuntime, init_cache, lm_init
     from repro_torch.serve import Scheduler
     cfg = _tiny_lm()
@@ -171,6 +179,15 @@ def test_lm_entry_points_default_to_the_gpu(entry):
         dev = kw.get("device")
         return t_launch.main(argv + ([] if dev is None
                                      else ["--device", dev]))
+
+    def train(**kw):
+        argv = ["--reduced", "--steps", "1", "--batch", "1", "--seq", "8",
+                "--amm", "bitexact", "--amm-attn", "--flash-attn",
+                "--ckpt-dir", str(tmp_path / "ck")]
+        dev = kw.get("device")
+        return t_train.main(argv + ([] if dev is None
+                                    else ["--device", dev]))
+    zeros = np.zeros((2,), np.float32)
     calls = {
         "lm_init": lambda **kw: lm_init(cfg, **kw),
         "init_cache": lambda **kw: init_cache(cfg, 2, 8, **kw),
@@ -178,6 +195,9 @@ def test_lm_entry_points_default_to_the_gpu(entry):
         "lm_params_from_numpy": lambda **kw: lm_params_from_numpy(
             {"embed": np.ones((4, 2), np.float32)}, **kw),
         "launch.serve": launch,
+        "launch.train": train,
+        "opt_state_from_numpy": lambda **kw: opt_state_from_numpy(
+            (np.int32(0), {"w": zeros}, {"w": zeros}), **kw),
     }
     with _no_gpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -190,15 +210,26 @@ def test_lm_entry_points_default_to_the_gpu(entry):
 def test_tf32_is_off_on_the_f32_paths():
     """The port's f32 paths pin TF32 off (matmul and cuDNN), whatever the
     caller set: the entry points call ``device.pin_fp32``."""
+    import dataclasses
+    from repro_torch.configs.base import AmmConfig
     from repro_torch.kernels import quant_matmul
+    from repro_torch.kernels.bbm_matmul import bbm_dot_scaled
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_amm)
     from repro_torch.kernels.ref import quant_matmul_ref
     from repro_torch.models import (ModelRuntime, amm_dense, init_cache,
-                                    lm_apply, lm_init)
+                                    lm_apply, lm_init, lm_loss)
     from repro_torch.serve import Scheduler
     cfg = _tiny_lm()
     rt = ModelRuntime.build(cfg)
     params = lm_init(cfg, device="cpu")
     x, w = torch.ones((2, 16)), torch.ones((16, 4))
+    bcfg = dataclasses.replace(cfg, amm=AmmConfig(
+        mode="bitexact", apply_to="all"))
+    brt = ModelRuntime.build(bcfg, use_pallas=True)
+    codes = torch.ones((4, 70), dtype=torch.int32)
+    qkv = torch.ones((1, 1, 8, 16))
+    toks = torch.ones((1, 3), dtype=torch.int64)
     runs = {
         "lm_apply": lambda: lm_apply(params, cfg, rt, torch.ones(
             (1, 3), dtype=torch.int64), mode="decode",
@@ -208,6 +239,13 @@ def test_tf32_is_off_on_the_f32_paths():
         "quant_matmul_ref": lambda: quant_matmul_ref(x, w, 0.1, 0.1),
         "Scheduler": lambda: Scheduler(cfg, rt, params, 1, 8,
                                        device="cpu"),
+        "lm_loss": lambda: lm_loss(params, bcfg, brt, toks, toks),
+        "bbm_dot_scaled": lambda: bbm_dot_scaled(codes, codes.t()
+                                                 .contiguous(), wl=16,
+                                                 vbl=13, kind=0),
+        "flash_attention": lambda: flash_attention(qkv, qkv, qkv),
+        "flash_attention_amm": lambda: flash_attention_amm(
+            qkv, qkv, qkv, wl=16, vbl=13, kind=0),
     }
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
@@ -224,22 +262,34 @@ def test_tf32_is_off_on_the_f32_paths():
         torch.backends.cudnn.allow_tf32 = old[1]
 
 
-def test_unported_parts_name_their_roadmap_item():
+def test_unported_parts_name_their_roadmap_item(tmp_path):
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve as t_launch
+    from repro_torch.launch import train as t_train
     from repro_torch.models import ModelRuntime
     from repro_torch.models.attention import attention, attn_table
+    from repro_torch.models.common import AmmRuntime
+    from repro_torch.configs.base import AmmConfig
     with pytest.raises(NotImplementedError, match="A12"):
         get_arch("deepseek-v3-671b")
     for flag in (["--amm", "bitexact"], ["--amm-attn"], ["--kv-codes"]):
-        with pytest.raises(NotImplementedError, match="slice 3"):
+        with pytest.raises(NotImplementedError, match="slice 5"):
             t_launch.main(["--reduced", "--device", "cpu"] + flag)
+    with pytest.raises(NotImplementedError, match="A13"):
+        t_train.main(["--reduced", "--device", "cpu", "--mesh-data", "2",
+                      "--ckpt-dir", str(tmp_path)])
     cfg = _tiny_lm()
-    x = torch.ones((1, 2, 16))
+    x = torch.ones((1, 1, 16))
     p = {k: torch.ones(v.shape) for k, v in attn_table(cfg).items()}
-    with pytest.raises(NotImplementedError, match="B4 and B3"):
-        attention(p, x, cfg, positions=torch.zeros((1, 2)),
-                  use_pallas=True)
+    amm = AmmRuntime.build(AmmConfig(mode="bitexact", apply_to="all"))
+    shape = (1, 4, cfg.n_kv_heads, cfg.resolved_head_dim)
+    cache = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        attention(p, x, cfg, positions=torch.zeros((1, 1)), cache=cache,
+                  pos=0, amm=amm)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        attention(p, x, cfg, positions=torch.zeros((1, 1)),
+                  cache={"k_codes": None}, pos=0)
     assert ModelRuntime.build(cfg).amm.mlp_active
 
 
@@ -368,6 +418,133 @@ def test_kernel_within_bound_of_plain_version_on_the_card(wl):
     assert torch.equal(w1, p1) and torch.equal(w2, p2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("wl,vbl,kind", [(8, 5, 1), (12, 7, 0), (16, 13, 0),
+                                         (16, 13, 1), (16, 0, 0)])
+def test_bbm_dot_kernel_equals_plain_version_on_the_card(wl, vbl, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels import bbm_matmul as t_bm
+    rng = np.random.default_rng(wl + vbl)
+    lim = 1 << (wl - 1)
+    for m, k, n in ((7, 50, 9), (70, t_rows.amm_chunk_len(wl, vbl) + 1, 65)):
+        k = min(k, 3000)
+        x = torch.from_numpy(rng.integers(-lim, lim, (m, k)).astype(
+            np.int32)).cuda()
+        w = torch.from_numpy(rng.integers(-lim, lim, (k, n)).astype(
+            np.int32)).cuda()
+        x[0], w[:, 0] = lim - 1, -lim
+        before = t_bm.bbm_dot_scaled.launches
+        got = t_bm.bbm_dot_scaled(x, w, wl=wl, vbl=vbl, kind=kind)
+        # the plain version on the card needs an f32 envelope; without
+        # one it runs on CPU copies
+        on = "cuda" if t_rows.f32_exact_chunk_len(wl, vbl) else "cpu"
+        want = t_bm.bbm_dot_scaled_plain(x.to(on), w.to(on), wl=wl, vbl=vbl,
+                                         kind=kind)
+        torch.cuda.synchronize()
+        assert torch.equal(got.to(on), want)
+        assert t_bm.bbm_dot_scaled.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_within_bound_of_plain_versions_on_the_card(causal):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((2, 3, 200, 64), generator=g, device="cuda")
+               for _ in range(3))
+    before = (t_fa.flash_attention.launches,
+              t_fa.flash_attention_amm.launches)
+    got = t_fa.flash_attention(q, k, v, causal=causal)
+    want = t_fa.flash_attention_plain(q, k, v, causal=causal)
+    assert bool(((got.double() - want.double()).abs()
+                 <= t_fa.flash_tolerance(q, k, v)).all())
+    for kind in (0, 1):
+        got, res = t_fa.flash_attention_amm(q, k, v, wl=16, vbl=13,
+                                            kind=kind, causal=causal,
+                                            residuals=True)
+        ops = t_fa.flash_amm_operands(q, k, v, wl=16)
+        want, wres = t_fa.flash_amm_plain(ops, wl=16, vbl=13, kind=kind,
+                                          causal=causal, residuals=True)
+        rep = t_fa.flash_amm_compare(
+            ops, dict(res, out=got.reshape(6, 200, 64)),
+            dict(wres, out=want[:, :200]), wl=16, vbl=13, causal=causal)
+        assert rep["ok"], rep
+    assert (t_fa.flash_attention.launches,
+            t_fa.flash_attention_amm.launches) == (before[0] + 1,
+                                                   before[1] + 2)
+
+
+@pytest.mark.cuda
+def test_chunked_amm_attention_on_the_card_matches_the_cpu():
+    """The chunked amm path (no flash) runs every block's products on the
+    ``bbm_dot_scaled`` kernel, one launch per (batch, kv-head) slice; the
+    card agrees with the CPU by ``flash_amm_compare`` (same codes, float
+    sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    from repro_torch.configs.base import AmmConfig
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.models.common import AmmRuntime
+    t_bm = importlib.import_module("repro_torch.kernels.bbm_matmul")
+    t_fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    rt = AmmRuntime.build(AmmConfig(mode="bitexact", mul="bbm1", wl=16,
+                                    param=13, apply_to="all"))
+    g = torch.Generator().manual_seed(1)
+    q = torch.randn((1, 40, 4, 64), generator=g)
+    k, v = (torch.randn((1, 40, 2, 64), generator=g) for _ in range(2))
+    before = t_bm.bbm_dot_scaled.launches
+    got = chunked_attention(q.cuda(), k.cuda(), v.cuda(), causal=True,
+                            bq=16, bk=16, amm=rt)
+    torch.cuda.synchronize()
+    # 3 x 3 block pairs, 2 products each, 2 (batch, kv-head) slices
+    assert t_bm.bbm_dot_scaled.launches == before + 36
+    from torch_amm_capture import chunked_residuals, port_amm_dot_records
+    runs = []
+    for dev in ("cuda", "cpu"):
+        with port_amm_dot_records() as recs:
+            out = chunked_attention(q.to(dev), k.to(dev), v.to(dev),
+                                    causal=True, bq=16, bk=16, amm=rt)
+        recs = [tuple(t.cpu() for t in rec) for rec in recs]
+        runs.append(chunked_residuals(recs, (1, 40, 4, 64, 40, 2), out.cpu(),
+                                      wl=16, bq=16, bk=16))
+        if dev == "cuda":
+            assert torch.equal(out, got)     # the records change nothing
+    (ops, card, q_pos), (_, cpu, _) = runs
+    rep = t_fa.flash_amm_compare(ops, card, cpu, wl=16, vbl=13, causal=True,
+                                 q_pos=q_pos)
+    assert rep["ok"], rep
+
+
+@pytest.mark.cuda
+def test_flash_amm_gradient_on_the_card_matches_the_cpu():
+    """The straight-through backward from the kernel's residuals against
+    the same backward from the plain version's: 2^-8 of the largest
+    gradient (the residual P V products differ where a P code moves,
+    within the flash-amm bound, and f32 sums run in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.configs.base import AmmConfig
+    from repro_torch.models.attention import _flash_amm_ste
+    from repro_torch.models.common import AmmRuntime
+    rt = AmmRuntime.build(AmmConfig(mode="bitexact", mul="bbm0", wl=16,
+                                    param=13, apply_to="all"))
+    g = torch.Generator().manual_seed(2)
+    qkv = [torch.randn((1, 2, 200, 64), generator=g) for _ in range(3)]
+    grads = []
+    for dev in ("cuda", "cpu"):
+        leaves = [t.to(dev).requires_grad_() for t in qkv]
+        loss = torch.sum(torch.square(_flash_amm_ste(rt, True, *leaves)))
+        grads.append(torch.autograd.grad(loss, leaves))
+    for a, b in zip(*grads):
+        scale = float(b.abs().max())
+        assert float((a.cpu() - b).abs().max()) <= 2.0 ** -8 * scale
+
+
 # --------------------------------------------------------------- the build
 def test_build_directory_is_git_ignored():
     ignored = [ln.strip().rstrip("/") for ln in
@@ -376,7 +553,7 @@ def test_build_directory_is_git_ignored():
     rel = _build.BUILD_DIR.relative_to(ROOT).as_posix()
     assert any(rel == p or rel.startswith(p + "/") for p in ignored), rel
     assert "chiprun_out" in ignored
-    for name in ("fir_bank", "quant_matmul"):
+    for name in ("fir_bank", "quant_matmul", "bbm_dot", "flash_attention"):
         assert _build.SOURCES[name].is_file()
         assert _build.SOURCES[name].relative_to(PKG).as_posix() \
             == f"kernels/csrc/{name}.cu"

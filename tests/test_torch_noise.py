@@ -185,5 +185,6 @@ def test_amm_dense_raises_where_a_later_slice_ports():
         t_common.amm_dense(x, w, rt, seed=1)
     off = t_common.amm_dense(x, w, rt)             # no key: no noise
     assert off.shape == (2, 4)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        t_common.AmmRuntime.build(TAmm(mode="bitexact"))
+    # bitexact mode, a later slice when this test was written, is ported
+    bitexact = t_common.AmmRuntime.build(TAmm(mode="bitexact"))
+    assert bitexact.cacheable and bitexact.attn_lowering == (16, 13, 0)

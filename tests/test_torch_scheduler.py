@@ -17,8 +17,8 @@ twice that, and the two ``stats`` dicts must be equal.
 
 Policy: copies of ``tests/test_serve_continuous.py``'s FIFO,
 poison-recycle, deadline and near-cap tests, on the port alone, in noise
-mode (the reference runs them in bitexact attention mode, which is
-ROADMAP slice 3).
+mode (the reference runs them in bitexact attention mode with the
+int-code cache, which is bitexact serving, ROADMAP slice 5).
 """
 from __future__ import annotations
 
@@ -273,7 +273,7 @@ def test_guard_reserves_on_the_exact_datapath(lm):
 
 
 def test_unported_options_raise(lm):
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="slice 5"):
         _sched(lm, kv_codes=True)
     with pytest.raises(ValueError, match="max_new"):
         _sched(lm).submit(t_engine.Request(rid=0, prompt=[1], max_new=0))
