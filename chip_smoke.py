@@ -76,7 +76,29 @@ of the JAX package.  Phases, each of which fails the run:
      last steps), and each new kernel at its main-path shapes against
      its bound, its plain version and, for ``flash_attention``,
      ``scaled_dot_product_attention`` on the same f32 operands (a
-     yardstick only).
+     yardstick only);
+ 15. B1 sweep: ``bbm_matmul_rows`` and ``bbm_matmul_dot`` bit-equal to
+     their plain versions over wl in {8, 12, 16}, vbl in {0, 5, 13, 15}
+     below wl, both kinds, shifts {the minimal safe one (0 where the
+     envelope allows), <= vbl, > vbl}, ragged M, K and N, the most
+     negative codes, and one faulted-plane case per lane;
+ 16. the public matmul API at qwen2-0.5b's MLP shape (2048, 896) x (896,
+     4864), WL 16 / VBL 13, both kinds (launch counts zeroed just before,
+     read just after): ``ops.bbm_matmul(shift=15)`` must launch
+     ``bbm_matmul_rows`` once and ``bbm_matmul_dot`` never (the auto
+     rule), shift 13 ``bbm_matmul_dot``, whose output ``form="rows"``
+     repeats bit for bit, both equal to the plain versions on 64 sampled
+     rows; bbm0 with plane and with accumulator flips at p = 1e-3 through
+     ``bbm_matmul_scaled`` (the planes-in ``bbm_dot_planes``) bit-equal to
+     its plain version;
+ 17. the fault study of ``benchmarks/robustness.py`` on the card: its
+     gate (the faulted datapath bit-equal to ``amm_faulty_ref``, the
+     disabled spec to the unfaulted datapath), its matmul resilience
+     curves bit-equal to the CPU port, the FIR SNR-vs-plane-fault curve
+     through ``FilterbankEngine`` at fir30 (8 channels bit-equal to the
+     CPU port), and poison ejection on the card's engine;
+ 18. B1 timing: each new kernel and ``bbm_dot_scaled`` at the full shape
+     against its int32-issue bound and its plain version.
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -1006,6 +1028,393 @@ def report_train_run(name, res, counters) -> None:
             print(f"  {name}: {kname} {t:.4f} device ms per step")
 
 
+# ------------------------------------------- slice 4: B1 and the faults
+B1_SHAPE = (2048, 896, 4864)          # qwen2-0.5b's MLP product at T1's M
+FAULT_RATES = [0.0, 1e-4, 1e-3, 1e-2, 1e-1]     # benchmarks/robustness.py
+B1_SOURCE = "src/repro_torch/kernels/csrc/bbm_matmul.cu"
+B1_REPLACES = {"bbm_matmul_rows": "src/repro/kernels/bbm_matmul.py:400",
+               "bbm_matmul_dot": "src/repro/kernels/bbm_matmul.py:161",
+               "bbm_dot_planes": "src/repro/kernels/bbm_matmul.py:112"}
+B1_SOURCES = {"bbm_matmul_rows": B1_SOURCE, "bbm_matmul_dot": B1_SOURCE,
+              "bbm_dot_planes": "src/repro_torch/kernels/csrc/bbm_dot.cu"}
+B1_KERNELS = {"bbm_matmul_rows": "bbm_matmul_rows_kernel",
+              "bbm_matmul_dot": "bbm_matmul_dot_kernel",
+              "bbm_dot_planes": "bbm_dot_planes_kernel",
+              "bbm_dot_scaled": "bbm_dot_kernel"}
+
+
+def b1_check(torch, tb, x, hm, hn, kw, what) -> None:
+    """Both B1 kernels == the plain rows form, and the plain dot form too
+    (on CPU copies where the operating point has no f32 envelope)."""
+    from repro_torch.kernels.booth_rows import f32_exact_chunk_len
+    want = tb.bbm_matmul_rows_plain(x, hm, hn, **kw)
+    got = {"bbm_matmul_rows": tb.bbm_matmul_rows(x, hm, hn, **kw),
+           "bbm_matmul_dot": tb.bbm_matmul_dot(x, hm, hn, **kw)}
+    on = x.device if f32_exact_chunk_len(kw["wl"], kw["vbl"]) else "cpu"
+    got["bbm_matmul_dot_plain"] = tb.bbm_matmul_dot_plain(
+        x.to(on), hm.to(on), hn.to(on), **kw)
+    torch.cuda.synchronize()
+    for name, y in got.items():
+        if not torch.equal(y.to(want.device), want):
+            fail(f"{name} != plain rows {what} {kw}: "
+                 f"{int((y.to(want.device) != want).sum())} elements differ")
+
+
+def b1_sweep(torch, tb, dev) -> int:
+    """The B1 kernels against their plain versions over wl, vbl, kind,
+    shift, ragged shapes, the most negative codes and one faulted-plane
+    case per lane; returns the case count."""
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    from repro_torch.kernels.booth_rows import booth_precode
+    rng = np.random.default_rng(11)
+    shapes = [(70, 37, 130), (1, 200, 65), (129, 65, 3), (5, 1000, 64)]
+    cases = 0
+
+    def operands(m, k, n, wl):
+        lim = 1 << (wl - 1)
+        x = rng.integers(-lim, lim, (m, k)).astype(np.int32)
+        w = rng.integers(-lim, lim, (k, n)).astype(np.int32)
+        x[0], x[-1], w[:, 0], w[:, -1] = -lim, lim - 1, -lim, lim - 1
+        x, w = (torch.from_numpy(a).to(dev) for a in (x, w))
+        return x, *(t.contiguous() for t in booth_precode(w, wl))
+
+    for wl in (8, 12, 16):
+        for vbl in (v for v in (0, 5, 13, 15) if v < wl):
+            for kind in (0, 1):
+                m, k, n = shapes[cases % len(shapes)]
+                lo = 0
+                while k * 2 ** max(2 * wl - 1 - lo, 0) >= 2 ** 31:
+                    lo += 1
+                for shift in sorted({lo, max(lo, vbl), max(lo, vbl + 2)}):
+                    x, hm, hn = operands(m, k, n, wl)
+                    b1_check(torch, tb, x, hm, hn, dict(
+                        wl=wl, vbl=vbl, kind=kind, shift=shift),
+                        f"at ({m}, {k}) x ({k}, {n})")
+                    cases += 1
+    for lane in ("mag_lo", "mag_hi", "neg", "all"):
+        for kind in (0, 1):
+            x, hm, hn = operands(70, 300, 130, 16)
+            fm, fn = (t.contiguous() for t in apply_plane_faults(
+                hm, hn, FaultSpec(p=0.05, lane=lane, seed=cases), vbl=13))
+            if torch.equal(fm, hm) and torch.equal(fn, hn):
+                fail(f"the {lane} fault changed no plane")
+            b1_check(torch, tb, x, fm, fn, dict(wl=16, vbl=13, kind=kind,
+                                                shift=15),
+                     f"on {lane}-faulted planes")
+            cases += 1
+    return cases
+
+
+def b1_full_size(torch, tb, ops, dev) -> dict:
+    """The public API at qwen2-0.5b's MLP shape, WL 16 / VBL 13, both
+    kinds: the auto form's launches, rows == dot at shift 13, and both
+    == their plain versions on 64 sampled rows."""
+    from repro_torch.kernels.booth_rows import booth_precode
+    m, k, n = B1_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    x = torch.randint(-32768, 32768, (m, k), generator=gen, device=dev,
+                      dtype=torch.int32)
+    w = torch.randint(-32768, 32768, (k, n), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x[0], w[:, 0] = -32768, -32768
+    hm, hn = booth_precode(w, 16)
+    idx = torch.from_numpy(np.sort(np.random.default_rng(13).choice(
+        m, 64, replace=False))).to(dev)
+    idx[0] = 0
+    outs = {}
+    for kind in (0, 1):
+        kw = dict(wl=16, vbl=13, kind=kind)
+        before = (tb.bbm_matmul_rows.launches, tb.bbm_matmul_dot.launches)
+        y15 = ops.bbm_matmul(x, w, shift=15, **kw)
+        torch.cuda.synchronize()
+        after = (tb.bbm_matmul_rows.launches, tb.bbm_matmul_dot.launches)
+        if (after[0] - before[0], after[1] - before[1]) != (1, 0):
+            fail(f"ops.bbm_matmul(shift=15) at {B1_SHAPE} launched rows "
+                 f"{after[0] - before[0]}, dot {after[1] - before[1]} "
+                 f"times: the auto rule must pick the rows kernel once")
+        y13 = ops.bbm_matmul(x, w, shift=13, **kw)
+        torch.cuda.synchronize()
+        if tb.bbm_matmul_dot.launches - after[1] != 1:
+            fail("ops.bbm_matmul(shift=13) did not launch bbm_matmul_dot")
+        y13r = ops.bbm_matmul(x, w, shift=13, form="rows", **kw)
+        if not torch.equal(y13, y13r):
+            fail(f"rows and dot forms differ at shift 13 kind={kind}")
+        xs = x[idx].contiguous()
+        for y, shift, plain in ((y15, 15, tb.bbm_matmul_rows_plain),
+                                (y13, 13, tb.bbm_matmul_dot_plain)):
+            want = plain(xs, hm, hn, shift=shift, **kw)
+            if not torch.equal(y[idx], want):
+                fail(f"{plain.__name__} differs on the sampled rows at "
+                     f"shift {shift} kind={kind}")
+        outs[kind] = (y15, y13)
+    return {"x": x, "w": w, "hm": hm, "hn": hn, "outs": outs}
+
+
+def fault_gate(torch, tb, dev) -> int:
+    """``gate_fault_equality`` on the card: the datapath under each fault
+    bit-equal to ``amm_faulty_ref``; the disabled spec bit-equal to the
+    unfaulted datapath.  Returns the case count."""
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.core.multipliers import MulSpec
+    from repro_torch.kernels.ref import amm_approx_ref, amm_faulty_ref
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((4, 70)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((70, 8)).astype(np.float32))
+    faults = [None,
+              FaultSpec(target="plane", model="flip", p=0.05, seed=3),
+              FaultSpec(target="plane", model="stuck1", p=0.05,
+                        lane="mag_lo", seed=5),
+              FaultSpec(target="acc", model="flip", p=0.3, bit=10, seed=9)]
+    cases = 0
+    for spec in (MulSpec("bbm0", 16, 13), MulSpec("booth", 16, 0)):
+        vbl = 0 if spec.name == "booth" else spec.param
+        base = amm_approx_ref(x, w, spec)
+        for f in faults:
+            got = tb.bbm_matmul_dynamic(x.to(dev), w.to(dev), wl=spec.wl,
+                                        vbl=vbl, kind=0, fault=f).cpu()
+            if not torch.equal(got, amm_faulty_ref(x, w, spec, fault=f)):
+                fail(f"the faulted datapath on the card != amm_faulty_ref "
+                     f"for {spec} {f}")
+            if f is None:
+                off = tb.bbm_matmul_dynamic(
+                    x.to(dev), w.to(dev), wl=spec.wl, vbl=vbl, kind=0,
+                    fault=FaultSpec(p=0.0)).cpu()
+                if not (torch.equal(got, base) and torch.equal(off, base)):
+                    fail(f"a disabled fault is not the unfaulted datapath "
+                         f"for {spec}")
+            cases += 1
+    return cases
+
+
+def fault_curves(torch, tb, dev) -> dict:
+    """``matmul_resilience``'s curves (m = n = 32, K = 192, seed 11, plane
+    flips on every lane and accumulator flips at bit 12, both specs) on
+    the card, each product bit-equal to the CPU port; returns the relative
+    errors."""
+    from repro_torch.core.faults import FaultSpec
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((32, 192)).astype(np.float32)
+    w = rng.standard_normal((192, 32)).astype(np.float32)
+    exact = x @ w
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    curves = {}
+    for name, vbl in (("bbm0", 13), ("booth", 0)):
+        for target, kw in (("plane", {"lane": "all"}), ("acc", {"bit": 12})):
+            curve = []
+            for p in FAULT_RATES:
+                f = FaultSpec(target=target, model="flip", p=p, seed=11,
+                              **kw) if p else None
+                got = tb.bbm_matmul_dynamic(tx.to(dev), tw.to(dev), wl=16,
+                                            vbl=vbl, kind=0, fault=f).cpu()
+                want = tb.bbm_matmul_dynamic(tx, tw, wl=16, vbl=vbl, kind=0,
+                                             fault=f)
+                if not torch.equal(got, want):
+                    fail(f"the {name} {target} curve at p={p} differs from "
+                         f"the CPU port")
+                curve.append(float(np.linalg.norm(got.numpy() - exact)
+                                   / np.linalg.norm(exact)))
+            curves[f"{name}_{target}"] = curve
+    return curves
+
+
+def fault_full_size(torch, tb, full) -> None:
+    """bbm0 at the full shape with plane flips and accumulator flips at
+    p = 1e-3: ``bbm_matmul_scaled`` (the planes-in kernel) bit-equal to
+    the plain version on the same planes, and different from the clean
+    sums."""
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    x, hm, hn = full["x"], full["hm"], full["hn"]
+    clean = tb.bbm_matmul_scaled(x, hm, hn, wl=16, vbl=13, kind=0)
+    for f in (FaultSpec(target="plane", p=1e-3, seed=11),
+              FaultSpec(target="acc", p=1e-3, bit=12, seed=11)):
+        got = tb.bbm_matmul_scaled(x, hm, hn, wl=16, vbl=13, kind=0,
+                                   fault=f)
+        fm, fn = apply_plane_faults(hm, hn, f, vbl=13)
+        want = tb.bbm_dot_planes_plain(x, fm, fn, wl=16, vbl=13, kind=0,
+                                       fault=f if f.target == "acc"
+                                       else None)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"the faulted datapath at {B1_SHAPE} differs from its "
+                 f"plain version under {f}")
+        if torch.equal(got, clean):
+            fail(f"{f} changed nothing at {B1_SHAPE}")
+
+
+def fir_fault_curve(torch, taps_banks, dev) -> dict:
+    """The FIR SNR-vs-plane-fault curve through ``FilterbankEngine`` at
+    fir30 on the card (bbm0 VBL 13 and exact Booth, 8 channels, the
+    engine's cached planes faulted as ``benchmarks/robustness.py`` does),
+    every channel bit-equal to the CPU port's engine; returns the mean
+    SNR per rate."""
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    from repro_torch.core.multipliers import MulSpec
+    from repro_torch.dsp import FIR_DELAY, make_filterbank_signals, snr_db
+    from repro_torch.serve import FilterbankEngine
+    sigs = make_filterbank_signals(8, n=1 << 12)
+    curves = {}
+    for spec in (MulSpec("bbm0", 16, 13), MulSpec("booth", 16, 0)):
+        vbl = 0 if spec.name == "booth" else spec.param
+        curve = []
+        for p in FAULT_RATES:
+            f = FaultSpec(target="plane", model="flip", p=p, lane="all",
+                          seed=7) if p else None
+            outs = []
+            for device in (dev, "cpu"):
+                eng = FilterbankEngine(taps_banks, spec, device=device)
+                eng.bank._planes = apply_plane_faults(*eng.bank.planes, f,
+                                                      vbl=vbl)
+                rids = [eng.submit(s.x, bank=c % 2)
+                        for c, s in enumerate(sigs)]
+                out = eng.flush()
+                if eng.failed:
+                    fail(f"the faulted engine quarantined {eng.failed}")
+                outs.append([out[r] for r in rids])
+            if not all(np.array_equal(a, b) for a, b in zip(*outs)):
+                fail(f"the faulted FIR on the card differs from the CPU port "
+                     f"for {spec} at p={p}")
+            curve.append(float(np.mean([snr_db(s.d1, y, FIR_DELAY)
+                                        for s, y in zip(sigs, outs[0])])))
+        curves[spec.name] = curve
+    return curves
+
+
+def poison_gate(dev) -> None:
+    """``gate_poison_ejection`` on the card's engine: a poison request is
+    quarantined alone, its neighbours are served, the queue drains."""
+    from repro_torch.core.multipliers import MulSpec
+    from repro_torch.dsp import design_lowpass
+    from repro_torch.serve import FilterbankEngine
+    rng = np.random.default_rng(2)
+    eng = FilterbankEngine(design_lowpass(), MulSpec("bbm0", 16, 13),
+                           max_channels=8, max_retries=1, device=dev)
+    sigs = [rng.standard_normal(128) for _ in range(5)]
+    poison = sigs[2]
+    inner = eng._apply
+
+    def flaky(x, h, spec, **kw):
+        for row in np.asarray(x):
+            if np.array_equal(row[:len(poison)], poison):
+                raise RuntimeError("injected poison")
+        return inner(x, h, spec, **kw)
+
+    eng._apply = flaky
+    rids = [eng.submit(s) for s in sigs]
+    out = eng.flush()
+    if not (set(out) == set(rids) - {rids[2]} and rids[2] in eng.failed
+            and not eng._pending and eng.flush() == {}):
+        fail(f"poison ejection on the card: served {sorted(out)}, failed "
+             f"{eng.failed}")
+
+
+# int32 operations per product, the fewest any form of the Broken-Booth
+# product needs at (wl, vbl, shift), whichever kernel computes it: the
+# folded dot form's multiply-add for x*bq and, per truncated row, a
+# multiply, a floor shift and an add (1 + 3 R, bbm_dot.cuh), plus a
+# per-product shift and add when shift > vbl (each product floored before
+# the K sum).  ``shift=None``: the f32 chunked entries, which take no
+# shift.  The rows kernel's own loop (select, negate, floor and
+# shift-add for each of the wl/2 Booth rows) needs more; it is not the
+# bound of the function.
+def b1_ops_per_product(rows: int, vbl: int, shift=None) -> int:
+    return 1 + 3 * rows + (2 if shift is not None and shift > vbl else 0)
+
+
+# each kernel's instantiation at WL 16 / kind 0, by its mangled name
+SASS_KERNELS = {"bbm_matmul_rows": ("bbm_matmul", "rows_kernelILi8ELi0E"),
+                "bbm_matmul_dot": ("bbm_matmul", "dot_kernelILi0E"),
+                "bbm_dot_planes": ("bbm_dot", "planes_kernelILi0ELb0E"),
+                "bbm_dot_scaled": ("bbm_dot", "bbm_dot_kernelILi0E")}
+
+
+def sass_per_product(lib: Path, kernel: str):
+    """Instructions per product in the innermost loop of ``kernel`` (a
+    part of its mangled name) in ``cuobjdump -sass`` of ``lib``: the
+    longest backward branch with no barrier inside; each trip makes 8
+    shared-memory loads per k step (4 of x, 4 of the weight) and 16
+    products per k step.  None where cuobjdump or the loop is missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return None
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    body = next((f for f in text.split("Function : ")[1:]
+                 if kernel in f.splitlines()[0]), None)
+    if body is None:
+        return None
+    ins = [(int(a, 16), t) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    best = []
+    for pc, t in ins:
+        m = re.search(r"BRA (0x[0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < pc:
+            span = [u for a, u in ins if int(m.group(1), 16) <= a <= pc]
+            if len(span) > len(best) and not any("BAR" in u for u in span):
+                best = span
+    loads = sum(1 for u in best if "LDS" in u)
+    return len(best) / (2 * loads) if loads else None
+
+
+def b1_timing(torch, tb, full) -> tuple:
+    """Each new kernel at the full shape (and ``bbm_dot_scaled`` beside
+    them): ms (CUDA events; the profiler where it sees the launches),
+    plain ms, bound; returns (entries, lines)."""
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    m, k, n = B1_SHAPE
+    x, w, hm, hn = full["x"], full["w"], full["hm"], full["hn"]
+    rows = num_corr_rows(16, 13)
+    shifts = {"bbm_matmul_rows": 15, "bbm_matmul_dot": 13}
+    runs = {
+        "bbm_matmul_rows": (
+            lambda: tb.bbm_matmul_rows(x, hm, hn, wl=16, vbl=13, kind=0,
+                                       shift=15),
+            lambda: tb.bbm_matmul_rows_plain(x, hm, hn, wl=16, vbl=13,
+                                             kind=0, shift=15)),
+        "bbm_matmul_dot": (
+            lambda: tb.bbm_matmul_dot(x, hm, hn, wl=16, vbl=13, kind=0,
+                                      shift=13),
+            lambda: tb.bbm_matmul_dot_plain(x, hm, hn, wl=16, vbl=13,
+                                            kind=0, shift=13)),
+        "bbm_dot_planes": (
+            lambda: tb.bbm_dot_planes(x, hm, hn, wl=16, vbl=13, kind=0),
+            lambda: tb.bbm_dot_planes_plain(x, hm, hn, wl=16, vbl=13,
+                                            kind=0)),
+        "bbm_dot_scaled": (
+            lambda: tb.bbm_dot_scaled(x, w, wl=16, vbl=13, kind=0),
+            lambda: tb.bbm_dot_scaled_plain(x, w, wl=16, vbl=13, kind=0)),
+    }
+    entries, lines = {}, []
+    for name, (run, plain) in runs.items():
+        dev_ms = kernel_device_ms(torch, run, 5, B1_KERNELS[name])
+        call_ms = cuda_ms(torch, run, 5)
+        plain_ms = cuda_ms(torch, plain, 1)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        if err != 0:
+            fail(f"{name} differs from its plain version at {B1_SHAPE}")
+        per_product = b1_ops_per_product(rows, 13, shifts.get(name))
+        ops = m * k * n * per_product
+        nbytes = 4 * (m * k + m * n) + 4 * (
+            k * n if name == "bbm_dot_scaled" else hm.numel() * 2)
+        t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        bound = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        ms = call_ms if dev_ms is None else dev_ms
+        entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=None)
+        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
+        lines.append(f"{name} at ({m}, {k}) x ({k}, {n}), wl 16 vbl 13: "
+                     f"kernel {dev_txt} on the device (profiler), wrapper "
+                     f"call {call_ms:.6f} ms (CUDA events), plain "
+                     f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; "
+                     f"{per_product} int32 ops per "
+                     f"product), max abs error {err}")
+    return entries, lines
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1290,6 +1699,63 @@ def main() -> None:
                              "source": TRAIN_SOURCES[name],
                              "replaces": REPLACES[name],
                              "launches": runs[name]["totals"][name]},
+                            **entries[name]))
+
+    # ------------------------------------------- slice 4: B1 and the faults
+    ops = importlib.import_module("repro_torch.kernels.ops")
+    t0 = time.perf_counter()
+    b1_cases = b1_sweep(torch, tb, dev)
+    print(f"B1 sweep: {b1_cases} cases, bbm_matmul_rows, bbm_matmul_dot and "
+          f"the plain dot form all bit-equal to the plain rows form "
+          f"({time.perf_counter() - t0:.1f} s)")
+    b1_counters = {"bbm_matmul_rows": tb.bbm_matmul_rows,
+                   "bbm_matmul_dot": tb.bbm_matmul_dot,
+                   "bbm_dot_planes": tb.bbm_dot_planes}
+    for f in b1_counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    full = b1_full_size(torch, tb, ops, dev)
+    fault_full_size(torch, tb, full)
+    b1_launches = {name: f.launches for name, f in b1_counters.items()}
+    if min(b1_launches.values()) < 1:
+        fail(f"a kernel of the B1 main path never launched: {b1_launches}")
+    print(f"B1 main path at {B1_SHAPE}, wl 16 vbl 13, both kinds: "
+          f"ops.bbm_matmul(shift=15) auto form launched bbm_matmul_rows once "
+          f"and bbm_matmul_dot never per call; shift 13 launched "
+          f"bbm_matmul_dot, form='rows' bit-equal; both equal to their "
+          f"plain versions on 64 sampled rows; bbm0 plane and accumulator "
+          f"flips at p=1e-3 bit-equal to the plain version; launches "
+          f"{b1_launches} ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    gate_cases = fault_gate(torch, tb, dev)
+    curves = fault_curves(torch, tb, dev)
+    fir_curves = fir_fault_curve(torch, taps_banks, dev)
+    poison_gate(dev)
+    print(f"fault gate: {gate_cases} cases bit-equal to amm_faulty_ref on "
+          f"the card, the disabled spec bit-equal to the unfaulted "
+          f"datapath; poison ejection on the card's engine holds "
+          f"({time.perf_counter() - t0:.1f} s)")
+    for name, curve in curves.items():
+        print(f"matmul resilience {name} (rates {FAULT_RATES}), bit-equal "
+              f"to the CPU port: relative errors {curve}")
+    for name, curve in fir_curves.items():
+        print(f"FIR resilience {name} through FilterbankEngine on the card "
+              f"(8 channels bit-equal to the CPU port): mean SNR dB {curve}")
+    entries, lines = b1_timing(torch, tb, full)
+    for line in lines:
+        print(line)
+    paths = _build.build_all(["bbm_matmul", "bbm_dot"])
+    counts = {name: sass_per_product(paths[lib], part)
+              for name, (lib, part) in SASS_KERNELS.items()}
+    print("compiled inner loops at wl 16, kind 0 (cuobjdump -sass), "
+          "instructions per product: " + ", ".join(
+              f"{name} " + ("not measured" if c is None else f"{c:.4g}")
+              for name, c in counts.items()))
+    for name in b1_counters:
+        kernels.append(dict({"name": name, "route": "cuda",
+                             "source": B1_SOURCES[name],
+                             "replaces": B1_REPLACES[name],
+                             "launches": b1_launches[name]},
                             **entries[name]))
 
     print(f"gpu: {gpu_line()}")

@@ -7,7 +7,10 @@ into an int32 kernel seed with ``jax.random.randint(key, (), 0,
 2**31 - 1, int32)`` (``models/common.py:246-248``).  This module computes
 the same integers with numpy uint32 arithmetic on the host, so the port's
 kernels receive the reference's seeds.  It runs on scalars, once per
-engine: nothing here touches the GPU.
+engine.  ``random_bits``, ``uniform`` and ``bernoulli`` draw whole
+arrays of ``jax.random``'s bits as torch tensors on a named device (the
+keyed fault masks of ``core.faults``), in int64 arithmetic masked to 32
+bits.
 
 A key is a pair of uint32 words ``(k1, k2)``, as JAX stores a threefry
 key.  ``split`` follows JAX's partitionable scheme (the default from jax
@@ -21,9 +24,13 @@ import functools
 from typing import List, Tuple
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 __all__ = ["Key", "key", "split", "fold_in", "random_bits32", "randint",
-           "threefry2x32", "layer_seeds"]
+           "threefry2x32", "layer_seeds", "random_bits", "uniform",
+           "bernoulli"]
 
 Key = Tuple[int, int]
 
@@ -128,3 +135,49 @@ def layer_seeds(seed, n_layers: int) -> Tuple[int, ...]:
         k, sub = split(k)
         out.append(randint(sub))
     return tuple(out)
+
+
+# ------------------------------------------------------- tensor draws
+_M32 = 0xFFFFFFFF
+
+
+def _threefry_t(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+    """``threefry2x32`` on int64 tensors holding uint32 values: every sum
+    is masked to 32 bits, rotations shift inside the int64 range."""
+    ks = (k1, k2, k1 ^ k2 ^ int(_PARITY))
+    x = [(x1 + ks[0]) & _M32, (x2 + ks[1]) & _M32]
+    for g in range(5):
+        for r in _ROTATIONS[g % 2]:
+            x[0] = (x[0] + x[1]) & _M32
+            x[1] = (((x[1] << r) | (x[1] >> (32 - r))) & _M32) ^ x[0]
+        x[0] = (x[0] + ks[(g + 1) % 3]) & _M32
+        x[1] = (x[1] + ks[(g + 2) % 3] + g + 1) & _M32
+    return x[0], x[1]
+
+
+def random_bits(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(k, shape, uint32)`` under the partitionable
+    scheme, as an int64 tensor of uint32 values on ``device`` (None: the
+    GPU, raising without one; "cpu"): the threefry block of each
+    element's row-major flat index, cut into a (high, low) word pair, its
+    two output words xor-ed."""
+    shape = tuple(int(d) for d in shape)
+    n = 1
+    for d in shape:
+        n *= d
+    idx = torch.arange(n, dtype=torch.int64, device=resolve_device(device))
+    b1, b2 = _threefry_t(int(k[0]), int(k[1]), idx >> 32, idx & _M32)
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape)`` in float32 on [0, 1): the top 23
+    random bits as the mantissa of a float in [1, 2), minus 1."""
+    bits = (random_bits(k, shape, device) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def bernoulli(k: Key, p: float, shape, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)``: ``uniform < float32(p)``."""
+    u = uniform(k, shape, device)
+    return u < torch.tensor(p, dtype=torch.float32, device=u.device)

@@ -31,6 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"fir_bank": CSRC / "fir_bank.cu",
            "quant_matmul": CSRC / "quant_matmul.cu",
            "bbm_dot": CSRC / "bbm_dot.cu",
+           "bbm_matmul": CSRC / "bbm_matmul.cu",
            "flash_attention": CSRC / "flash_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,7 +52,14 @@ _SIGNATURES = {
     },
     "bbm_dot": {
         "bbm_dot_scaled_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
+        "bbm_dot_planes_launch": ([_P] * 4 + [_F, _I, _P] + [_I] * 8 + [_P],
+                                  _I),
         "bbm_dot_error_string": ([_I], ctypes.c_char_p),
+    },
+    "bbm_matmul": {
+        "bbm_matmul_rows_launch": ([_P] * 4 + [_I] * 7 + [_P], _I),
+        "bbm_matmul_dot_launch": ([_P] * 4 + [_I] * 8 + [_P], _I),
+        "bbm_matmul_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
         "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _P], _I),

@@ -27,10 +27,12 @@ from __future__ import annotations
 import torch
 
 from ..core.booth import num_pp_rows
+from ..core.faults import apply_plane_faults
 
 __all__ = ["amm_chunk_len", "bbm_rows_product", "bbm_rows_product_precoded",
            "bbm_rows_product_dotform", "booth_correction",
-           "booth_high_value", "booth_precode", "booth_value",
+           "booth_high_value", "booth_precode", "booth_precode_faulty",
+           "booth_value",
            "dotform_scaled_bound", "f32_exact_chunk_len", "num_corr_rows",
            "resolve_form", "scaled_trunc_rows", "signed_digit",
            "split_signed"]
@@ -59,6 +61,15 @@ def booth_precode(bu, wl: int):
         mags.append(torch.abs(d))
         negs.append(b_hi)
     return torch.stack(mags), torch.stack(negs)
+
+
+def booth_precode_faulty(bu, wl: int, fault=None, *, vbl: int = 0):
+    """Decode phase with hardware faults injected into the digit planes:
+    ``booth_precode`` then ``core.faults.apply_plane_faults``.  A
+    ``None``/disabled/non-"plane" spec returns the clean decode; ``vbl``
+    scopes ``rows="corr"`` faults to the truncated rows."""
+    mag, neg = booth_precode(bu, wl)
+    return apply_plane_faults(mag, neg, fault, vbl=vbl)
 
 
 def bbm_rows_product_precoded(a_s, mag, neg, *, wl: int, vbl: int, kind: int,

@@ -1,7 +1,11 @@
 // The contracted Broken-Booth dot form for Hopper (sm_90a), plain C interface.
 //
 // Replaces the XLA lowering repro/kernels/bbm_matmul.py: _dot_scaled behind
-// bbm_matmul_scaled (the bitexact LM's every MLP product, ROADMAP B2):
+// bbm_matmul_scaled (the bitexact LM's every MLP product, ROADMAP B2), with
+// two entries: codes in (bbm_dot_scaled_launch, the training path) and
+// digit planes in (bbm_dot_planes_launch, the fault-injected datapath of
+// bbm_matmul_scaled / bbm_matmul_dynamic, with the keyed accumulator
+// upsets of repro/core/faults.py drawn in the kernel):
 //
 //   out[m, n] = 2^vbl * sum over K-chunks c, in order, of f32( sum_{k in c}
 //               M(x[m, k], w[k, n]) )
@@ -13,12 +17,10 @@
 // pass over the products with integer multiply, shift and add gives the same
 // integers without any one-hot contraction.
 //
-// Design.  One block of 256 threads owns a 64 x 64 output tile; each thread
-// 4 x 4 outputs (rows ty + 16i, columns tx + 16j).  K streams through
-// shared memory 32 at a time: x as sign-extended int32, w decoded once per
-// block into its digits (bq and packed rows, 8 bytes), unpacked into
-// registers per use and reused across the thread's 4 rows.  Each thread
-// keeps an int32 partial and an f32 sum per output; a counter shared by the
+// Design.  The shared CUDA-core tile of bbm_tile.cuh (64 x 64 outputs per
+// block of 256 threads, K through shared memory 32 at a time, the digits
+// decoded once per block) with its chunked f32 epilogue: each thread keeps
+// an int32 partial and an f32 sum per output, and a counter shared by the
 // block flushes the partials at every chunk boundary.
 //
 // Bound.  Integer issue, not bytes: per product one multiply-add for x*bq
@@ -31,89 +33,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "bbm_dot.cuh"
+#include "bbm_tile.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTM = 64;
-constexpr int kTN = 64;
-constexpr int kTK = 32;
+using bbm::kTileM;
+using bbm::kTileN;
+using bbm::kTileThreads;
 
 template <int KIND>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads)
 bbm_dot_kernel(const int* __restrict__ x, const int* __restrict__ w,
                float* __restrict__ out, int M, int K, int N, int wl, int vbl,
                int R, int chunk, float scale) {
-  __shared__ int xs[kTK][kTM + 1];
-  __shared__ bbm::Digits ws[kTK][kTN];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
+  bbm::ChunkedF32<false> epi(out, nullptr, 0.0f, 0, chunk, scale);
+  bbm::dot_tile<KIND, false>(x, w, nullptr, M, K, N, wl, vbl, R, epi);
+}
 
-  int part[4][4];
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      part[i][j] = 0;
-      acc[i][j] = 0.0f;
-    }
-  int left = chunk;
-
-  for (int kt = 0; kt < K; kt += kTK) {
-    for (int e = threadIdx.x; e < kTM * kTK; e += kThreads) {
-      const int mm = e / kTK, kk = e % kTK;
-      const int gm = m0 + mm, gk = kt + kk;
-      xs[kk][mm] = (gm < M && gk < K)
-                       ? bbm::signed_code(x[(size_t)gm * K + gk], wl)
-                       : 0;
-    }
-    for (int e = threadIdx.x; e < kTK * kTN; e += kThreads) {
-      const int kk = e / kTN, nn = e % kTN;
-      const int gk = kt + kk, gn = n0 + nn;
-      const int code = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0;
-      ws[kk][nn] = bbm::decode(code, wl, vbl, R);
-    }
-    __syncthreads();
-    const int kn = min(kTK, K - kt);
-    for (int kk = 0; kk < kn; ++kk) {
-      int a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bbm::Unpacked u = bbm::unpack(ws[kk][tx + 16 * j]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          part[i][j] += bbm::scaled_product<KIND>(a[i], u, vbl, R);
-      }
-      if (--left == 0) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) bbm::flush(acc[i][j], part[i][j]);
-        left = chunk;
-      }
-    }
-    __syncthreads();
-  }
-  if (left != chunk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bbm::flush(acc[i][j], part[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[(size_t)gm * N + gn] = __fmul_rn(acc[i][j], scale);
-    }
-  }
+template <int KIND, bool FAULT>
+__global__ void __launch_bounds__(kTileThreads)
+bbm_dot_planes_kernel(const int* __restrict__ x,
+                      const int* __restrict__ wmag,
+                      const int* __restrict__ wneg,
+                      const uint32_t* __restrict__ keys, float p, int bit,
+                      float* __restrict__ out, int M, int K, int N, int wl,
+                      int vbl, int R, int chunk, float scale) {
+  bbm::ChunkedF32<FAULT> epi(out, keys, p, bit, chunk, scale);
+  bbm::dot_tile<KIND, true>(x, wmag, wneg, M, K, N, wl, vbl, R, epi);
 }
 
 }  // namespace
@@ -128,14 +74,37 @@ int bbm_dot_scaled_launch(const int* x, const int* w, float* out, int M,
                           int K, int N, int wl, int vbl, int kind, int R,
                           int chunk, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + kTN - 1) / kTN, (M + kTM - 1) / kTM);
+  dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
   const float scale = static_cast<float>(1u << vbl);
   if (kind)
-    bbm_dot_kernel<1><<<grid, kThreads, 0, st>>>(x, w, out, M, K, N, wl,
-                                                 vbl, R, chunk, scale);
+    bbm_dot_kernel<1><<<grid, kTileThreads, 0, st>>>(x, w, out, M, K, N, wl,
+                                                     vbl, R, chunk, scale);
   else
-    bbm_dot_kernel<0><<<grid, kThreads, 0, st>>>(x, w, out, M, K, N, wl,
-                                                 vbl, R, chunk, scale);
+    bbm_dot_kernel<0><<<grid, kTileThreads, 0, st>>>(x, w, out, M, K, N, wl,
+                                                     vbl, R, chunk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The planes-in entry: wmag, wneg (wl/2, K, N) int32 digit planes in place
+// of w's codes (faulted planes included).  keys: null, or n_chunks pairs of
+// uint32 threefry keys (one per K-chunk of `chunk` products) for the
+// accumulator fault at rate p on bit `bit`.
+int bbm_dot_planes_launch(const int* x, const int* wmag, const int* wneg,
+                          const void* keys, float p, int bit, float* out,
+                          int M, int K, int N, int wl, int vbl, int kind,
+                          int R, int chunk, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
+  const float scale = static_cast<float>(1u << vbl);
+  const uint32_t* k = static_cast<const uint32_t*>(keys);
+#define BBM_DOT_PLANES(KIND, FAULT)                                         \
+  bbm_dot_planes_kernel<KIND, FAULT><<<grid, kTileThreads, 0, st>>>(        \
+      x, wmag, wneg, k, p, bit, out, M, K, N, wl, vbl, R, chunk, scale)
+  if (kind && keys) BBM_DOT_PLANES(1, true);
+  else if (kind) BBM_DOT_PLANES(1, false);
+  else if (keys) BBM_DOT_PLANES(0, true);
+  else BBM_DOT_PLANES(0, false);
+#undef BBM_DOT_PLANES
   return static_cast<int>(cudaGetLastError());
 }
 

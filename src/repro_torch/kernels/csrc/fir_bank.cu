@@ -15,11 +15,13 @@
 // that arithmetic on chip: one block owns one (channel, time tile), stages
 // the tile's samples plus the taps-1 samples before it (zeros before n = 0)
 // sign-extended into shared memory, and stages its channel's digit planes
-// packed one 32-bit word per tap (3 bits per row: mag | neg << 2).  The
-// TPU kernel's VMEM halo carried across a sequential time axis is not
-// needed: blocks read their own history straight from device memory, so
-// they run in any order.  Each thread owns kPerThread outputs strided by
-// the block width, so a warp reads consecutive shared-memory words.
+// packed one 32-bit word per tap (3 bits per row: mag | neg << 2; the
+// packing and the row semantics live in bbm_rows.cuh, shared with
+// bbm_matmul.cu).  The TPU kernel's VMEM halo carried across a sequential
+// time axis is not needed: blocks read their own history straight from
+// device memory, so they run in any order.  Each thread owns kPerThread
+// outputs strided by the block width, so a warp reads consecutive
+// shared-memory words.
 //
 // Integer rules: right shifts of signed values stay arithmetic (the floor
 // is the paper's truncation); every left shift of a possibly negative
@@ -31,15 +33,17 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bbm_rows.cuh"
+
 namespace {
+
+using bbm::bbm_rows;
+using bbm::pack_digits;
+using bbm::shl;
 
 constexpr int kThreads = 256;
 constexpr int kPerThread = 2;
 constexpr int kTile = kThreads * kPerThread;   // outputs per block
-
-__device__ __forceinline__ int shl(int v, int s) {
-  return static_cast<int>(static_cast<uint32_t>(v) << s);
-}
 
 // Stage x[c, n0-(taps-1) .. n0+kTile-1], sign-extended, zeros outside [0, N).
 __device__ __forceinline__ void stage_samples(const int32_t* __restrict__ xc,
@@ -65,41 +69,9 @@ __device__ __forceinline__ void stage_digits(const int32_t* __restrict__ hmag,
                                              const int32_t* __restrict__ hneg,
                                              uint32_t* dig, int c, int C,
                                              int taps) {
-  for (int k = threadIdx.x; k < taps; k += blockDim.x) {
-    uint32_t w = 0;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const size_t off = (static_cast<size_t>(r) * C + c) * taps + k;
-      w |= static_cast<uint32_t>((hmag[off] & 3) | ((hneg[off] & 1) << 2))
-           << (3 * r);
-    }
-    dig[k] = w;
-  }
-}
-
-// Row semantics of repro/kernels/booth_rows.py bbm_rows_product_precoded,
-// multiply-free form: each row selects among {0, a, 2a} and negates.
-template <int R, int KIND>
-__device__ __forceinline__ int bbm_rows(int a, uint32_t w, const int* mr) {
-  const int a2 = shl(a, 1);
-  uint32_t prod = 0;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int code = (w >> (3 * r)) & 7;
-    const int mag = code & 3;
-    const int neg = code >> 2;
-    const int pos = mag == 2 ? a2 : (mag == 1 ? a : 0);
-    int rows;
-    if (KIND == 0) {
-      rows = neg ? -pos : pos;
-    } else {
-      rows = neg ? -pos - 1 : pos;           // one's complement; 111 -> -1
-    }
-    int contrib = shl(rows >> mr[r], mr[r]);  // floor toward -inf
-    if (KIND == 1 && mr[r] == 0) contrib += neg;   // S dot survives at m == 0
-    prod += static_cast<uint32_t>(contrib) << (2 * r);
-  }
-  return static_cast<int>(prod);
+  for (int k = threadIdx.x; k < taps; k += blockDim.x)
+    dig[k] = pack_digits<R>(hmag, hneg, static_cast<size_t>(c) * taps + k,
+                            static_cast<size_t>(C) * taps);
 }
 
 template <int R, int KIND>

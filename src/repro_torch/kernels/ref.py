@@ -5,15 +5,18 @@ from __future__ import annotations
 import torch
 
 from ..core.bbm import bbm_type0, bbm_type1
+from ..core.faults import apply_acc_fault
 from ..core.multipliers import MulSpec
 from ..core.multipliers import mul as core_mul
 from ..device import pin_fp32
-from .booth_rows import amm_chunk_len
+from .booth_rows import (amm_chunk_len, bbm_rows_product_precoded,
+                         booth_precode_faulty, split_signed)
 
 __all__ = ["AMM_BOOTH_KINDS", "amm_approx_ref", "amm_attention_ref",
            "amm_dense_ref", "amm_dot_ref", "amm_effective_vbl",
-           "amm_flash_attention_ref", "amm_quantize", "amm_scale",
-           "attention_ref", "fir_bank_ref", "quant_matmul_ref"]
+           "amm_faulty_ref", "amm_flash_attention_ref", "amm_quantize",
+           "amm_scale", "attention_ref", "bbm_matmul_ref", "fir_bank_ref",
+           "quant_matmul_ref"]
 
 # Booth-family specs and their closed-form truncation kind; every other
 # multiplier family has no dot-form lowering
@@ -66,6 +69,17 @@ def quant_matmul_ref(x, w, s_x, s_w, *, wl: int = 16) -> torch.Tensor:
     xq = torch.clamp(torch.round(x / s_x), -lim, lim - 1)
     wq = torch.clamp(torch.round(w / s_w), -lim, lim - 1)
     return (xq @ wq) * (s_x * s_w)
+
+
+def bbm_matmul_ref(x, w, *, wl: int, vbl: int, kind: int = 0,
+                   shift: int = 0):
+    """out[m,n] = sum_k (bbm(x[m,k], w[k,n]) >> shift), int32
+    accumulation, on the closed forms over the (M, K, N) grid."""
+    fn = bbm_type0 if kind == 0 else bbm_type1
+    prod = fn(x[:, :, None], w[None, :, :], wl, vbl)
+    if shift:
+        prod = prod >> shift
+    return torch.sum(prod, dim=1, dtype=torch.int32)
 
 
 def fir_bank_ref(x, w, *, wl: int, vbl: int, kind: int = 0, shift: int = 0):
@@ -121,6 +135,44 @@ def amm_approx_ref(x, w, spec: MulSpec):
     wq, s_w = amm_quantize(w, wl)
     prod = core_mul(spec)(xq[..., :, None], wq[None, :, :])  # (..., K, N)
     yq = _chunked_yq(prod, wl, amm_effective_vbl(spec))
+    return (yq * (s_x * s_w)).to(x.dtype)
+
+
+def amm_faulty_ref(x, w, spec: MulSpec, fault=None):
+    """Scalar oracle of the fault-injected datapath,
+    ``bbm_matmul_dynamic(..., fault=)``.
+
+    Quantizes both operands, decodes and faults ``w``'s digit planes
+    (``booth_precode_faulty``: the masks depend only on the spec and the
+    (wl//2, K, N) plane shape), forms every product over the (M, K, N)
+    grid from the planes, divides by 2^vbl (exact for any planes in the
+    decode domain), sums int32 per K-chunk with the same per-chunk
+    accumulator upsets (``apply_acc_fault``, folded by the chunk index),
+    combines the chunks in f32 in order, rescales and descales.
+    Booth-family specs only.  x: (M, K), w: (K, N).
+    """
+    if spec.name not in AMM_BOOTH_KINDS:
+        raise ValueError(f"fault injection needs a Booth-family spec, "
+                         f"not {spec.name!r}")
+    wl = spec.wl
+    vbl = amm_effective_vbl(spec)
+    kind = AMM_BOOTH_KINDS[spec.name]
+    xq, s_x = amm_quantize(x, wl)
+    wq, s_w = amm_quantize(w, wl)
+    mag, neg = booth_precode_faulty(wq, wl, fault, vbl=vbl)
+    _, x_s = split_signed(xq, wl)
+    prod = bbm_rows_product_precoded(x_s[..., :, None], mag, neg, wl=wl,
+                                     vbl=vbl, kind=kind)     # (M, K, N)
+    scaled = prod >> vbl
+    k = x.shape[-1]
+    chunk = amm_chunk_len(wl, vbl)
+    yq = torch.zeros(scaled.shape[:-2] + scaled.shape[-1:],
+                     dtype=torch.float32, device=scaled.device)
+    for ci, lo in enumerate(range(0, k, chunk)):
+        part = torch.sum(scaled[..., lo:lo + chunk, :], dim=-2,
+                         dtype=torch.int32)
+        yq = yq + apply_acc_fault(part, fault, ci).to(torch.float32)
+    yq = yq * float(1 << vbl)
     return (yq * (s_x * s_w)).to(x.dtype)
 
 

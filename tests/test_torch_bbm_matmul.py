@@ -29,6 +29,7 @@ from repro.configs.base import AmmConfig as JAmm
 from repro.core.multipliers import MulSpec as JSpec
 from repro.models import common as j_common
 from repro_torch.configs.base import AmmConfig as TAmm
+from repro_torch.core.faults import apply_plane_faults as t_apply
 from repro_torch.core.multipliers import MulSpec as TSpec
 from repro_torch.kernels import booth_rows as t_rows
 from repro_torch.kernels import ref as t_ref
@@ -332,11 +333,28 @@ def test_wrapper_refuses_bad_operands(case):
 
 
 def test_fault_hooks_name_their_roadmap_item():
-    x, w = _codes(2, 4, 3, 8)
-    tm, tn = t_rows.booth_precode(torch.from_numpy(w), 8)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tb.bbm_matmul_scaled(torch.from_numpy(x), tm, tn, wl=8, vbl=5,
-                             fault=object())
+    """The ``fault=`` hooks (ROADMAP item A11, done) take a FaultSpec and
+    give the reference's faulted sums: plane faults on the planes, then
+    the chunked datapath with per-chunk accumulator upsets."""
+    from repro.core.faults import FaultSpec as JFault
+    from repro_torch.core.faults import FaultSpec as TFault
+    x, w = _codes(2, 40, 3, 16)
+    (jm, jn), (tm, tn) = _planes(w, 16)
+    for kw in (dict(p=0.2, seed=3), dict(target="acc", p=0.5, bit=28)):
+        for vbl in (13, 0):
+            want = jb.bbm_matmul_scaled(jnp.asarray(x), jm, jn, wl=16,
+                                        vbl=vbl, fault=JFault(**kw))
+            got = tb.bbm_matmul_scaled(torch.from_numpy(x), tm, tn, wl=16,
+                                       vbl=vbl, fault=TFault(**kw))
+            assert_array_equal(got.numpy(), np.asarray(want))
+            planes = tb.bbm_dot_planes(
+                torch.from_numpy(x), *(t.contiguous() for t in t_apply(
+                    tm, tn, TFault(**kw), vbl=vbl)), wl=16, vbl=vbl, kind=0,
+                fault=TFault(**kw) if kw.get("target") == "acc" else None)
+            assert_array_equal(planes.numpy(), np.asarray(want))
+            clean = tb.bbm_matmul_scaled(torch.from_numpy(x), tm, tn, wl=16,
+                                         vbl=vbl)
+            assert (got != clean).any()
 
 
 def test_precode_caches_codes_and_scale():
@@ -360,3 +378,153 @@ def test_operating_point_contracts_each_mlp_product_in_one_chunk():
     assert t_rows.f32_exact_chunk_len(16, 13) == 64
     assert t_rows.num_corr_rows(16, 13) == 7
     assert max(896, 4864) <= t_rows.amm_chunk_len(16, 13)
+
+
+def test_planes_entry_refuses_plane_faults_and_counts_nothing_on_cpu():
+    from repro_torch.core.faults import FaultSpec as TFault
+    x, w = _codes(3, 20, 4, 12)
+    tm, tn = t_rows.booth_precode(torch.from_numpy(w), 12)
+    tx = torch.from_numpy(x)
+    before = tb.bbm_dot_planes.launches
+    with pytest.raises(ValueError, match="planes first"):
+        tb.bbm_dot_planes(tx, tm, tn, wl=12, vbl=7, kind=0,
+                          fault=TFault(p=0.1))
+    got = tb.bbm_dot_planes(tx, tm, tn, wl=12, vbl=7, kind=1,
+                            fault=TFault(p=0.0))
+    assert torch.equal(got, tb.bbm_dot_scaled(tx, torch.from_numpy(w),
+                                              wl=12, vbl=7, kind=1))
+    assert tb.bbm_dot_planes.launches == before
+
+
+# ------------------------------------------- the public matmul API (B1)
+def _b1_cells():
+    """wl in {8, 12, 16} x vbl in {0, 5, 13, 15} below wl x both kinds."""
+    return [(wl, vbl, kind) for wl in (8, 12, 16) for vbl in (0, 5, 13, 15)
+            if vbl < wl for kind in (0, 1)]
+
+
+def _b1_shifts(k, wl, vbl):
+    """{0 where the envelope allows it, the minimal safe shift, <= vbl,
+    > vbl}."""
+    lo = 0
+    while k * 2 ** max(2 * wl - 1 - lo, 0) >= 2 ** 31:
+        lo += 1
+    return sorted({lo, max(lo, vbl), max(lo, vbl - 1), max(lo, vbl + 2)})
+
+
+@pytest.mark.parametrize("wl,vbl,kind", _b1_cells())
+def test_public_matmul_matches_jax(wl, vbl, kind, monkeypatch):
+    """``ops.bbm_matmul`` and ``ops.bbm_matmul_precoded`` on the CPU in
+    every form against the reference's dot form and its closed-form
+    oracle ``bbm_matmul_ref``: ragged shapes, the most negative codes,
+    and the plain versions' row blocks cut to a few rows."""
+    t_ops = importlib.import_module("repro_torch.kernels.ops")
+    monkeypatch.setattr(tb, "_ROW_BLOCK", 3 * 37 * 7)
+    x, w = _codes(10, 37, 7, wl, seed=wl + vbl + kind)
+    x[2], w[:, 2] = -(1 << (wl - 1)), -(1 << (wl - 1))
+    (jm, jn), (tm, tn) = _planes(w, wl)
+    for shift in _b1_shifts(37, wl, vbl):
+        kw = dict(wl=wl, vbl=vbl, kind=kind, shift=shift)
+        want = np.asarray(j_ref.bbm_matmul_ref(jnp.asarray(x),
+                                               jnp.asarray(w), **kw))
+        dot = jb.bbm_matmul_precoded(jnp.asarray(x), jm, jn, form="dot", **kw)
+        assert_array_equal(np.asarray(dot), want)
+        assert_array_equal(t_ref.bbm_matmul_ref(
+            torch.from_numpy(x), torch.from_numpy(w), **kw).numpy(), want)
+        for form in ("rows", "dot", None):
+            got = t_ops.bbm_matmul(x, w, form=form, device="cpu", **kw)
+            assert got.dtype == torch.int32
+            assert_array_equal(got.numpy(), want, err_msg=f"{shift} {form}")
+            got = t_ops.bbm_matmul_precoded(x, tm, tn, form=form,
+                                            device="cpu", **kw)
+            assert_array_equal(got.numpy(), want, err_msg=f"{shift} {form}")
+
+
+def test_faulted_planes_run_through_both_forms():
+    """Faulted planes are not the decode of any code; both forms (and the
+    reference's dot form) take them alike."""
+    from repro.core.faults import FaultSpec as JFault
+    from repro.core.faults import apply_plane_faults as j_apply
+    from repro_torch.core.faults import FaultSpec as TFault
+    x, w = _codes(6, 40, 9, 16, seed=5)
+    (jm, jn), (tm, tn) = _planes(w, 16)
+    for kw in (dict(p=0.3, seed=2), dict(model="stuck1", lane="neg",
+                                          p=0.5, seed=4)):
+        jfm, jfn = j_apply(jm, jn, JFault(**kw), vbl=13)
+        tfm, tfn = t_apply(tm, tn, TFault(**kw), vbl=13)
+        for kind in (0, 1):
+            for shift in (13, 15):
+                want = jb.bbm_matmul_precoded(jnp.asarray(x), jfm, jfn,
+                                              wl=16, vbl=13, kind=kind,
+                                              shift=shift, form="dot")
+                for form in ("rows", "dot"):
+                    got = tb.bbm_matmul_precoded(
+                        torch.from_numpy(x), tfm, tfn, wl=16, vbl=13,
+                        kind=kind, shift=shift, form=form)
+                    assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_auto_form_matches_the_reference_rule(monkeypatch):
+    """``form=None`` picks what the reference's ``bbm_matmul_precoded``
+    picks (its body run unjitted, the budget cut down so that small
+    shapes cross it, and its form resolver recording the choice)."""
+    budget = 500
+    monkeypatch.setattr(jb, "_DOT_CORR_BUDGET", budget)
+    monkeypatch.setattr(tb, "_DOT_CORR_BUDGET", budget)
+    seen = []
+
+    def record(form):
+        seen.append(form)
+        return "dot"                      # never the Pallas rows launch
+    monkeypatch.setattr(jb, "resolve_form", record)
+    ran = set()
+    for m, k, n in ((2, 5, 7), (5, 11, 10), (9, 8, 7), (1, 500, 1)):
+        x, w = _codes(m, k, n, 12, seed=m)
+        jm, jn = jr.booth_precode(jnp.asarray(w), 12)
+        for vbl in (0, 5, 7):
+            for shift in (vbl - 1, vbl, vbl + 1, vbl + 3):
+                if shift < 0:
+                    continue
+                for form in (None, "rows", "dot"):
+                    seen.clear()
+                    jb.bbm_matmul_precoded.__wrapped__(
+                        jnp.asarray(x), jm, jn, wl=12, vbl=vbl, shift=shift,
+                        form=form)
+                    want = "dot" if seen[0] in (None, "dot") else "rows"
+                    got = tb.matmul_form(form, m, k, n, shift=shift, vbl=vbl)
+                    assert got == want, (m, k, n, vbl, shift, form)
+                    ran.add(got)
+    assert ran == {"rows", "dot"}
+    assert tb.matmul_form(None, 2048, 896, 4864, shift=15, vbl=13) == "rows"
+    assert tb.matmul_form(None, 2048, 896, 4864, shift=13, vbl=13) == "dot"
+
+
+def test_matmul_envelope_raises_where_jax_does():
+    j_ops = importlib.import_module("repro.kernels.ops")
+    t_ops = importlib.import_module("repro_torch.kernels.ops")
+    cases = 0
+    for k in (1, 2, 63, 64, 65, 1 << 16, (1 << 16) + 1, 1 << 20):
+        for wl in (2, 8, 12, 16):
+            for shift in (0, 1, 5, 15, 16, 31):
+                raised = []
+                for env in (j_ops._matmul_envelope, t_ops._matmul_envelope):
+                    try:
+                        env(k, wl, shift)
+                        raised.append(False)
+                    except ValueError:
+                        raised.append(True)
+                assert raised[0] == raised[1], (k, wl, shift)
+                cases += raised[0]
+    assert cases > 10
+    x, w = _codes(2, 65, 3, 16)
+    for fn in (lambda: t_ops.bbm_matmul(x, w, wl=16, vbl=13, shift=6,
+                                        device="cpu"),
+               lambda: tb.bbm_matmul_rows(*_b1_operands(x, w), wl=16,
+                                          vbl=13, shift=6)):
+        with pytest.raises(ValueError, match="overflow"):
+            fn()
+
+
+def _b1_operands(x, w, wl=16):
+    tm, tn = t_rows.booth_precode(torch.from_numpy(w), wl)
+    return torch.from_numpy(x), tm, tn

@@ -65,7 +65,7 @@ def test_no_port_file_imports_jax_or_the_reference():
     for part in ("train/optimizer.py", "train/trainstep.py",
                  "train/checkpoint.py", "train/loop.py", "data/pipeline.py",
                  "launch/train.py", "kernels/bbm_matmul.py",
-                 "kernels/flash_attention.py"):
+                 "kernels/flash_attention.py", "core/faults.py"):
         assert f"src/repro_torch/{part}" in rel, part
     bad = [(p.relative_to(ROOT).as_posix(), root) for p in files
            for root in _imported_roots(p) if root in FORBIDDEN]
@@ -123,12 +123,16 @@ def _no_gpu():
 @pytest.mark.parametrize("entry", ["fir_apply", "PrecodedBank",
                                    "FilterbankEngine", "fir_filterbank",
                                    "fir_filterbank_precoded",
-                                   "run_filter_case"])
+                                   "run_filter_case", "bbm_matmul",
+                                   "bbm_matmul_precoded", "plane_fault_mask",
+                                   "random_bits", "uniform", "bernoulli"])
 def test_entry_points_default_to_the_gpu(entry):
     h = t_fir.design_lowpass()
     x = np.ones((2, 64))
     codes = np.ones((2, 64), np.int32)
     planes = np.zeros((8, 2, 31), np.int32)
+    from repro_torch.core import prng
+    from repro_torch.core.faults import FaultSpec, plane_fault_mask
     from repro_torch.dsp.testbed import run_filter_case
     calls = {
         "fir_apply": lambda **kw: t_fir.fir_apply(x, h, SPEC, **kw),
@@ -139,6 +143,17 @@ def test_entry_points_default_to_the_gpu(entry):
         "fir_filterbank_precoded": lambda **kw: t_ops.fir_filterbank_precoded(
             codes, planes, planes, wl=16, vbl=13, shift=5, **kw),
         "run_filter_case": lambda **kw: run_filter_case(SPEC, **kw),
+        "bbm_matmul": lambda **kw: t_ops.bbm_matmul(
+            codes[:, :31], codes[:, :31].T, wl=16, vbl=13, shift=15, **kw),
+        "bbm_matmul_precoded": lambda **kw: t_ops.bbm_matmul_precoded(
+            codes, np.zeros((8, 64, 4), np.int32),
+            np.zeros((8, 64, 4), np.int32), wl=16, vbl=13, shift=15, **kw),
+        "plane_fault_mask": lambda **kw: plane_fault_mask(
+            FaultSpec(p=0.5), (8, 4, 3), 1, **kw),
+        "random_bits": lambda **kw: prng.random_bits(prng.key(1), (5,), **kw),
+        "uniform": lambda **kw: prng.uniform(prng.key(1), (5,), **kw),
+        "bernoulli": lambda **kw: prng.bernoulli(prng.key(1), 0.5, (5,),
+                                                 **kw),
     }
     with _no_gpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -424,7 +439,8 @@ def test_kernel_within_bound_of_plain_version_on_the_card(wl):
 def test_bbm_dot_kernel_equals_plain_version_on_the_card(wl, vbl, kind):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from repro_torch.kernels import bbm_matmul as t_bm
+    import importlib
+    t_bm = importlib.import_module("repro_torch.kernels.bbm_matmul")
     rng = np.random.default_rng(wl + vbl)
     lim = 1 << (wl - 1)
     for m, k, n in ((7, 50, 9), (70, t_rows.amm_chunk_len(wl, vbl) + 1, 65)):
@@ -545,6 +561,196 @@ def test_flash_amm_gradient_on_the_card_matches_the_cpu():
         assert float((a.cpu() - b).abs().max()) <= 2.0 ** -8 * scale
 
 
+# ------------------------------------------- the matmul wrappers' checks
+MATMUL_WRAPPERS = ["bbm_matmul_rows", "bbm_matmul_dot", "bbm_dot_planes"]
+
+
+def _tb():
+    import importlib
+    return importlib.import_module("repro_torch.kernels.bbm_matmul")
+
+
+def _matmul_operands(device="cpu", m=9, k=40, n=70, wl=16, seed=0):
+    rng = np.random.default_rng(seed)
+    lim = 1 << (wl - 1)
+    x = torch.from_numpy(rng.integers(-lim, lim, (m, k)).astype(np.int32))
+    w = torch.from_numpy(rng.integers(-lim, lim, (k, n)).astype(np.int32))
+    x[0], w[:, 0] = -lim, -lim
+    hm, hn = t_rows.booth_precode(w, wl)
+    return x.to(device), hm.to(device), hn.to(device)
+
+
+def _bad_matmul_operands(wrapper, x, hm, hn):
+    """{label: (x, hm, hn, kwargs, error)} a matmul wrapper must refuse."""
+    kw = dict(wl=16, vbl=13, kind=0)
+    if wrapper != "bbm_dot_planes":
+        kw["shift"] = 15
+    bad = {
+        "dtype": (x.to(torch.int64), hm, hn, kw, TypeError),
+        "float": (x.float(), hm, hn, kw, TypeError),
+        "plane dtype": (x, hm.to(torch.int16), hn, kw, TypeError),
+        "contiguity": (x.t().contiguous().t(), hm, hn, kw, ValueError),
+        "plane contiguity": (x, hm.transpose(1, 2).contiguous()
+                             .transpose(1, 2), hn, kw, ValueError),
+        "x rank": (x[0], hm, hn, kw, ValueError),
+        "plane rows": (x, hm[:7], hn[:7], kw, ValueError),
+        "plane depth": (x, hm[:, :-1].contiguous(), hn[:, :-1].contiguous(),
+                        kw, ValueError),
+        "plane mismatch": (x, hm, hn[:, :, :30].contiguous(), kw,
+                           ValueError),
+        "word length": (x, hm, hn, dict(kw, wl=18), ValueError),
+        "kind": (x, hm, hn, dict(kw, kind=2), ValueError),
+    }
+    if wrapper == "bbm_dot_planes":
+        bad["vbl"] = (x, hm, hn, dict(kw, vbl=16), ValueError)
+    else:
+        bad["envelope"] = (x, hm, hn, dict(kw, shift=1), ValueError)
+    return bad
+
+
+MATMUL_BAD = ["dtype", "float", "plane dtype", "contiguity",
+              "plane contiguity", "x rank", "plane rows", "plane depth",
+              "plane mismatch", "word length", "kind", "limit"]
+
+
+@pytest.mark.parametrize("wrapper", MATMUL_WRAPPERS)
+@pytest.mark.parametrize("case", MATMUL_BAD)
+def test_matmul_wrappers_refuse_bad_operands(wrapper, case):
+    bad = _bad_matmul_operands(wrapper, *_matmul_operands())
+    if case == "limit":          # the envelope, or vbl for the f32 entry
+        (case,) = set(bad) - set(MATMUL_BAD)
+    x, hm, hn, kw, err = bad[case]
+    fn = getattr(_tb(), wrapper)
+    before = fn.launches
+    with pytest.raises(err):
+        fn(x, hm, hn, **kw)
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("wrapper", MATMUL_WRAPPERS)
+@pytest.mark.parametrize("wl,vbl,shift", [(16, 13, 15), (12, 7, 9)])
+def test_matmul_wrappers_run_plain_versions_on_cpu_without_counting(
+        wrapper, wl, vbl, shift):
+    tb = _tb()
+    x, hm, hn = _matmul_operands(wl=wl)
+    kw = dict(wl=wl, vbl=vbl, kind=1)
+    if wrapper != "bbm_dot_planes":
+        kw["shift"] = shift
+    fn = getattr(tb, wrapper)
+    before = fn.launches
+    assert torch.equal(fn(x, hm, hn, **kw),
+                       getattr(tb, wrapper + "_plain")(x, hm, hn, **kw))
+    assert fn.launches == before
+
+
+@pytest.mark.parametrize("wrapper", ["bbm_matmul_rows", "bbm_matmul_dot"])
+@pytest.mark.parametrize("mkn", [(0, 5, 4), (3, 0, 4), (3, 5, 0)])
+def test_matmul_launcher_counts_nothing_when_nothing_launches(wrapper, mkn):
+    """An empty output or K = 0 returns before the library is reached and
+    adds nothing to the count (meta tensors stand in for CUDA ones)."""
+    tb = _tb()
+    fn = getattr(tb, wrapper)
+    m, k, n = mkn
+    x = torch.zeros((m, k), dtype=torch.int32, device="meta")
+    planes = torch.zeros((8, k, n), dtype=torch.int32, device="meta")
+    before = fn.launches
+    out = tb._launch_matmul(fn, x, planes, planes, wl=16, vbl=13, kind=0,
+                            shift=15)
+    assert tuple(out.shape) == (m, n) and out.dtype == torch.int32
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", MATMUL_WRAPPERS)
+def test_matmul_wrappers_refuse_bad_cuda_tensors(wrapper):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    fn = getattr(_tb(), wrapper)
+    bad = _bad_matmul_operands(wrapper, *_matmul_operands("cuda"))
+    assert len(bad) == len(MATMUL_BAD)
+    before = fn.launches
+    for x, hm, hn, kw, err in bad.values():
+        with pytest.raises(err):
+            fn(x, hm, hn, **kw)
+    x, hm, hn = _matmul_operands("cuda")
+    with pytest.raises(ValueError):
+        fn(x, hm.cpu(), hn.cpu(), wl=16, vbl=13, kind=0)
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", MATMUL_WRAPPERS)
+def test_matmul_wrappers_count_no_launch_for_empty_work_on_the_card(wrapper):
+    """M = 0, N = 0 or K = 0 on the card: the right empty or zero result,
+    no launch counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    fn = getattr(_tb(), wrapper)
+    kw = dict(wl=16, vbl=13, kind=0)
+    if wrapper != "bbm_dot_planes":
+        kw["shift"] = 15
+    before = fn.launches
+    for m, k, n in ((0, 5, 4), (3, 0, 4), (3, 5, 0)):
+        x = torch.zeros((m, k), dtype=torch.int32, device="cuda")
+        planes = torch.zeros((8, k, n), dtype=torch.int32, device="cuda")
+        out = fn(x, planes, planes, **kw)
+        assert tuple(out.shape) == (m, n)
+        assert int(torch.count_nonzero(out)) == 0
+    assert fn.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [0, 1])
+def test_matmul_kernels_equal_plain_versions_on_the_card(kind):
+    """``bbm_matmul_rows`` and ``bbm_matmul_dot`` on clean and faulted
+    planes, ragged shapes, shifts below, at and above vbl."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    tb = _tb()
+    x, hm, hn = _matmul_operands("cuda", m=70, k=37, n=130)
+    before = (tb.bbm_matmul_rows.launches, tb.bbm_matmul_dot.launches)
+    cases = 0
+    for fault in (None, FaultSpec(p=0.1, seed=3)):
+        fm, fn = (t.contiguous() for t in apply_plane_faults(hm, hn, fault,
+                                                             vbl=13))
+        for shift in (12, 13, 15):
+            kw = dict(wl=16, vbl=13, kind=kind, shift=shift)
+            want = tb.bbm_matmul_rows_plain(x, fm, fn, **kw)
+            assert torch.equal(tb.bbm_matmul_rows(x, fm, fn, **kw), want)
+            assert torch.equal(tb.bbm_matmul_dot(x, fm, fn, **kw), want)
+            assert torch.equal(tb.bbm_matmul_dot_plain(x, fm, fn, **kw),
+                               want)
+            cases += 1
+    torch.cuda.synchronize()
+    assert (tb.bbm_matmul_rows.launches, tb.bbm_matmul_dot.launches) == (
+        before[0] + cases, before[1] + cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ["plane", "acc"])
+def test_faulted_datapath_on_the_card_equals_the_plain_version(target):
+    """``bbm_matmul_dynamic(fault=)`` launches the planes-in kernel and
+    equals the CPU port (the plain version) bit for bit, at bbm0 and at
+    exact Booth (a chunk of one product, a key per product)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core.faults import FaultSpec
+    tb = _tb()
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((4, 70)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((70, 8)).astype(np.float32))
+    fault = FaultSpec(target=target, p=0.3, bit=10, seed=9)
+    for vbl in (13, 0):
+        before = tb.bbm_dot_planes.launches
+        got = tb.bbm_matmul_dynamic(a.cuda(), b.cuda(), wl=16, vbl=vbl,
+                                    fault=fault)
+        want = tb.bbm_matmul_dynamic(a, b, wl=16, vbl=vbl, fault=fault)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        assert tb.bbm_dot_planes.launches == before + 1
+
+
 # --------------------------------------------------------------- the build
 def test_build_directory_is_git_ignored():
     ignored = [ln.strip().rstrip("/") for ln in
@@ -553,7 +759,8 @@ def test_build_directory_is_git_ignored():
     rel = _build.BUILD_DIR.relative_to(ROOT).as_posix()
     assert any(rel == p or rel.startswith(p + "/") for p in ignored), rel
     assert "chiprun_out" in ignored
-    for name in ("fir_bank", "quant_matmul", "bbm_dot", "flash_attention"):
+    for name in ("fir_bank", "quant_matmul", "bbm_dot", "bbm_matmul",
+                 "flash_attention"):
         assert _build.SOURCES[name].is_file()
         assert _build.SOURCES[name].relative_to(PKG).as_posix() \
             == f"kernels/csrc/{name}.cu"
