@@ -62,7 +62,7 @@ _SIGNATURES = {
         "bbm_matmul_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
-        "flash_attention_launch": ([_P] * 4 + [_I] * 7 + [_F, _P], _I),
+        "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [_F, _P], _I),
         "flash_attention_amm_launch": ([_P] * 14 + [_I] * 13 + [_F, _P],
                                        _I),
         "flash_attention_error_string": ([_I], ctypes.c_char_p),

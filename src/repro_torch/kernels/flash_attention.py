@@ -15,23 +15,61 @@ of the same function beside it:
 
 As in the reference, the wrapper of the amm kernel quantizes Q (already
 scaled by 1/sqrt(d)), K and V per (batch*head, block) with the amm
-quantizer, on the host side of the grid, and hands the kernel codes and
-scales.  The plain version (the counterpart of ``_flash_amm_xla``) also
-decodes K's digit planes there, once per call; the kernel decodes the
-digits of K's and V's int16 codes in registers (the planes would not fit
-in shared memory beside the tiles).
+quantizer, on the host side of the grid, and hands the kernel codes (as
+int16) and scales.  The plain version (the counterpart of
+``_flash_amm_xla``) also decodes K's digit planes there, once per call;
+the kernel decodes the digits of K's and V's codes in registers (the
+planes would not fit in shared memory beside the tiles).
 
-What bounds them: the exact kernel does 4 * Sq * Skv * d f32 operations
-per head against 16 bytes per (position, dim), so operations; the amm
-kernel adds two integer Broken-Booth products per score element.  Both
-run FFMA on the CUDA cores: TF32 or bf16 would leave the float contract.
+Dead tiles.  A KV tile is dead for a q-block when every (row, key) pair
+in it is masked: under causal, when its first key lies past the block's
+last row, and when it starts at or past the valid KV length.  The live
+tiles of a q-block are a prefix of the KV axis (``live_kv_tiles`` counts
+them), and tile 0 is always live, so no row's running max stays at
+-1e30.  In a dead tile every weight is ``exp(-1e30 - m) = 0`` and the
+rescale ``exp(m - m) = 1``: the running sum and accumulator come through
+bit for bit, so both kernels skip dead tiles.  On the amm datapath that
+holds for kind 0 only: P's codes are 0 there and a kind-0 product of
+code 0 is 0, but kind 1 subtracts the sign bit of every negative digit
+before the truncating shift, ``(0 - 1) >> m_r = -1``, so a dead tile's
+approximate P V product is not 0 and kind 1 computes every tile, as the
+reference does.  The residuals of a skipped tile hold what a dead kind-0
+tile forms: P's codes 0, its scale 1e-12 (the quantizer's floor) and its
+P V product 0; its score products, which nothing reads through the mask,
+hold 0 (``DEAD_SCORE``).  The plain versions form every tile, as the
+reference does, which gives the same bits; the amm one writes
+``DEAD_SCORE`` into the score residual of the tiles the kernel skips.
+
+Schedule.  Each kernel block owns one (q-block, batch*head) and walks
+the live tiles of its q-block; blocks are numbered heaviest first (the
+last causal q-block of every head, then the one before), so the card
+takes the longest blocks in its first wave.  K and V tiles arrive by
+``cp.async`` in 16-byte (f32) and 8-byte (int16 code) copies: the exact
+kernel double-buffers them, so the next tile's copy runs under the
+current tile's products; the amm kernel, whose tiles fill its shared
+memory, copies V while P is formed and quantized and the next K while
+the P V epilogue runs.
+
+Arithmetic and bounds.  The exact kernel forms Q K^T on the tensor cores
+in 3xTF32 (each f32 operand split into a TF32 high and low part, hi*hi +
+hi*lo + lo*hi with the f32 accumulator drained into f32 registers after
+every 8-term step; the error model is in the CUDA source and stays
+inside ``flash_tolerance``'s score term at d <= 64) and P V with FFMA on
+the CUDA cores.  By the same error model 3xTF32 would also fit the
+tolerance's sum term for P V from 26 keys on, so on this card the
+function is bounded by both products at the 3xTF32 rate there (and by
+P V's f32 FFMA over shorter KV lengths); the FFMA P V is the kernel's
+choice, not the bound.  The amm kernel keeps both float products in f32
+FFMA (``flash_amm_compare`` derives its code-movement bound from two f32
+evaluations) and its integer Broken-Booth products on ``bbm_dot.cuh``,
+so it is bounded by its int32 operations.
 
 A wrapper runs the plain version only for tensors on the CPU; on CUDA
 tensors it launches its kernel or raises, and counts its launches in
-``<wrapper>.launches``.  The two float orders (FFMA chains in the
-kernels, matmuls in the plain versions, XLA's dots in the reference) and
-``expf`` against other exponentials differ in rounding.  The exact
-kernel agrees with its plain version and the reference within
+``<wrapper>.launches``.  The two float orders (tensor-core and FFMA
+chains in the kernels, matmuls in the plain versions, XLA's dots in the
+reference) and ``expf`` against other exponentials differ in rounding.
+The exact kernel agrees with its plain version and the reference within
 ``flash_tolerance``.  Two evaluations of the amm kernel's function are
 held against each other by ``flash_amm_compare``: the approximate score
 products bit-equal, P's codes and scales within what the float
@@ -59,12 +97,14 @@ from ..device import pin_fp32
 from .booth_rows import amm_chunk_len, booth_precode, num_corr_rows
 from .bbm_matmul import dot_scaled_chunked
 
-__all__ = ["FLASH_AMM_BK", "FLASH_AMM_BQ", "NEG_INF", "flash_amm_compare",
-           "flash_amm_operands", "flash_amm_plain", "flash_attention",
-           "flash_attention_amm", "flash_attention_plain",
-           "flash_tolerance", "quantize_blocks"]
+__all__ = ["DEAD_SCORE", "FLASH_AMM_BK", "FLASH_AMM_BQ", "NEG_INF",
+           "flash_amm_compare", "flash_amm_operands", "flash_amm_plain",
+           "flash_attention", "flash_attention_amm", "flash_attention_plain",
+           "flash_tolerance", "live_kv_tiles", "quantize_blocks"]
 
 NEG_INF = -1e30
+# the score residual of a skipped tile (read by nothing: the mask covers it)
+DEAD_SCORE = 0.0
 
 # flash-amm tile sizes: the chunked-amm reference runs at the same
 # blocking for the equality contract (quantization is per block)
@@ -77,16 +117,16 @@ _HEAD_DIMS = (16, 32, 64)     # the kernels' instantiations
 _MAX_TILE = 128
 
 
-def quantize_blocks(t: torch.Tensor, wl: int):
+def quantize_blocks(t: torch.Tensor, wl: int, dtype=torch.int32):
     """``amm_quantize`` of every (..., rows, cols) slice of ``t`` at once:
-    (int32 codes, f32 scales of shape (..., 1, 1)), each slice with its
-    own scale, bit-identical to quantizing the slices one by one."""
+    (codes of ``dtype``, f32 scales of shape (..., 1, 1)), each slice with
+    its own scale, bit-identical to quantizing the slices one by one."""
     lim = 2 ** (wl - 1) - 1
     tf = t.to(torch.float32)
     s = torch.clamp_min(torch.amax(torch.abs(tf), dim=(-2, -1),
                                    keepdim=True) * (1.0 / lim), 1e-12)
     codes = torch.clamp(torch.round(tf / s), -lim - 1, lim)
-    return codes.to(torch.int32), s
+    return codes.to(dtype), s
 
 
 def _check_qkv(q, k, v, name: str) -> None:
@@ -119,12 +159,43 @@ def _stream(dev: torch.device):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels copy
+    rows with 16-byte ``cp.async``)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def live_kv_tiles(sq: int, skv: int, bq: int, bk: int, *, causal: bool,
+                  kv_len: int | None = None) -> list:
+    """The number of live KV tiles of each q-block: ``n[i]`` for the
+    q-block of rows ``[i bq, min((i + 1) bq, sq))``.
+
+    Tiles of ``bk`` keys over ``skv`` positions, of which the first
+    ``kv_len`` (default all) are valid.  A tile is live for a q-block when
+    some (row, key) pair in it is unmasked: its first key is below
+    ``kv_len`` and, under causal, not past the block's last row.  Both
+    conditions bound the key from above, so the live tiles are the first
+    ``n[i]``, and ``n`` never decreases with ``i``.  The kernels compute
+    the same count in ``csrc/flash_attention.cu`` (``live_tiles``).
+    """
+    kv_len = skv if kv_len is None else kv_len
+    n_valid = min(-(-skv // bk), -(-kv_len // bk))
+    counts = []
+    for i in range(-(-sq // bq)):
+        last = min((i + 1) * bq, sq) - 1
+        counts.append(min(n_valid, last // bk + 1) if causal else n_valid)
+    return counts
+
+
 # ------------------------------------------------------- exact (B4)
 def flash_attention_plain(q, k, v, *, causal: bool = True, bq: int = 128,
                           bk: int = 128) -> torch.Tensor:
     """Plain version of the exact kernel: ``_attn_kernel``'s online
     softmax over KV blocks of ``bk``, every query row at once (rows are
-    independent, so the q blocking changes nothing).  (B, H, S, D)."""
+    independent, so the q blocking changes nothing).  It forms every
+    block, the dead ones too, which the kernel skips: their weights are
+    0 and their rescale 1, so that changes no bit.  (B, H, S, D)."""
     pin_fp32()
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -161,25 +232,32 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
                     bk: int = 128) -> torch.Tensor:
     """Exact blockwise attention.  q: (B, H, Sq, D); k, v: (B, H, Skv, D)
     with matched head counts (the caller repeats KV heads for GQA).
-    Returns (B, H, Sq, D) in q's dtype."""
+    Returns (B, H, Sq, D) in q's dtype.
+
+    ``bq`` and ``bk`` (1..128) are the plain version's tiles, which it
+    runs on CPU tensors.  The kernel takes its own, 64 query rows by 64
+    keys: rows are independent, so the row tile changes no bit, and the
+    KV tile moves only the rounding of the sums, within
+    ``flash_tolerance``.
+    """
     _check_qkv(q, k, v, "flash_attention")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bk=bk)
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    bq, bk = _tiles(sq, skv, bq, bk)
+    _tiles(sq, skv, bq, bk)
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention's kernel takes head_dim in "
                          f"{_HEAD_DIMS}, got {d}")
-    qc, kc, vc = (t.to(torch.float32).reshape(b * h, t.shape[2], d)
-                  .contiguous() for t in (q, k, v))
+    qc, kc, vc = (_aligned(t.to(torch.float32).reshape(b * h, t.shape[2], d))
+                  for t in (q, k, v))
     out = torch.empty((b * h, sq, d), dtype=torch.float32, device=q.device)
     from ._build import library
     lib = library("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
-            b * h, sq, skv, d, bq, bk, int(causal), 1.0 / (d ** 0.5),
+            b * h, sq, skv, d, int(causal), 1.0 / (d ** 0.5),
             _stream(q.device))
     if err != 0:
         raise RuntimeError(
@@ -235,9 +313,10 @@ def flash_amm_operands(q, k, v, *, wl: int, bq: int = FLASH_AMM_BQ,
     before its dispatch): pad the sequences to whole tiles, scale Q by
     1/sqrt(d), and quantize Q, K and V per (batch*head, block).
 
-    Returns ``qf, kf, vf`` f32 (BH, S_pad, D), ``qc, kc, vc`` int32 codes
-    of the same shapes, ``qs`` (BH, nq), ``ks, vs`` (BH, nk) scales, and
-    the geometry ``shape, bq, bk, skv``.
+    Returns ``qf, kf, vf`` f32 (BH, S_pad, D), ``qc, kc, vc`` int16 codes
+    of the same shapes (wl <= 16; the kernel copies them as they are),
+    ``qs`` (BH, nq), ``ks, vs`` (BH, nk) scales, and the geometry
+    ``shape, bq, bk, skv``.
     """
     b, h, sq, d = q.shape
     skv = k.shape[2]
@@ -250,9 +329,10 @@ def flash_amm_operands(q, k, v, *, wl: int, bq: int = FLASH_AMM_BQ,
         * (1.0 / d ** 0.5)
     kf = F.pad(k.to(torch.float32), pad_k).reshape(bh, nk * bk, d)
     vf = F.pad(v.to(torch.float32), pad_k).reshape(bh, nk * bk, d)
-    qc, qs = quantize_blocks(qf.reshape(bh, nq, bq, d), wl)
-    kc, ks = quantize_blocks(kf.reshape(bh, nk, bk, d), wl)
-    vc, vs = quantize_blocks(vf.reshape(bh, nk, bk, d), wl)
+    i16 = torch.int16
+    qc, qs = quantize_blocks(qf.reshape(bh, nq, bq, d), wl, i16)
+    kc, ks = quantize_blocks(kf.reshape(bh, nk, bk, d), wl, i16)
+    vc, vs = quantize_blocks(vf.reshape(bh, nk, bk, d), wl, i16)
     return {"qf": qf.contiguous(), "kf": kf.contiguous(),
             "vf": vf.contiguous(),
             "qc": qc.reshape(bh, nq * bq, d).contiguous(),
@@ -269,7 +349,11 @@ def flash_amm_plain(ops: dict, *, wl: int, vbl: int, kind: int,
                     residuals_in: dict | None = None):
     """Plain version of the amm kernel on ``flash_amm_operands``: the
     reference's ``_amm_tile_step`` under its ``_flash_amm_xla`` loop,
-    every (batch*head, q-block) at once, the KV blocks in order.
+    every (batch*head, q-block) at once, the KV blocks in order.  It
+    forms every tile, the dead ones too: at kind 0 their P codes, scale
+    and P V product are what the kernel writes for a tile it skips, and
+    their score product, which the mask hides, becomes ``DEAD_SCORE`` in
+    the residuals, as the kernel leaves it.
 
     Returns the (BH, S_pad, D) f32 output and, with ``residuals``, the
     dict the kernel writes beside it (``flash_attention_amm``).
@@ -290,7 +374,7 @@ def flash_amm_plain(ops: dict, *, wl: int, vbl: int, kind: int,
     kf = ops["kf"].reshape(bh, nk, bk, d)
     vf = ops["vf"].reshape(bh, nk, bk, d)
     if residuals_in is None:
-        qc = ops["qc"].reshape(bh, nq, bq, d)
+        qc = ops["qc"].to(torch.int32).reshape(bh, nq, bq, d)
         vc = ops["vc"].reshape(bh, nk, bk, d)
         qs = ops["qs"][:, :, None, None]
         # K's digit planes, decoded once per call over the K^T code
@@ -345,7 +429,15 @@ def flash_amm_plain(ops: dict, *, wl: int, vbl: int, kind: int,
     out = (acc / torch.clamp_min(l, 1e-30)).reshape(bh, sqp, d)
     if not residuals:
         return out
-    return out, {"s": torch.stack(res["s"], dim=3).reshape(bh, sqp, nk * bk),
+    s_res = torch.stack(res["s"], dim=3)               # (bh, nq, bq, nk, bk)
+    if kind == 0:
+        # the tiles the kernel skips (kind 0 only) hold DEAD_SCORE
+        counts = torch.tensor(live_kv_tiles(sqp, nk * bk, bq, bk,
+                                            causal=causal, kv_len=skv),
+                              device=dev)
+        dead = torch.arange(nk, device=dev)[None, :] >= counts[:, None]
+        s_res = s_res.masked_fill(dead[None, :, None, :, None], DEAD_SCORE)
+    return out, {"s": s_res.reshape(bh, sqp, nk * bk),
                  "pv": torch.stack(res["pv"], dim=1).reshape(bh, nk, sqp, d),
                  "pc": torch.stack(res["pc"], dim=3).reshape(bh, sqp,
                                                              nk * bk),
@@ -373,12 +465,15 @@ def _amm_launch(ops: dict, *, wl: int, vbl: int, kind: int, causal: bool,
                "bq": bq, "bk": bk}
     ptr = lambda n: 0 if res is None else res[n].data_ptr()  # noqa: E731
     inv_lim = float(np.float32(1.0 / (2 ** (wl - 1) - 1)))
+    # the kernel copies whole rows of the f32 tiles and int16 codes
+    tiles = [_aligned(ops[n]) for n in ("qf", "kf", "vf", "qc", "kc",
+                                        "vc")] + [
+        ops[n].contiguous() for n in ("qs", "ks", "vs")]
     from ._build import library
     lib = library("flash_attention")
     with torch.cuda.device(dev):
         err = lib.flash_attention_amm_launch(
-            *(ops[n].data_ptr() for n in ("qf", "kf", "vf", "qc", "kc", "vc",
-                                          "qs", "ks", "vs")),
+            *(t.data_ptr() for t in tiles),
             out.data_ptr(), ptr("s"), ptr("pv"), ptr("pc"), ptr("ps"),
             bh, sqp, skvp, d, bq, bk, ops["skv"], int(causal),
             wl, vbl, kind, num_corr_rows(wl, vbl), amm_chunk_len(wl, vbl),

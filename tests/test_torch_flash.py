@@ -7,7 +7,11 @@ against the JAX package's.
   oracle, bit for bit;
 * flash-amm's plain version against ``flash_attention_amm(use_kernel=
   False)``: the codes and scales of Q, K and V bit for bit, and the two
-  runs by ``flash_amm_compare`` at every operating point;
+  runs by ``flash_amm_compare`` at every operating point.  At kind 0 the
+  port skips dead tiles, whose score products the reference still forms
+  and nothing reads (the mask covers them): there the reference's score
+  residual is held to ``DEAD_SCORE`` after its P codes, scales and P V
+  products are checked to be the dead tile's (``_as_skipped``);
 * exact flash against ``kernels.ops.flash_attention`` (interpret mode)
   and ``ref.attention_ref`` within ``flash_tolerance``;
 * the routing of ``attention``, with ``FlashFallbackWarning`` when the
@@ -111,6 +115,30 @@ def _compare(ops, a, b, **kw):
     rep = tf.flash_amm_compare(ops, a, b, **kw)
     assert rep["ok"], rep
     return rep
+
+
+def _as_skipped(ops, run, *, kind, causal):
+    """A run that formed every tile (the reference, the chunked path) as
+    the port's skipping schedule leaves it: on each tile the port skips
+    (kind 0, ``live_kv_tiles``), the P codes, scale and P V product must
+    already be a dead tile's (0, 1e-12, 0), and the score product, which
+    the mask hides from every later step, becomes ``DEAD_SCORE``."""
+    if kind != 0:
+        return run
+    bq, bk = ops["bq"], ops["bk"]
+    g, r, _ = ops["qf"].shape
+    c = ops["kf"].shape[1]
+    counts = tf.live_kv_tiles(r, c, bq, bk, causal=causal, kv_len=ops["skv"])
+    out = dict(run, s=run["s"].clone())
+    for i, n in enumerate(counts):
+        rows = slice(i * bq, (i + 1) * bq)
+        for j in range(n, c // bk):
+            cols = slice(j * bk, (j + 1) * bk)
+            assert not run["pc"][:, rows, cols].any()
+            assert not run["pv"][:, j, rows].any()
+            assert bool((run["ps"][:, i, j] == np.float32(1e-12)).all())
+            out["s"][:, rows, cols] = tf.DEAD_SCORE
+    return out
 
 
 @contextlib.contextmanager
@@ -304,7 +332,8 @@ def test_flash_amm_plain_matches_jax(mul, wl, vbl, causal):
                            err_msg=name)
     # every tile's score products bit for bit, P's codes, the P V
     # products and the output held by what really differs
-    _compare(ops, dict(res, out=got.reshape(2, 40, 16)), ref, wl=wl,
+    _compare(ops, dict(res, out=got.reshape(2, 40, 16)),
+             _as_skipped(ops, ref, kind=kind, causal=causal), wl=wl,
              vbl=vbl, causal=causal)
 
 
@@ -324,7 +353,8 @@ def test_flash_amm_equals_chunked_at_the_flash_tiles():
                                   bq=tf.FLASH_AMM_BQ, bk=tf.FLASH_AMM_BK)
     ops = tf.flash_amm_operands(*_t(q, k, v), wl=16)
     _compare(ops, dict(res, out=flash.reshape(2, 200, 16)),
-             dict(run, out=run["out"][:, :200]), wl=16, vbl=13, causal=True)
+             _as_skipped(ops, dict(run, out=run["out"][:, :200]), kind=0,
+                         causal=True), wl=16, vbl=13, causal=True)
 
 
 @pytest.mark.parametrize("fault", ["none", "tile_scale", "code", "pv",
