@@ -31,7 +31,14 @@ of the JAX package.  Phases, each of which fails the run:
      {1, 8, 200}, K in {64, 512, 896, 4864}, N in {896, 4864, 130}:
      ``torch.equal`` where every chunk partial is an exact integer and
      there is no noise, ``quant_matmul_tolerance`` (a derived bound)
-     elsewhere; the hash's uniforms bit-equal;
+     elsewhere; the hash's uniforms bit-equal; then the route edges (M in
+     {1, 7, 8, 9, 16, 17, 64, 65, 256} at qwen2-0.5b's two MLP shapes,
+     the decode threshold being 64), x or w
+     views 4 bytes off a 16-byte boundary, and each route forced at the
+     other's shapes and at odd chunkings (bk 100, 32, and 32,768 rows,
+     the longest chunk the tiled route's int32 sums hold; a longer one
+     must be refused), the tiled route bit-equal to
+     ``quant_matmul_emulated`` without noise;
   7. LM main path: qwen2-0.5b at full width (random weights from a seeded
      generator, on the card) in noise mode (bbm0, WL 16, VBL 13, the
      fused kernel) served by the continuous ``Scheduler``: 8 slots,
@@ -45,10 +52,16 @@ of the JAX package.  Phases, each of which fails the run:
   8. the card against the CPU: two requests served by the port on the
      CPU, teacher-forced on the card's tokens, match the card's logits
      at every step;
-  9. LM timing: tokens/s, decode-step ms, the card's idle share of a
-     decode step (torch.profiler), and quant_matmul at the decode and a
-     prefill shape against its bound, its plain version and f32
-     ``torch.matmul`` as a yardstick;
+  9. LM timing: tokens/s, decode-step ms, quant_matmul at the decode and
+     a prefill shape against its bound, its plain version, f32
+     ``torch.matmul`` as a yardstick and its time before the redesign
+     (quoted from PERF.md's kernel table); both routes timed around the
+     decode threshold, each call on the next layer's weight (read from
+     device memory, as on the main path); the wrapper's host time per
+     call; a decode window
+     (torch.profiler): device busy time, device operations and idle share
+     per step, and from a second window with the host traced too, the
+     host's time per step by operation;
  10. training sweeps: ``bbm_dot_scaled`` bit-equal to its plain version
      over wl in {8, 12, 16}, both kinds, K one below, at and one past
      ``amm_chunk_len``, envelope-edge operands (the plain version on CPU
@@ -153,7 +166,8 @@ TRAIN_KERNELS = {"bbm_dot_scaled": ("bbm_dot_kernel",),
 QM_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # TF32 on the tensor cores, dense
-QM_KERNELS = ("qm_partial_kernel", "qm_finish_kernel")
+INT8_OPS_PER_S = 1979e12         # int8 on the tensor cores, dense
+QM_KERNELS = ("qm_decode_kernel", "qm_tiled_kernel")
 
 
 def _leaves(tree):
@@ -228,13 +242,16 @@ def wall_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def kernel_device_ms(torch, fn, reps: int, kernel, per_call=None):
+def kernel_device_ms(torch, fn, reps: int, kernel, per_call=None,
+                     per_launch=False):
     """Mean device time per call of ``fn`` spent in the CUDA kernels whose
     names hold ``kernel`` (a string or a tuple of strings), from
     torch.profiler's trace of ``reps`` warm calls; None when the trace
     shows no device time for them, or, given ``per_call`` (the kernel
     launches of one call), when it holds another number of launches (a
-    trace can lose the records of bare ctypes launches)."""
+    trace can lose the records of bare ctypes launches).  ``per_launch``
+    gives the mean over the launches the trace holds instead, which a
+    lost record does not bias (for a call of one launch)."""
     names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -252,9 +269,36 @@ def kernel_device_ms(torch, fn, reps: int, kernel, per_call=None):
                 t = getattr(ev, "device_time_total", None) or 0.0
             total_us += t
             count += ev.count
+    if per_launch:
+        return total_us / count / 1e3 if total_us > 0 and count else None
     if per_call is not None and count != per_call * reps:
         return None
     return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def launch_ms(torch, fn, reps: int, kernel) -> tuple:
+    """(device ms per launch, how it was measured) of ``fn``, one launch
+    of the kernels named ``kernel`` a call: the profiler's mean over the
+    launches its trace holds, tried three times (a trace can hold no
+    record of bare ctypes launches); else CUDA events around ``reps``
+    calls queued behind a spin kernel, so that the host's enqueue time
+    hides behind the spin (each launch then also counts the device's gap
+    to the next)."""
+    for _ in range(3):
+        t = kernel_device_ms(torch, fn, reps, kernel, per_launch=True)
+        if t is not None:
+            return t, "profiler"
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)           # ~25 ms: the queue fills first
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, "events behind a spin"
 
 
 def sweep(torch, fk, booth_precode, dev) -> int:
@@ -293,9 +337,49 @@ def sweep(torch, fk, booth_precode, dev) -> int:
 
 
 # ------------------------------------------------------------ quant_matmul
-def qm_sweep(torch, qm, amm_scale, dev, mu: float, sigma: float) -> tuple:
+def qm_check(torch, qm, got, want, tol, what: str) -> tuple:
+    """(bit-equal, error / bound) of one kernel output against its plain
+    version: ``torch.equal`` where the bound is zero, else within it;
+    fails the run otherwise."""
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(got).all()):
+        fail(f"quant_matmul not finite at {what}")
+    err = (got.double() - want.double()).abs()
+    if bool((tol == 0).all()):
+        if not torch.equal(got, want):
+            fail(f"quant_matmul != plain at {what}: "
+                 f"{int((got != want).sum())} elements differ where the "
+                 f"sums are exact")
+        return True, 0.0
+    if bool((err > tol).any()):
+        fail(f"quant_matmul off its plain version by {float(err.max())} "
+             f"(bound {float(tol.max())}) at {what}")
+    return torch.equal(got, want), float((err / tol.clamp_min(1e-300)).max())
+
+
+def qm_operands(torch, rng, dev, m, k, n, wl):
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(
+        dev)
+    w = torch.from_numpy((0.02 * rng.standard_normal((k, n))).astype(
+        np.float32)).to(dev)
+    from repro_torch.kernels.ref import amm_scale
+    return x, w, amm_scale(x, wl), amm_scale(w, wl)
+
+
+def unaligned(torch, t):
+    """A contiguous view of ``t``'s values whose data pointer is 4 bytes
+    past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    off = next(i for i in range(1, 4)
+               if (buf.data_ptr() + 4 * i) % 16 != 0)
+    view = buf[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def qm_sweep(torch, qm, dev, mu: float, sigma: float) -> tuple:
     """The kernel against its plain version on the card; returns (cases,
-    bit-equal cases, worst ratio of error to bound)."""
+    bit-equal cases, worst ratio of error to bound, edge cases)."""
     rng = np.random.default_rng(2)
     cases = equal = 0
     worst = 0.0
@@ -304,11 +388,8 @@ def qm_sweep(torch, qm, amm_scale, dev, mu: float, sigma: float) -> tuple:
             for m in (1, 8, 200):
                 for k in (64, 512, 896, 4864):
                     for n in (896, 4864, 130):
-                        x = torch.from_numpy(rng.standard_normal(
-                            (m, k)).astype(np.float32)).to(dev)
-                        w = torch.from_numpy((0.02 * rng.standard_normal(
-                            (k, n))).astype(np.float32)).to(dev)
-                        sx, sw = amm_scale(x, wl), amm_scale(w, wl)
+                        x, w, sx, sw = qm_operands(torch, rng, dev, m, k, n,
+                                                   wl)
                         mu_, sig_ = (mu, sigma) if noisy else (0.0, 0.0)
                         seed = int(rng.integers(0, 2 ** 31 - 1))
                         got = qm.quant_matmul(x, w, sx, sw, mu_, sig_,
@@ -318,26 +399,11 @@ def qm_sweep(torch, qm, amm_scale, dev, mu: float, sigma: float) -> tuple:
                             bm=128, bk=512, bn=128)
                         tol = qm.quant_matmul_tolerance(
                             x, w, sx, sw, mu_, sig_, wl=wl)
-                        torch.cuda.synchronize()
-                        err = (got.double() - want.double()).abs()
-                        if not torch.isfinite(got).all():
-                            fail(f"quant_matmul not finite at wl={wl} "
-                                 f"M={m} K={k} N={n}")
-                        if bool((tol == 0).all()):
-                            if not torch.equal(got, want):
-                                fail(f"quant_matmul != plain at wl={wl} "
-                                     f"M={m} K={k} N={n} noise={noisy}: "
-                                     f"{int((got != want).sum())} elements"
-                                     f" differ where the sums are exact")
-                        elif bool((err > tol).any()):
-                            fail(f"quant_matmul off its plain version by "
-                                 f"{float(err.max())} (bound "
-                                 f"{float(tol.max())}) at wl={wl} M={m} "
-                                 f"K={k} N={n} noise={noisy}")
-                        else:
-                            worst = max(worst, float(
-                                (err / tol.clamp_min(1e-300)).max()))
-                        equal += int(torch.equal(got, want))
+                        eq, r = qm_check(torch, qm, got, want, tol,
+                                         f"wl={wl} M={m} K={k} N={n} "
+                                         f"noise={noisy}")
+                        equal += int(eq)
+                        worst = max(worst, r)
                         cases += 1
     for m, n, bm, bn in ((8, 4864, 8, 128), (200, 130, 128, 128),
                          (1, 896, 1, 128), (300, 300, 64, 32)):
@@ -347,17 +413,159 @@ def qm_sweep(torch, qm, amm_scale, dev, mu: float, sigma: float) -> tuple:
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             fail(f"the hash's uniforms differ at ({m}, {n}) tiles "
                  f"({bm}, {bn})")
-    return cases, equal, worst
+    edges = qm_edges(torch, qm, dev, rng, mu, sigma)
+    edges.update(qm_quantizer_check(torch, qm, dev, rng))
+    return cases, equal, worst, edges
 
 
-def qm_bound_ms(m: int, k: int, n: int) -> tuple:
+def qm_quantizer_check(torch, qm, dev, rng) -> dict:
+    """The kernel's quantizer (an exact quotient without a division per
+    element) against the true division: its quotient bit-equal to
+    ``__fdiv_rn`` over every dividend significand for 16,384 random
+    divisor significands and the edge ones, at exponents across its fast
+    range; its codes bit-equal to the CPU's ``_codes`` on 2^24 random
+    float32 bit patterns (every exponent, zeros, subnormals, infinities,
+    NaN) at scales inside and outside that range, wl 8 and 16."""
+    sig = np.concatenate([
+        1.0 + rng.random(16384),
+        [1.0, np.nextafter(np.float32(1), np.float32(2)),
+         np.nextafter(np.float32(2), np.float32(1)), 1.5, np.sqrt(2.0)]])
+    exps = rng.integers(-38, 38, sig.size)
+    divisors = (sig * np.exp2(exps)).astype(np.float32)
+    divisors[::2] *= -1
+    bad = qm.quotient_mismatches(torch.from_numpy(divisors).to(dev))
+    if bad:
+        fail(f"the kernel's quotient differs from __fdiv_rn in {bad} cases")
+    bits = rng.integers(0, 2 ** 32, 1 << 24, dtype=np.uint64).astype(
+        np.uint32)
+    v = torch.from_numpy(bits.view(np.float32).copy())
+    v[:4] = torch.tensor([0.0, -0.0, float("inf"), float("nan")])
+    scales = (2.7e-6, 1.2e-4, 1.0, 2.0 ** -38, 2.0 ** 38, 2.0 ** -39,
+              2.0 ** 39, 1e-12, 1e-30, 3e38, 0.0)
+    cases = 0
+    vd = v.to(dev)
+    for s in scales:
+        for wl in (8, 16):
+            st = torch.tensor(s, dtype=torch.float32)
+            got = qm.quant_codes(vd, st.to(dev), wl).cpu()
+            want = qm.quant_codes(v, st, wl)
+            if not torch.equal(torch.nan_to_num(got, nan=0.5),
+                               torch.nan_to_num(want, nan=0.5)):
+                fail(f"the kernel's codes differ from the CPU's at scale "
+                     f"{s} wl {wl}: {int((got != want).sum())} values")
+            cases += 1
+    return {"divisors": int(divisors.size), "code_scales": cases}
+
+
+# the route edges: the rows on each side of a decode row group (8, 16)
+# and of the decode threshold (64), M = 1 (with K = 4864 too), a prefill;
+# (M, K, N) at qwen2-0.5b's MLP shapes
+QM_EDGE_MS = (1, 7, 8, 9, 16, 17, 64, 65, 256)
+QM_EDGE_KN = ((896, 4864), (4864, 896))
+
+
+def qm_edges(torch, qm, dev, rng, mu: float, sigma: float) -> dict:
+    """The kernel at the route edges, with unaligned operands and ragged
+    N, forced onto each route, against the plain version; the tiled route
+    without noise bit-equal to ``quant_matmul_emulated`` (each chunk
+    partial its exact sum rounded once) at every wl; counts by kind."""
+    from repro_torch.kernels.ref import amm_scale
+    out = {"edges": 0, "unaligned": 0, "forced": 0, "tiled_bitwise": 0}
+
+    def one(x, w, sx, sw, wl, noisy, what, plan=None, kw=None):
+        kw = kw or {}
+        mu_, sig_ = (mu, sigma) if noisy else (0.0, 0.0)
+        seed = int(rng.integers(0, 2 ** 31 - 1))
+        if plan is None:
+            got = qm.quant_matmul(x, w, sx, sw, mu_, sig_, wl=wl, seed=seed,
+                                  **kw)
+        else:
+            m, k = x.shape
+            n = w.shape[1]
+            bk = min(kw.get("bk", 512), k)
+            got = torch.empty((m, n), dtype=torch.float32, device=dev)
+            qm._launch(x, w, sx, sw, got, mu_, sig_, wl=wl, seed=seed,
+                       bm=min(128, m), bk=bk, bn=min(128, n), plan=plan)
+        full = dict(bm=128, bk=512, bn=128)
+        full.update(kw)
+        want = qm.quant_matmul_plain(x, w, sx, sw, mu_, sig_, wl=wl,
+                                     seed=seed, **full)
+        tol = qm.quant_matmul_tolerance(x, w, sx, sw, mu_, sig_, wl=wl,
+                                        bk=full["bk"])
+        qm_check(torch, qm, got, want, tol, what)
+        return got, seed
+
+    for m in QM_EDGE_MS:
+        for k, n in QM_EDGE_KN:
+            for wl in (8, 16):
+                x, w, sx, sw = qm_operands(torch, rng, dev, m, k, n, wl)
+                for noisy in (False, True):
+                    one(x, w, sx, sw, wl, noisy,
+                        f"edge M={m} K={k} N={n} wl={wl} noise={noisy}")
+                    out["edges"] += 1
+    # unaligned views and N = 130 (the scalar-load variants), both routes
+    for m in (8, 200):
+        for k, n in ((896, 130), (4864, 896), (100, 64)):
+            x, w, sx, sw = qm_operands(torch, rng, dev, m, k, n, 16)
+            for xv, wv, tag in ((unaligned(torch, x), w, "x"),
+                                (x, unaligned(torch, w), "w")):
+                one(xv, wv, sx, sw, 16, True,
+                    f"unaligned {tag} M={m} K={k} N={n}")
+                out["unaligned"] += 1
+    # each route forced at the other's shapes; odd K chunks (bk = 100:
+    # not a multiple of 4; bk = 32: many chunks a rank); the longest
+    # chunk the tiled route's int32 sums hold, and one row more refused
+    x, w, sx, sw = qm_operands(torch, rng, dev, 4, qm.MAX_CHUNK + 1, 64, 16)
+    try:
+        qm.quant_matmul(x, w, sx, sw, wl=16, bk=qm.MAX_CHUNK + 1)
+    except ValueError:
+        pass
+    else:
+        fail(f"quant_matmul took a K chunk of {qm.MAX_CHUNK + 1} rows")
+    for m, k, n, bk in ((32, 896, 4864, 512), (8, 4864, 896, 512),
+                        (64, 4864, 896, 512), (8, 896, 4864, 100),
+                        (9, 4864, 130, 32), (130, 32768, 64, 32768),
+                        (8, 32768, 64, 32768), (200, 4864, 130, 512)):
+        x, w, _, _ = qm_operands(torch, rng, dev, m, k, n, 16)
+        plans = {p.route: p for p in (qm.quant_matmul_plan(
+            m, k, n, min(bk, k), max_m) for max_m in (0, 1 << 30))}
+        for plan in plans.values():
+            for wl in (8, 16):
+                sx, sw = amm_scale(x, wl), amm_scale(w, wl)
+                got, seed = one(x, w, sx, sw, wl, False,
+                                f"{plan.route} forced M={m} K={k} N={n} "
+                                f"bk={bk} wl={wl}", plan=plan,
+                                kw={"bk": bk})
+                out["forced"] += 1
+                if plan.route == "tiled":
+                    want = qm.quant_matmul_emulated(
+                        x, w, sx, sw, 0.0, 0.0, wl=wl, seed=seed,
+                        bm=min(128, m), bk=min(bk, k), bn=min(128, n),
+                        plan=plan)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        fail(f"the tiled route != its emulation at M={m} "
+                             f"K={k} N={n} bk={bk} wl={wl}: "
+                             f"{int((got != want).sum())} elements differ")
+                    out["tiled_bitwise"] += 1
+    return out
+
+
+def qm_bound_ms(m: int, k: int, n: int, wl: int = 16) -> tuple:
     """(bound ms, what bounds it) of one quant_matmul call: x, w read
-    once and out written once in f32 over 3.35 TB/s, against 2*M*K*N
-    float32 operations over 67 TFLOP/s."""
+    once and out written once in f32 over 3.35 TB/s, against the fewest
+    operations the function admits.  Its products are exact integer
+    products of wl-bit codes, so the int8 tensor cores can form them:
+    one 8-bit product per code pair at wl <= 8, four (the byte split)
+    above, 2*M*K*N operations each over 1,979 TOP/s.  The quantizer's
+    4 float32 operations per input element (divide, round, two clips)
+    go over 67 TFLOP/s on their own pipe; the bound is the largest of
+    the three times."""
     t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
-    t_ops = 2 * m * k * n / F32_OPS_PER_S
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_ops = (1 if wl <= 8 else 4) * 2 * m * k * n / INT8_OPS_PER_S
+    t_quant = 4 * (m * k + k * n) / F32_OPS_PER_S
+    t = max(t_bytes, t_ops, t_quant)
+    return t * 1e3, ("bytes" if t == t_bytes else "operations")
 
 
 def lm_config():
@@ -546,9 +754,92 @@ def lm_cpu_check(torch, dev, cfg, rt, params) -> dict:
             "checked": state["checked"]}
 
 
+# quant_matmul before its redesign at lm_timing's shapes, device ms:
+# PERF.md's kernel table (an NVIDIA H100 80GB HBM3 at 700.00 W), quoted,
+# not measured here
+QM_BEFORE_MS = {(8, 896, 4864): 0.084673, (8, 4864, 896): 0.084167,
+                (256, 896, 4864): 0.162091}
+QM_ROUTE_MS = (8, 16, 32, 48, 64, 80, 96, 128)   # rows timed on both routes
+
+
+def qm_route_times(torch, qm, dev, rt, params) -> list:
+    """Device ms of each route, forced, at (M, 896) x (896, 4864) and
+    (M, 4864) x (4864, 896) for M in ``QM_ROUTE_MS``, each call on the
+    next layer's weight as on the main path (the 24 weights overflow the
+    L2, so each is read from device memory): where the decode route stops
+    winning sets ``DECODE_MAX_M``."""
+    from repro_torch.kernels.ref import amm_scale
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    mlp = params["layers"]["mlp"]
+    lines = []
+    for name, (k, n) in (("w_gate", (896, 4864)), ("w_down", (4864, 896))):
+        ws = [(w, amm_scale(w, 16)) for w in mlp[name]]
+        row = []
+        for m in QM_ROUTE_MS:
+            x = torch.randn((m, k), generator=gen, device=dev)
+            sx = amm_scale(x, 16)
+            out = torch.empty((m, n), device=dev)
+            times = {}
+            for max_m in (1 << 30, 0):
+                plan = qm.quant_matmul_plan(m, k, n, 512, max_m)
+                turn = [0]
+
+                def fn():
+                    w, sw = ws[turn[0] % len(ws)]
+                    turn[0] += 1
+                    qm._launch(x, w, sx, sw, out, rt.amm.mu, rt.amm.sigma,
+                               wl=16, seed=7, bm=min(128, m), bk=512,
+                               bn=min(128, n), plan=plan)
+                times[plan.route] = launch_ms(torch, fn, 2 * len(ws),
+                                              QM_KERNELS)
+            row.append(f"M={m} " + " ".join(
+                f"{r} {t:.6f}" + ("" if how == "profiler" else f" ({how})")
+                for r, (t, how) in times.items()))
+        lines.append(f"quant_matmul routes at (M, {k}) x ({k}, {n}), device "
+                     f"ms (profiler unless marked; weights from device "
+                     f"memory): " + ", ".join(row)
+                     + f"; the plan's threshold DECODE_MAX_M = "
+                     f"{qm.DECODE_MAX_M}")
+    return lines
+
+
+def qm_host_us(torch, qm, dev, cfg, rt, params) -> str:
+    """The wrapper's host time per call at the decode shape: 1,000 calls
+    without a sync (the card keeps up), against its bare launch."""
+    from repro_torch.kernels.ref import amm_scale
+    w = params["layers"]["mlp"]["w_gate"][0]
+    x = torch.randn((8, cfg.d_model), device=dev)
+    sx, sw = amm_scale(x, 16), amm_scale(w, 16)
+    out = torch.empty((8, cfg.d_ff), device=dev)
+    plan = qm.quant_matmul_plan(8, cfg.d_model, cfg.d_ff, 512)
+    calls = {
+        "wrapper": lambda: qm.quant_matmul(x, w, sx, sw, rt.amm.mu,
+                                           rt.amm.sigma, wl=16, seed=7),
+        "bare launch": lambda: qm._launch(
+            x, w, sx, sw, out, rt.amm.mu, rt.amm.sigma, wl=16, seed=7,
+            bm=8, bk=512, bn=128, plan=plan)}
+    got = {}
+    for name, fn in calls.items():
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        got[name] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    return (f"quant_matmul host time at (8, {cfg.d_model}) x ({cfg.d_model}, "
+            f"{cfg.d_ff}), 1,000 calls without a sync: wrapper "
+            f"{got['wrapper']:.3f} us per call, its bare ctypes launch "
+            f"{got['bare launch']:.3f} us")
+
+
 def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
-    """quant_matmul at the main path's shapes, and a profiled decode
-    window; returns (kernel entry fields, printed lines)."""
+    """quant_matmul at the main path's shapes, both routes around the
+    threshold, the wrapper's host time, and a profiled decode window
+    with its host-side account; returns (kernel rows, printed lines, the
+    window's idle share)."""
     from repro_torch.serve import Request, Scheduler
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
@@ -582,7 +873,7 @@ def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
         def library():
             return x @ operands()[1]
         reps = 2 * len(ws)
-        dev_ms = kernel_device_ms(torch, run, reps, QM_KERNELS)
+        dev_ms, how = launch_ms(torch, run, reps, QM_KERNELS)
         call_ms = cuda_ms(torch, run, reps)
         plain_ms = cuda_ms(torch, plain, 5)
         lib_ms = cuda_ms(torch, library, reps)
@@ -592,15 +883,31 @@ def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
         err = float((got.double() - plain().double()).abs().max())
         bound, by = qm_bound_ms(m, k, n)
         rows.append((m, k, n, dev_ms, call_ms, plain_ms, bound, by, err,
-                     lib_ms))
-        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
+                     lib_ms, how))
+        route = qm.quant_matmul_plan(m, k, n, 512).route
+        dev_txt = f"{dev_ms:.6f} ms"
         lines.append(
-            f"quant_matmul at ({m}, {k}) x ({k}, {n}), weights from device "
-            f"memory: kernel {dev_txt} on the device (profiler, both "
-            f"launches), wrapper call {call_ms:.6f} ms (CUDA events), plain "
-            f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}), max abs error "
-            f"vs plain {err}; yardstick f32 torch.matmul {lib_ms:.6f} ms")
-    # a profiled window of 5 pure decode steps with 8 residents
+            f"quant_matmul at ({m}, {k}) x ({k}, {n}), {route} route, "
+            f"weights from device memory: kernel {dev_txt} on the device "
+            f"({how}, mean of the launches, one a call), wrapper call "
+            f"{call_ms:.6f} ms "
+            f"(CUDA events), plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
+            f"({by}), max abs error vs plain {err}; yardstick f32 "
+            f"torch.matmul {lib_ms:.6f} ms")
+        ms = dev_ms
+        before = QM_BEFORE_MS[(m, k, n)]
+        lines.append(
+            f"quant_matmul redesigned: {ms:.6f} ms against {before:.6f} ms "
+            f"before the redesign at ({m}, {k}) x ({k}, {n}) (before / now "
+            f"{before / ms:.2f}; before: PERF.md's kernel table, an NVIDIA "
+            f"H100 80GB HBM3 at 700.00 W), bound {bound:.6f} ms ({by}; "
+            f"bound / time {bound / ms:.4f}), the f32 torch.matmul "
+            f"yardstick {lib_ms:.6f} ms (now / yardstick "
+            f"{ms / lib_ms:.3f})")
+    lines += qm_route_times(torch, qm, dev, rt, params)
+    lines.append(qm_host_us(torch, qm, dev, cfg, rt, params))
+    # a profiled window of 5 pure decode steps with 8 residents, then 2
+    # more with the host's operations traced too
     sched = Scheduler(cfg, rt, params, 8, 512, continuous=True, device=dev)
     rng = np.random.default_rng(6)
     for i in range(8):
@@ -616,7 +923,7 @@ def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
             sched.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, qm_us, launches, by_kernel = 0.0, 0.0, 0, []
+    busy_us, qm_us, qm_n, launches, by_kernel = 0.0, 0.0, 0, 0, []
     for ev in prof.key_averages():
         t = getattr(ev, "self_device_time_total", None)
         t = t if t is not None else ev.self_cuda_time_total
@@ -627,17 +934,41 @@ def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
         by_kernel.append((t, ev.count, ev.key))
         if any(q in ev.key for q in QM_KERNELS):
             qm_us += t
-    if sched.stats["prefills"] != 8:
-        fail("the profiled window admitted a prefill")
+            qm_n += ev.count
     idle = 1.0 - busy_us / 1e3 / wall_ms
     lines.append(
         f"decode window (5 steps, 8 residents, profiled): {wall_ms / 5:.3f} "
         f"ms per step, device busy {busy_us / 5e3:.3f} ms per step "
-        f"(quant_matmul {qm_us / 5e3:.3f} ms), idle share {idle:.4f}, "
-        f"{launches / 5:.0f} device operations per step")
+        f"(quant_matmul {qm_us / 5e3:.3f} ms in {qm_n / 5:.0f} launches), "
+        f"idle share {idle:.4f}, {launches / 5:.0f} device operations per "
+        f"step")
     for t, count, key in sorted(by_kernel, reverse=True)[:10]:
         lines.append(f"  decode step device time: {t / 5e3:.4f} ms in "
                      f"{count / 5:.0f} launches of {key[:90]}")
+    steps = 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()
+        torch.cuda.synchronize()
+        host_wall = (time.perf_counter() - t0) * 1e3 / steps
+    if sched.stats["prefills"] != 8:
+        fail("a profiled decode window admitted a prefill")
+    ops = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
+                  for ev in prof.key_averages()
+                  if ev.self_cpu_time_total > 0), reverse=True)
+    in_ops = sum(t for t, _, _ in ops) / 1e3 / steps
+    lines.append(
+        f"decode host account ({steps} steps, host and device profiled): "
+        f"{host_wall:.3f} ms per step with the profiler's own cost, "
+        f"{in_ops:.3f} ms of it inside torch operations (self CPU), "
+        f"{sum(c for _, c, _ in ops) / steps:.0f} host operations per "
+        f"step; the rest is Python between them")
+    for t, count, key in ops[:12]:
+        lines.append(f"  decode step host time: {t / 1e3 / steps:.4f} ms "
+                     f"self CPU in {count / steps:.0f} calls of {key[:70]}")
     return rows, lines, idle
 
 
@@ -1814,13 +2145,22 @@ def main() -> None:
     cfg = lm_config()
     rt = ModelRuntime.build(cfg)
     t0 = time.perf_counter()
-    cases, equal, worst = qm_sweep(torch, qm, amm_scale, dev, rt.amm.mu,
-                                   rt.amm.sigma)
+    cases, equal, worst, edges = qm_sweep(torch, qm, dev, rt.amm.mu,
+                                          rt.amm.sigma)
     print(f"quant_matmul sweep: {cases} cases within the derived bound of "
           f"the plain version, {equal} of them bit-equal (all with exact "
           f"chunk sums and no noise among them), worst error/bound "
-          f"{worst:.3g}; the hash's uniforms bit-equal "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"{worst:.3g}; the hash's uniforms bit-equal; route edges "
+          f"M={QM_EDGE_MS} at (K, N)={QM_EDGE_KN}: {edges['edges']} cases, "
+          f"unaligned x or w views: {edges['unaligned']}, each route "
+          f"forced (bk 512, 100, 32, 32768; 32769 refused): "
+          f"{edges['forced']}, all within "
+          f"the bound; the tiled route bit-equal to quant_matmul_emulated "
+          f"in {edges['tiled_bitwise']} of them; the kernel's quotient "
+          f"bit-equal to __fdiv_rn over every dividend significand for "
+          f"{edges['divisors']} divisors, its codes bit-equal to the CPU's "
+          f"on 2^24 random float32 values at {edges['code_scales']} "
+          f"(scale, wl) pairs ({time.perf_counter() - t0:.1f} s)")
 
     # ---------------------------------------------------- LM main path
     t0 = time.perf_counter()
@@ -1860,17 +2200,16 @@ def main() -> None:
         print(line)
     # the JSON entry: one launch of a decode step on average (gate and up
     # at (8, 896) x (896, 4864), down at (8, 4864) x (4864, 896))
-    (_, _, _, d_gu, c_gu, p_gu, b_gu, by, _, _), \
-        (_, _, _, d_dn, c_dn, p_dn, b_dn, _, _, _) = rows[0], rows[1]
+    (_, _, _, d_gu, _, p_gu, b_gu, by, _, _, how_gu), \
+        (_, _, _, d_dn, _, p_dn, b_dn, _, _, _, how_dn) = rows[0], rows[1]
     mix = lambda a, b: (2 * a + b) / 3  # noqa: E731
     kernels.append({
         "name": "quant_matmul", "route": "cuda", "source": QM_SOURCE,
         "replaces": REPLACES["quant_matmul"], "launches": res["launches"],
-        "max_abs_err": res["capture_err"],
-        "ms": mix(c_gu, c_dn) if d_gu is None or d_dn is None
-        else mix(d_gu, d_dn),
+        "max_abs_err": res["capture_err"], "ms": mix(d_gu, d_dn),
         "plain_ms": mix(p_gu, p_dn), "bound_ms": mix(b_gu, b_dn),
-        "bound_by": by, "library_ms": None})
+        "bound_by": by, "library_ms": None,
+        "timed_by": how_gu if how_gu == how_dn else f"{how_gu}, {how_dn}"})
 
     # ------------------------------------------------------------ training
     tb, tf = train_modules()

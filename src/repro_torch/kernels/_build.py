@@ -46,8 +46,11 @@ _SIGNATURES = {
         "fir_bank_error_string": ([_I], ctypes.c_char_p),
     },
     "quant_matmul": {
-        "quant_matmul_launch": ([_P] * 6 + [_I] * 7 + [_U, _F, _F, _P], _I),
+        "quant_matmul_launch": ([_P] * 5 + [_I] * 7 + [_U, _F, _F]
+                                + [_I] * 4 + [_P], _I),
         "qm_hash_words_launch": ([_P, _P] + [_I] * 4 + [_U, _P], _I),
+        "qm_quotient_check_launch": ([_P, _I, _P, _P], _I),
+        "qm_codes_launch": ([_P, _P, _P, ctypes.c_longlong, _I, _P], _I),
         "quant_matmul_error_string": ([_I], ctypes.c_char_p),
     },
     "bbm_dot": {

@@ -19,6 +19,13 @@ plain PyTorch.  The wrapper ``quant_matmul`` runs the plain version for
 CPU tensors only; for CUDA tensors it launches the kernel or raises, and
 counts its launches in ``quant_matmul.launches``.
 
+The kernel takes one of two routes, both one launch, by
+``quant_matmul_plan``: the decode route (M up to ``DECODE_MAX_M``) streams
+w once through a thread-block cluster that splits K into slabs inside the
+K chunks, and the tiled route (prefill) runs an exact int8 tensor-core
+product over byte-split codes.  ``quant_matmul_emulated`` sums in the
+plan's order in plain PyTorch.
+
 Where the port differs from the reference on purpose: the K tail past K
 counts as zero.  The Pallas kernel reads an unmasked last K block
 (``bk = min(512, K)`` does not divide K = 896 or 4864), which gives NaN
@@ -27,16 +34,21 @@ in interpret mode; the port computes ``quant_matmul_ref``'s function
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..device import pin_fp32
 
-__all__ = ["hash_normal", "hash_words", "hash_words_plain",
-           "noise_scalars", "quant_matmul", "quant_matmul_plain",
-           "quant_matmul_tolerance"]
+__all__ = ["DECODE_MAX_M", "MAX_CHUNK", "QuantMatmulPlan", "hash_normal", "hash_words",
+           "hash_words_plain", "noise_scalars", "quant_codes",
+           "quant_matmul", "quant_matmul_emulated", "quant_matmul_plain",
+           "quant_matmul_plan", "quant_matmul_tolerance",
+           "quotient_mismatches"]
 
 _M32 = 0xFFFFFFFF
 _U = 2.0 ** -24            # unit roundoff of float32
@@ -109,6 +121,7 @@ def hash_normal(shape, seed: int, salt: int, device="cpu") -> torch.Tensor:
                                             device=device)))
 
 
+@functools.lru_cache(maxsize=1024)
 def noise_scalars(mu: float, sigma: float, k: int) -> tuple:
     """(mu_k, sig_k) as float32, rounded as the reference rounds them:
     ``mu * K`` is a Python (double) product cast to f32 once, and
@@ -193,8 +206,171 @@ def quant_matmul_tolerance(x, w, s_x, s_w, mu: float, sigma: float, *,
     return (acc_err + noise_err + round_err) * (float(s_x) * float(s_w))
 
 
+# --------------------------------------------------------------- the plan
+SMS = 132                  # streaming multiprocessors of an H100 SXM
+DECODE_MAX_M = 64          # rows up to which the decode route runs:
+                           # faster than the tiled one at both of
+                           # qwen2-0.5b's MLP shapes through 64 rows,
+                           # slower at 128 (chip_smoke.py's route lines)
+SMEM_LIMIT = 220 * 1024    # dynamic shared memory a block may take
+DECODE_SMEM = 200 * 1024   # the decode route's budget of it
+DECODE_RING = 4 * 4 * 256 * 4   # its cp.async ring of w, floats
+TILE = (128, 64, 64)       # the tiled route's block tile (M, N, K)
+MAX_CHUNK = 32768          # the longest K chunk: rows the tiled route's
+                           # int32 sums hold exactly
+TILED_BASE = (4 * (2 * TILE[0] * (TILE[2] + 4) + 2 * TILE[2] * (TILE[1] + 4))
+              + 2 * (TILE[0] + TILE[1]) * (TILE[2] + 16)
+              + 4 * (TILE[0] + TILE[1]))
+
+
+class QuantMatmulPlan(NamedTuple):
+    """One launch of the kernel: its route, grid and cluster, and its
+    K slabs.
+
+    ``slabs`` lists ``(k0, k1, chunk, rank)``: the rows ``[k0, k1)``,
+    inside K chunk ``chunk``, that rank ``rank`` of a cluster sums into
+    one partial (decode: a rank holds ``rows`` rows, cut at the chunk
+    boundaries; tiled: one 64-row stage of a rank's whole chunks).
+    """
+    route: str          # "decode" or "tiled"
+    grid: tuple         # (x, y, z) blocks
+    cluster: int        # blocks per cluster: the ranks splitting K
+    tn: int             # output columns per block
+    rows: int           # K rows per rank (decode); K (tiled)
+    mr: int             # output rows per block
+    slabs: tuple
+    smem: int           # dynamic shared memory a block, bytes
+
+
+def _row_group(m: int) -> int:
+    return next(r for r in (1, 2, 4, 8, 16) if r >= min(m, 16))
+
+
+@functools.lru_cache(maxsize=4096)
+def quant_matmul_plan(m: int, k: int, n: int, bk: int = 512,
+                      max_decode_m: int = DECODE_MAX_M) -> QuantMatmulPlan:
+    """The launch plan of ``quant_matmul`` at (m, k) x (k, n) with K
+    chunks of ``min(bk, k)``; ``csrc/quant_matmul.cu`` forms the same
+    slabs from (route, cluster, tn, rows).
+
+    Decode (m <= ``max_decode_m`` and the slabs fit in shared memory):
+    up to 8 ranks a cluster, each at least 64 rows (a multiple of 8) of
+    K, each rank's rows cut at the chunk boundaries; row groups of 1, 2,
+    4, 8 or 16; the tile width (32, 64 or 128 columns) and rank count
+    with the fewest waves of blocks, then the most blocks in them (one
+    block an SM streams at about the memory's share of an SM, and each
+    block has a fixed cost), then the wider tile.  Tiled: 128 x 64
+    output tiles, each chunk in 64-row stages, whole chunks split over
+    up to 8 ranks where that shortens the longest rank's stages times
+    the waves.
+    """
+    if min(m, k, n, bk) < 1:
+        raise ValueError(f"quant_matmul_plan needs positive sizes, got "
+                         f"{(m, k, n, bk)}")
+    bk = min(bk, k)
+    if bk > MAX_CHUNK:
+        raise ValueError(f"K chunks of {bk} rows exceed the kernel's "
+                         f"{MAX_CHUNK}")
+    chunks = -(-k // bk)
+    if m <= max_decode_m:
+        mr = _row_group(m)
+        groups = -(-m // mr)
+
+        def layout(tn, r):
+            rows = -(-(-(-k // r)) // 8) * 8
+            ranks = -(-k // rows)
+            blocks = -(-n // tn) * ranks * groups
+            waves = -(-blocks // SMS)
+            per_rank = min(chunks, (rows - 1) // bk + 2)
+            smem = 4 * (DECODE_RING + rows * mr + 8 * mr * tn
+                        + (ranks * per_rank + 1) * -(-(mr * tn) // ranks))
+            return (-waves, blocks / (waves * SMS), tn), ranks, rows, smem
+        fits = [layout(tn, r) for tn in (32, 64, 128)
+                for r in range(1, min(8, -(-k // 64)) + 1)]
+        fits = [f for f in fits if f[3] <= DECODE_SMEM]
+        if fits:
+            (_, _, tn), ranks, rows, smem = max(fits)   # fewest waves, ...
+            slabs = []
+            for r in range(ranks):
+                lo, hi = r * rows, min((r + 1) * rows, k)
+                while lo < hi:
+                    c = lo // bk
+                    end = min(hi, (c + 1) * bk)
+                    slabs.append((lo, end, c, r))
+                    lo = end
+            return QuantMatmulPlan("decode", (ranks, -(-n // tn), groups),
+                                   ranks, tn, rows, mr, tuple(slabs), smem)
+    tm, tn, tk = TILE
+    tiles = -(-n // tn) * -(-m // tm)
+    stages = [-(-(min((c + 1) * bk, k) - c * bk) // tk) for c in range(chunks)]
+
+    def split(r):
+        """The chunks [c0, c1) of each of r ranks."""
+        return [(q * chunks // r, (q + 1) * chunks // r) for q in range(r)]
+
+    def cost(r):
+        """Waves of one block an SM, times the longest rank's stages."""
+        return -(-tiles * r // SMS) * max(sum(stages[a:b]) for a, b in split(r))
+    ranks = min((r for r in range(1, min(8, chunks) + 1)
+                 if r == 1 or _tiled_smem(chunks, r) <= SMEM_LIMIT),
+                key=lambda r: (cost(r), r))
+    slabs = tuple((k0, min(k0 + tk, c * bk + bk, k), c, q)
+                  for q, (a, b) in enumerate(split(ranks))
+                  for c in range(a, b)
+                  for k0 in range(c * bk, min(c * bk + bk, k), tk))
+    return QuantMatmulPlan("tiled", (ranks, -(-n // tn), -(-m // tm)), ranks,
+                           tn, k, tm, slabs, _tiled_smem(chunks, ranks))
+
+
+def _tiled_smem(chunks: int, ranks: int) -> int:
+    """The tiled route's shared memory a block (``tiled_smem``)."""
+    tm, tn, _ = TILE
+    inbox = chunks * -(-(tm * tn) // ranks) if ranks > 1 else 0
+    return TILED_BASE + 4 * inbox
+
+
+def quant_matmul_emulated(x, w, s_x, s_w, mu: float, sigma: float, *,
+                          wl: int, seed: int, bm: int = 128, bk: int = 512,
+                          bn: int = 128, plan=None) -> torch.Tensor:
+    """``quant_matmul`` summed in the kernel's order, in plain PyTorch.
+
+    Each slab of ``plan`` (default: ``quant_matmul_plan``'s) gives one
+    partial; a chunk's partial adds its slabs in the plan's order; the
+    chunk partials are added to the accumulator in K order.  Decode
+    slabs are f32 products (the kernel's order inside a slab differs);
+    tiled slabs are exact integer sums (float64 holds them: |sum| <
+    2^45), rounded to f32 once per chunk, as the kernel does.
+    """
+    m, k = x.shape
+    n = w.shape[1]
+    bm, bk, bn = _tiles(m, k, n, bm, bk, bn)
+    plan = plan or quant_matmul_plan(m, k, n, bk)
+    xq = _codes(x, s_x, wl)
+    wq = _codes(w, s_w, wl)
+    chunks = -(-k // bk)
+    exact = plan.route == "tiled"
+    if exact:
+        xq, wq = xq.double(), wq.double()
+    parts = [None] * chunks
+    for k0, k1, c, _ in plan.slabs:
+        p = xq[:, k0:k1] @ wq[k0:k1]
+        parts[c] = p if parts[c] is None else parts[c] + p
+    if exact:
+        parts = [p.to(torch.float32) for p in parts]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    for p in parts:
+        acc = acc + p
+    mu_k, sig_k = noise_scalars(mu, sigma, k)
+    z = _box_muller(*hash_words_plain(m, n, seed, bm=bm, bn=bn,
+                                      device=x.device))
+    return (acc + (mu_k + sig_k * z)) * (s_x * s_w)
+
+
 # ------------------------------------------------------------- the wrapper
 def _scalar(s, dev: torch.device) -> torch.Tensor:
+    if isinstance(s, torch.Tensor) and s.dtype == torch.float32 \
+            and s.dim() == 0 and s.device == dev:
+        return s
     t = torch.as_tensor(s, dtype=torch.float32)
     if t.numel() != 1:
         raise ValueError(f"a scale must be one number, got shape "
@@ -218,9 +394,40 @@ def _check(x, w, wl: int, bm: int, bk: int, bn: int) -> None:
         raise ValueError(f"unsupported wl={wl}: the codes need 2..16 bits")
     if min(bm, bk, bn) < 1:
         raise ValueError(f"tile sizes must be positive: {(bm, bk, bn)}")
+    if min(bk, x.shape[1]) > MAX_CHUNK:
+        raise ValueError(f"K chunks of {min(bk, x.shape[1])} rows exceed "
+                         f"the kernel's {MAX_CHUNK}")
     if x.shape[1] >= 2 ** 31 or x.shape[0] * w.shape[1] >= 2 ** 31:
         raise ValueError("quant_matmul dimensions exceed the kernel's "
                          "int32 indexing")
+
+
+_ROUTES = {"decode": 0, "tiled": 1}
+
+
+def _launch(x, w, sx, sw, out, mu: float, sigma: float, *, wl: int,
+            seed: int, bm: int, bk: int, bn: int,
+            plan: QuantMatmulPlan) -> None:
+    """One launch of the kernel on CUDA operands the wrapper checked,
+    with ``bm, bk, bn`` already cut to the shape; raises on a launch
+    error."""
+    m, k = x.shape
+    mu_k, sig_k = noise_scalars(mu, sigma, k)
+    from ._build import library
+    lib = library("quant_matmul")
+    dev = x.device
+    args = (x.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+            out.data_ptr(), m, k, w.shape[1], wl, bm, bk, bn,
+            seed & 0xFFFFFFFF, mu_k, sig_k, _ROUTES[plan.route],
+            plan.cluster, plan.tn, plan.rows)
+    # the launch goes to the current device: switch only when x is elsewhere
+    with contextlib.nullcontext() if dev.index == torch.cuda.current_device() \
+            else torch.cuda.device(dev):
+        err = lib.quant_matmul_launch(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"quant_matmul failed: CUDA error {err} "
+                           f"({lib.quant_matmul_error_string(err).decode()})")
 
 
 def quant_matmul(x, w, s_x, s_w, mu: float = 0.0, sigma: float = 0.0, *,
@@ -234,7 +441,8 @@ def quant_matmul(x, w, s_x, s_w, mu: float = 0.0, sigma: float = 0.0, *,
     kernel by pointer); mu, sigma: the multiplier's per-product error
     moments in the integer domain; seed: the noise seed (an int32 value,
     as the reference draws it); bm, bk, bn: the reference's logical
-    tiles, which fix the hash's tiling and the K chunking.
+    tiles, which fix the hash's tiling and the K chunking (a chunk of at
+    most ``MAX_CHUNK`` rows).
     """
     _check(x, w, wl, bm, bk, bn)
     pin_fp32()
@@ -250,20 +458,8 @@ def quant_matmul(x, w, s_x, s_w, mu: float = 0.0, sigma: float = 0.0, *,
     if k == 0:
         raise ValueError("quant_matmul needs K >= 1")
     bm, bk, bn = _tiles(m, k, n, bm, bk, bn)
-    partial = torch.empty((-(-k // bk), m, n), dtype=torch.float32,
-                          device=x.device)
-    mu_k, sig_k = noise_scalars(mu, sigma, k)
-    from ._build import library
-    lib = library("quant_matmul")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.quant_matmul_launch(
-            x.data_ptr(), w.data_ptr(), sx.data_ptr(), sw.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), m, k, n, wl, bm, bk, bn,
-            seed & 0xFFFFFFFF, mu_k, sig_k, stream)
-    if err != 0:
-        raise RuntimeError(f"quant_matmul failed: CUDA error {err} "
-                           f"({lib.quant_matmul_error_string(err).decode()})")
+    _launch(x, w, sx, sw, out, mu, sigma, wl=wl, seed=seed, bm=bm, bk=bk,
+            bn=bn, plan=quant_matmul_plan(m, k, n, bk))
     quant_matmul.launches += 1
     if quant_matmul.capture is not None:
         quant_matmul.capture.append(dict(
@@ -301,3 +497,47 @@ def hash_words(m: int, n: int, seed: int, *, bm: int, bn: int,
     if err != 0:
         raise RuntimeError(f"qm_hash_words failed: CUDA error {err}")
     return tuple(t.to(torch.int64) & _M32 for t in (w1, w2))
+
+
+def quant_codes(v: torch.Tensor, s, wl: int) -> torch.Tensor:
+    """``clip(rint(v / s), -2^(wl-1), 2^(wl-1) - 1)`` as float32.
+
+    On a CUDA tensor the kernel's own quantizer computes it
+    (``qm_codes_launch``: the exact quotient without a division per
+    element), so a comparison with the CPU's true division checks the
+    kernel's codes bit for bit; on the CPU this is the plain version.
+    """
+    v = v.to(torch.float32).contiguous()
+    s = _scalar(s, v.device)
+    if not v.is_cuda:
+        return _codes(v, s, wl)
+    from ._build import library
+    lib = library("quant_matmul")
+    out = torch.empty_like(v)
+    with torch.cuda.device(v.device):
+        stream = torch.cuda.current_stream(v.device).cuda_stream
+        err = lib.qm_codes_launch(v.data_ptr(), s.data_ptr(), out.data_ptr(),
+                                  v.numel(), wl, stream)
+    if err != 0:
+        raise RuntimeError(f"qm_codes failed: CUDA error {err}")
+    return out
+
+
+def quotient_mismatches(s: torch.Tensor) -> int:
+    """For each divisor in ``s`` (a CUDA float32 tensor of values in
+    [2^-38, 2^38]), over every dividend significand in [1, 2) and its
+    negative: how many of the kernel's fast quotients differ from the
+    true division (``__fdiv_rn``) bit for bit.  Quotients depend on the
+    operands' significands alone while nothing underflows or overflows,
+    so divisors with distinct significands cover that range."""
+    from ._build import library
+    lib = library("quant_matmul")
+    s = s.to(torch.float32).contiguous()
+    bad = torch.zeros((), dtype=torch.int64, device=s.device)
+    with torch.cuda.device(s.device):
+        stream = torch.cuda.current_stream(s.device).cuda_stream
+        err = lib.qm_quotient_check_launch(s.data_ptr(), s.numel(),
+                                           bad.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"qm_quotient_check failed: CUDA error {err}")
+    return int(bad)

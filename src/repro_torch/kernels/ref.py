@@ -33,10 +33,13 @@ def amm_scale(v, wl: int) -> torch.Tensor:
     tensor on ``v``'s device, ``max|v| * (1/lim)`` floored at 1e-12."""
     lim = 2 ** (wl - 1) - 1
     vf = torch.as_tensor(v).to(torch.float32)
-    # multiply by the reciprocal constant, as the reference writes it
-    # (XLA turns a division by a constant into this multiply inside
-    # compiled programs); the division by the runtime scale stays true
-    return torch.clamp_min(torch.amax(torch.abs(vf)) * (1.0 / lim), 1e-12)
+    # max|v| in one reduction that writes no |v| (the infinity norm: the
+    # same maximum, NaN propagating); then multiply by the reciprocal
+    # constant, as the reference writes it (XLA turns a division by a
+    # constant into this multiply inside compiled programs); the division
+    # by the runtime scale stays true
+    vmax = torch.linalg.vector_norm(vf, ord=float("inf"))
+    return torch.clamp_min(vmax * (1.0 / lim), 1e-12)
 
 
 def amm_quantize(v, wl: int):

@@ -433,6 +433,158 @@ def test_kernel_within_bound_of_plain_version_on_the_card(wl):
     assert torch.equal(w1, p1) and torch.equal(w2, p2)
 
 
+def _qm_operands(m, k, n, wl, seed=0):
+    from repro_torch.kernels.ref import amm_scale
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    w = torch.from_numpy((0.02 * rng.standard_normal((k, n))).astype(
+        np.float32))
+    x, w = x.cuda(), w.cuda()
+    return x, w, amm_scale(x, wl), amm_scale(w, wl)
+
+
+def _unaligned(t):
+    """A contiguous view of t's values 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    off = next(i for i in range(1, 4) if (buf.data_ptr() + 4 * i) % 16)
+    view = buf[off:off + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 7, 8, 9, 64, 65, 256])
+@pytest.mark.parametrize("layout", ["aligned", "unaligned x"])
+def test_quant_matmul_routes_on_the_card(m, layout):
+    """Both routes around the decode threshold (64 rows), N = 130 (the
+    scalar-load variants) and an x view off a 16-byte boundary: bit-equal
+    to the plain version at wl 8 without noise, within the derived bound
+    at wl 16 with noise; one launch counted a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+    assert t_qm.quant_matmul_plan(m, 896, 130).route == \
+        ("decode" if m <= t_qm.DECODE_MAX_M else "tiled")
+    for wl, mu, sigma in ((8, 0.0, 0.0),
+                          (16, -18779.225471496582, 6859.595897768407)):
+        x, w, sx, sw = _qm_operands(m, 896, 130, wl, seed=m)
+        if layout == "unaligned x":
+            x = _unaligned(x)
+        before = t_qm.quant_matmul.launches
+        got = t_qm.quant_matmul(x, w, sx, sw, mu, sigma, wl=wl, seed=3)
+        want = t_qm.quant_matmul_plain(x, w, sx, sw, mu, sigma, wl=wl,
+                                       seed=3, bm=128, bk=512, bn=128)
+        tol = t_qm.quant_matmul_tolerance(x, w, sx, sw, mu, sigma, wl=wl)
+        torch.cuda.synchronize()
+        assert t_qm.quant_matmul.launches == before + 1
+        if wl == 8:
+            assert not tol.any() and torch.equal(got, want)
+        else:
+            assert bool(((got.double() - want.double()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 200])
+def test_quant_matmul_carries_nan_and_inf_on_the_card(m):
+    """A NaN in x spreads over its output row and one in w over its
+    column, as the plain version's NaN codes do (the tiled route keeps
+    them by flags, shared over its ranks at M = 200: integer codes hold
+    no NaN); an infinity clips to the extreme code; every other output
+    within the derived bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+    x, w, sx, sw = _qm_operands(m, 896, 130, 16, seed=4)
+    x[1, 5], x[2, 7], x[3, 600] = float("nan"), float("inf"), -float("inf")
+    w[9, 3], w[700, 100] = float("nan"), float("inf")
+    mu, sigma = -18779.225471496582, 6859.595897768407
+    got = t_qm.quant_matmul(x, w, sx, sw, mu, sigma, wl=16, seed=3)
+    want = t_qm.quant_matmul_plain(x, w, sx, sw, mu, sigma, wl=16, seed=3,
+                                   bm=128, bk=512, bn=128)
+    tol = t_qm.quant_matmul_tolerance(x, w, sx, sw, mu, sigma, wl=16)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert bool(nan[1].all()) and bool(nan[:, 3].all())
+    assert int(nan.sum()) == 130 + m - 1
+    assert torch.equal(torch.isnan(got), nan)
+    err = (got.double() - want.double()).abs()
+    assert bool((err[~nan] <= tol[~nan]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,bk", [(256, 896, 4864, 512),
+                                      (256, 4864, 896, 512),
+                                      (100, 300, 70, 100)])
+def test_tiled_route_is_its_emulation_bit_for_bit_on_the_card(m, k, n, bk):
+    """The int8 tensor-core route forms each chunk partial as the exact
+    sum rounded once: without noise it equals ``quant_matmul_emulated``
+    bit for bit at every word length."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+    plan = t_qm.quant_matmul_plan(m, k, n, bk)
+    assert plan.route == "tiled"       # the route the wrapper takes
+    for wl in (8, 12, 16):
+        x, w, sx, sw = _qm_operands(m, k, n, wl, seed=wl)
+        got = t_qm.quant_matmul(x, w, sx, sw, 0.0, 0.0, wl=wl, seed=3,
+                                bk=bk)
+        want = t_qm.quant_matmul_emulated(x, w, sx, sw, 0.0, 0.0, wl=wl,
+                                          seed=3, bk=bk, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_quantizer_is_the_true_division_on_the_card():
+    """The kernel's quotient (a reciprocal and two exact corrections)
+    equals __fdiv_rn over every dividend significand, and its codes
+    equal the CPU's true division over random float32 bit patterns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+    rng = np.random.default_rng(5)
+    s = (1.0 + rng.random(64)) * np.exp2(rng.integers(-38, 38, 64))
+    assert t_qm.quotient_mismatches(torch.tensor(
+        s, dtype=torch.float32).cuda()) == 0
+    bits = rng.integers(0, 2 ** 32, 1 << 20, dtype=np.uint64).astype(
+        np.uint32)
+    v = torch.from_numpy(bits.view(np.float32).copy())
+    for scale in (2.7e-6, 1.0, 2.0 ** -39, 0.0):
+        st = torch.tensor(scale, dtype=torch.float32)
+        got = t_qm.quant_codes(v.cuda(), st.cuda(), 16).cpu()
+        want = t_qm.quant_codes(v, st, 16)
+        assert torch.equal(torch.nan_to_num(got, nan=0.5),
+                           torch.nan_to_num(want, nan=0.5))
+
+
+@pytest.mark.cuda
+def test_amm_scale_in_one_pass_on_the_card():
+    """The infinity-norm reduction is max|v| on the card too, NaN and
+    infinities included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.kernels.ref import amm_scale
+    rng = np.random.default_rng(2)
+    base = torch.from_numpy(rng.standard_normal((64, 4864)).astype(
+        np.float32)).cuda()
+    for case in ("random", "zeros", "inf", "nan"):
+        v = torch.zeros_like(base) if case == "zeros" else base.clone()
+        if case in ("inf", "nan"):
+            v[7, 99] = float(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            vd = v.to(dtype)
+            want = torch.clamp_min(torch.amax(torch.abs(vd.float()))
+                                   * (1.0 / 32767), 1e-12)
+            got = amm_scale(vd, 16)
+            assert torch.equal(got, want) or (
+                case == "nan" and bool(torch.isnan(got)) and bool(
+                    torch.isnan(want)))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("wl,vbl,kind", [(8, 5, 1), (12, 7, 0), (16, 13, 0),
                                          (16, 13, 1), (16, 0, 0)])
