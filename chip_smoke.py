@@ -63,9 +63,13 @@ of the JAX package.  Phases, each of which fails the run:
      per step, and from a second window with the host traced too, the
      host's time per step by operation;
  10. training sweeps: ``bbm_dot_scaled`` bit-equal to its plain version
+     on each route (the int8 tensor cores where the operating point
+     allows them, the CUDA-core tile everywhere, and the rule's own pick)
      over wl in {8, 12, 16}, both kinds, K one below, at and one past
      ``amm_chunk_len``, envelope-edge operands (the plain version on CPU
-     copies where the operating point has no f32 envelope);
+     copies where the operating point has no f32 envelope), and the
+     planes-in ``bbm_dot_planes`` on clean, plane-faulted and
+     accumulator-faulted operands on each route;
      ``flash_attention`` within ``flash_tolerance`` of its plain version
      and ``flash_attention_amm`` held against its plain version by
      ``flash_amm_compare`` (score products bit-equal, P's codes and tile
@@ -83,8 +87,9 @@ of the JAX package.  Phases, each of which fails the run:
      --mul bbm0 --wl 16 --vbl 13 --amm-attn --flash-attn`` through its
      ``main``: full-width qwen2-0.5b (24 layers, random weights), batch
      4 x seq 512 from the data pipeline, AdamW, 3 steps; exactly 72
-     ``bbm_dot_scaled`` and 24 ``flash_attention_amm`` launches per step,
-     none of the other kernels, every loss finite;
+     ``bbm_dot_scaled`` launches per step, all 72 on the tensor-core
+     route, and 24 ``flash_attention_amm``, none of the other kernels,
+     every loss finite;
  12. training T2: ``--amm off --flash-attn``, the same sizes: exactly 24
      ``flash_attention`` launches per step;
  13. the card against the CPU: a 2-layer cut at full width, one sequence
@@ -98,20 +103,28 @@ of the JAX package.  Phases, each of which fails the run:
      ``scaled_dot_product_attention`` on the same f32 operands (a
      yardstick only); each flash kernel beside its time before the
      redesign (quoted from PERF.md's kernel table), with the live tiles
-     it launched against the full grid;
- 15. B1 sweep: ``bbm_matmul_rows`` and ``bbm_matmul_dot`` bit-equal to
-     their plain versions over wl in {8, 12, 16}, vbl in {0, 5, 13, 15}
-     below wl, both kinds, shifts {the minimal safe one (0 where the
-     envelope allows), <= vbl, > vbl}, ragged M, K and N, the most
-     negative codes, and one faulted-plane case per lane;
+     it launched against the full grid; ``bbm_dot_scaled`` on both
+     routes at both MLP shapes (kind 0; kind 1 at the first), against
+     the bound of the contracted dot form's int8 byte products
+     (``dot_scaled_bound_ms``), its time before the redesign, and one
+     ``torch._int_mm`` int8 product at the same (M, K, N) as a yardstick
+     of the card's int8 rate (not the same function, never called by
+     the port);
+ 15. B1 sweep: ``bbm_matmul_rows`` and ``bbm_matmul_dot`` (on each
+     route it can take) bit-equal to their plain versions over wl in {8,
+     12, 16}, vbl in {0, 5, 13, 15} below wl, both kinds, shifts {the
+     minimal safe one (0 where the envelope allows), <= vbl, > vbl},
+     ragged M, K and N, the most negative codes, and one faulted-plane
+     case per lane;
  16. the public matmul API at qwen2-0.5b's MLP shape (2048, 896) x (896,
      4864), WL 16 / VBL 13, both kinds (launch counts zeroed just before,
      read just after): ``ops.bbm_matmul(shift=15)`` must launch
      ``bbm_matmul_rows`` once and ``bbm_matmul_dot`` never (the auto
-     rule), shift 13 ``bbm_matmul_dot``, whose output ``form="rows"``
-     repeats bit for bit, both equal to the plain versions on 64 sampled
-     rows; bbm0 with plane and with accumulator flips at p = 1e-3 through
-     ``bbm_matmul_scaled`` (the planes-in ``bbm_dot_planes``) bit-equal to
+     rule), shift 13 ``bbm_matmul_dot`` on the tensor-core route, whose
+     output ``form="rows"`` repeats bit for bit, both equal to the plain
+     versions on 64 sampled rows; bbm0 clean, with plane and with
+     accumulator flips at p = 1e-3 through ``bbm_matmul_scaled`` (the
+     planes-in ``bbm_dot_planes``, on the tensor-core route) bit-equal to
      its plain version;
  17. the fault study of ``benchmarks/robustness.py`` on the card: its
      gate (the faulted datapath bit-equal to ``amm_faulty_ref``, the
@@ -120,7 +133,8 @@ of the JAX package.  Phases, each of which fails the run:
      through ``FilterbankEngine`` at fir30 (8 channels bit-equal to the
      CPU port), and poison ejection on the card's engine;
  18. B1 timing: each new kernel and ``bbm_dot_scaled`` at the full shape
-     against its int32-issue bound and its plain version.
+     against its bound (int8 byte products for the contracted forms,
+     int32 issue for ``bbm_matmul_rows``) and its plain version.
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -156,11 +170,16 @@ REPLACES = {"fir_bank_rows": "src/repro/kernels/fir_kernel.py:106",
             "flash_attention": "src/repro/kernels/flash_attention.py:65",
             "flash_attention_amm":
                 "src/repro/kernels/flash_attention.py:209"}
+MMA_SOURCE = "src/repro_torch/kernels/csrc/bbm_mma.cuh"
 TRAIN_SOURCES = {
-    "bbm_dot_scaled": "src/repro_torch/kernels/csrc/bbm_dot.cu",
+    "bbm_dot_scaled": MMA_SOURCE,
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "flash_attention_amm": "src/repro_torch/kernels/csrc/flash_attention.cu"}
-TRAIN_KERNELS = {"bbm_dot_scaled": ("bbm_dot_kernel",),
+# profiler (demangled) names: the tensor-core route's kernel (and the
+# planes' packing pass), the tile's kernel
+MMA_KERNEL = "bbm_mma::bbm_mma_kernel"
+MMA_PACK = "bbm_pack_triplets_kernel"
+TRAIN_KERNELS = {"bbm_dot_scaled": (MMA_KERNEL, "bbm_dot_kernel"),
                  "flash_attention": ("flash_exact_kernel",),
                  "flash_attention_amm": ("flash_amm_kernel",)}
 QM_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
@@ -205,6 +224,17 @@ def ptxas_kernels(log: str) -> list:
                         int(regs.group(1)),
                         int(spill.group(1)) if spill else 0))
     return out
+
+
+def mma_ptxas(log: str):
+    """(registers, spill store bytes) of the tensor-core kernel in an
+    ``nvcc -Xptxas -v`` log, or None."""
+    for block in log.split("Compiling entry function")[1:]:
+        regs = re.search(r"Used (\d+) registers", block)
+        if "bbm_mma_kernel" in block.splitlines()[0] and regs:
+            spill = re.search(r"(\d+) bytes spill stores", block)
+            return int(regs.group(1)), int(spill.group(1)) if spill else 0
+    return None
 
 
 def ptxas_summary(log: str) -> str:
@@ -979,18 +1009,39 @@ def train_modules():
             importlib.import_module("repro_torch.kernels.flash_attention"))
 
 
-def b2_sweep(torch, tb, dev) -> int:
-    """bbm_dot_scaled == its plain version, bit for bit; returns cases.
-    The plain version runs on the card where the operating point has an
-    f32 envelope, else on CPU copies (torch has no int32 matmul on the
-    card)."""
-    from repro_torch.kernels.booth_rows import (amm_chunk_len,
+def b2_routes(tb, wl: int, vbl: int, shift=None) -> list:
+    """Every route a call at (wl, vbl, shift) can take, and None (the
+    rule's own pick)."""
+    routes = [None, "tile"]
+    if tb._mma_refusal(wl, vbl, shift) is None:
+        routes.append("mma")
+    return routes
+
+
+def routed(tb, name: str, route):
+    """The public wrapper ``name`` for ``route`` None (the rule's pick),
+    else the module's private hook that forces ``route``."""
+    if route is None:
+        return getattr(tb, name)
+    hook = getattr(tb, f"_{name}_on")
+    return lambda *a, **kw: hook(route, *a, **kw)
+
+
+def b2_sweep(torch, tb, dev) -> tuple:
+    """bbm_dot_scaled == its plain version, bit for bit, on each route;
+    then bbm_dot_planes on clean, plane-faulted and accumulator-faulted
+    planes on each route.  The plain version runs on the card where the
+    operating point has an f32 envelope, else on CPU copies (torch has no
+    int32 matmul on the card).  Returns (cases, tensor-core cases)."""
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    from repro_torch.kernels.booth_rows import (amm_chunk_len, booth_precode,
                                                 f32_exact_chunk_len)
     rng = np.random.default_rng(7)
-    cases = 0
+    cases = mma = 0
     for wl, vbl in ((8, 5), (12, 7), (16, 13), (16, 3), (16, 0)):
         c = amm_chunk_len(wl, vbl)
         lim = 1 << (wl - 1)
+        on = dev if f32_exact_chunk_len(wl, vbl) else "cpu"
         for kind in (0, 1):
             for k in sorted({max(1, c - 1), c, c + 1}):
                 m, n = (3, 5) if k > 100_000 else (37, 70)
@@ -999,17 +1050,52 @@ def b2_sweep(torch, tb, dev) -> int:
                 x[0], x[1] = lim - 1, -lim              # envelope edges
                 w[:, 0], w[:, 1] = lim - 1, -lim
                 x, w = (torch.from_numpy(a).to(dev) for a in (x, w))
-                got = tb.bbm_dot_scaled(x, w, wl=wl, vbl=vbl, kind=kind)
-                on = dev if f32_exact_chunk_len(wl, vbl) else "cpu"
                 want = tb.bbm_dot_scaled_plain(x.to(on), w.to(on), wl=wl,
                                                vbl=vbl, kind=kind)
-                torch.cuda.synchronize()
-                if not torch.equal(got.to(on), want):
-                    fail(f"bbm_dot_scaled != plain at wl={wl} vbl={vbl} "
-                         f"kind={kind} K={k}: "
-                         f"{int((got != want).sum())} elements differ")
-                cases += 1
-    return cases
+                for route in b2_routes(tb, wl, vbl):
+                    before = tb.bbm_dot_scaled.mma_launches
+                    got = routed(tb, "bbm_dot_scaled", route)(
+                        x, w, wl=wl, vbl=vbl, kind=kind)
+                    torch.cuda.synchronize()
+                    took = "mma" if tb.bbm_dot_scaled.mma_launches > before \
+                        else "tile"
+                    if took != (route or tb.bbm_dot_route(wl, vbl, kind)):
+                        fail(f"bbm_dot_scaled route {route} at wl={wl} "
+                             f"vbl={vbl} launched the {took} route")
+                    if not torch.equal(got.to(on), want):
+                        fail(f"bbm_dot_scaled ({took} route) != plain at "
+                             f"wl={wl} vbl={vbl} kind={kind} K={k}: "
+                             f"{int((got.to(on) != want).sum())} elements "
+                             f"differ")
+                    cases += 1
+                    mma += took == "mma"
+            # the planes-in entry, one past the chunk where it is short
+            k = min(c + 1, 20_000)
+            x = torch.from_numpy(rng.integers(-lim, lim, (37, k)).astype(
+                np.int32)).to(dev)
+            w = torch.from_numpy(rng.integers(-lim, lim, (k, 70)).astype(
+                np.int32)).to(dev)
+            hm, hn = booth_precode(w, wl)
+            for fault in (None, FaultSpec(target="plane", p=0.05, seed=k),
+                          FaultSpec(target="acc", p=0.05, bit=9, seed=k)):
+                fm, fn = (t.contiguous() for t in apply_plane_faults(
+                    hm, hn, fault, vbl=vbl))
+                acc = fault if fault is not None and fault.target == "acc" \
+                    else None
+                want = tb.bbm_dot_planes_plain(
+                    x.to(on), fm.to(on), fn.to(on), wl=wl, vbl=vbl,
+                    kind=kind, fault=acc)
+                for route in b2_routes(tb, wl, vbl):
+                    got = routed(tb, "bbm_dot_planes", route)(
+                        x, fm, fn, wl=wl, vbl=vbl, kind=kind, fault=acc)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got.to(on), want):
+                        fail(f"bbm_dot_planes (route {route}) != plain at "
+                             f"wl={wl} vbl={vbl} kind={kind} K={k} under "
+                             f"{fault}")
+                    cases += 1
+                    mma += route == "mma"
+    return cases, mma
 
 
 def flash_amm_check(torch, tf, q, k, v, *, kind, causal, what,
@@ -1207,6 +1293,22 @@ T1_FLAGS = ["--amm", "bitexact", "--mul", "bbm0", "--wl", "16", "--vbl",
 T2_FLAGS = ["--amm", "off", "--flash-attn"]
 
 
+class MmaLaunches:
+    """A wrapper's tensor-core launches (``mma_launches``) under the
+    ``launches`` name that ``train_run`` zeroes and reads."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.mma_launches
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.mma_launches = value
+
+
 def train_run(torch, flags, counters) -> dict:
     """One run of the training launcher's ``main`` at full width; the
     launch counts of every kernel per step, the steps' wall times, and a
@@ -1357,14 +1459,65 @@ def train_cpu_check(torch, dev) -> dict:
             "shape": (tuple(x.shape), tuple(w.shape))}
 
 
-def dot_scaled_bound_ms(m: int, k: int, n: int, rows: int) -> tuple:
-    """(bound ms, what bounds it) of one bbm_dot_scaled call: the
-    kernel's int32 instructions per product (one multiply-add for x*bq,
-    and per truncated row a multiply, a shift and an add; kind 0) over
-    the int32 peak, against both code operands read once (int32) and the
-    f32 output written once over 3.35 TB/s."""
-    t_ops = m * k * n * (1 + 3 * rows) / INT32_OPS_PER_S
-    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+def _signed_bytes(bits: int) -> int:
+    """Bytes of a two's-complement value of ``bits`` + 1 bits: one s8,
+    or a u8 and an s8."""
+    return 1 if bits <= 7 else 2
+
+
+def onehot_byte_products(wl: int, vbl: int, kind: int) -> int:
+    """int8 byte products per code product of the contracted dot form as
+    the reference contracts it (``_dot_scaled``): x's bytes against bq's
+    (s8, or u8 + s8) and against each truncated row's digit (one s8),
+    and each row's residue ``(v (x mod 2^m_r) - s) mod 2^m_r``
+    (ceil(m_r / 8) u8 bytes) against one indicator byte per (digit, sign)
+    branch: 4 at kind 0, 5 at kind 1.  56 and 66 at wl 16 / vbl 13."""
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    rows = num_corr_rows(wl, vbl)
+    xb = _signed_bytes(wl - 1)
+    bq = sum(2 << (2 * r - vbl) for r in range(rows, wl // 2))
+    bqb = 1 if bq <= 127 else 2
+    residue = sum(-(-(vbl - 2 * r) // 8) for r in range(rows))
+    return xb * bqb + xb * rows + (5 if kind else 4) * residue
+
+
+def floor_split_byte_products(wl: int, vbl: int, kind: int) -> int:
+    """int8 byte products per code product of the floor-split form the
+    tensor-core kernel contracts (``csrc/bbm_mma.cuh``): x's bytes
+    against bq's, each truncated row's ``x >> m_r`` bytes against d_r
+    and its bit m_r - 1 against ``[d_r = 2] - [d_r = -2]``, then two
+    indicator planes a row at kind 0, one ones plane against ``-sum
+    neg_r`` at kind 1.  34 and 21 at wl 16 / vbl 13."""
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    rows = num_corr_rows(wl, vbl)
+    bq = sum(2 << (2 * r - vbl) for r in range(rows, wl // 2))
+    bqb = 1 if bq <= 127 else 2
+    shifted = sum(_signed_bytes(wl - 1 - (vbl - 2 * r)) for r in range(rows))
+    return (_signed_bytes(wl - 1) * bqb + shifted + rows
+            + (2 * rows if kind == 0 else int(rows > 0)))
+
+
+def dot_byte_products(wl: int, vbl: int, kind: int) -> int:
+    """The fewest int8 byte products per code product among the exact
+    forms of the contracted dot form known here (the reference's one-hot
+    contraction, the kernel's floor split): 34 and 21 at wl 16 / vbl
+    13, the floor split's."""
+    return min(onehot_byte_products(wl, vbl, kind),
+               floor_split_byte_products(wl, vbl, kind))
+
+
+def dot_scaled_bound_ms(m: int, k: int, n: int, wl: int = 16, vbl: int = 13,
+                        kind: int = 0, weight_bytes=None) -> tuple:
+    """(bound ms, what bounds it) of one contracted dot-form call
+    (``bbm_dot_scaled``, ``bbm_dot_planes``, ``bbm_matmul_dot`` at shift
+    <= vbl): its int8 byte products (``dot_byte_products``, 2 operations
+    each) over the int8 tensor-core peak, against the x codes and the
+    weight operand read once (``weight_bytes``, default int32 codes) and
+    the 4-byte output written once over 3.35 TB/s."""
+    t_ops = 2 * dot_byte_products(wl, vbl, kind) * m * k * n \
+        / INT8_OPS_PER_S
+    wb = 4 * k * n if weight_bytes is None else weight_bytes
+    t_bytes = (4 * (m * k + m * n) + wb) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -1405,6 +1558,9 @@ FLASH_BEFORE_MS = {"flash_attention": 0.237485,
                    "flash_attention_amm": 5.544544}
 # the kernels' tiles (csrc/flash_attention.cu): exact 64 x 64, amm 128 x 128
 FLASH_TILES = {"flash_attention": (64, 64), "flash_attention_amm": (128, 128)}
+# bbm_dot_scaled on the CUDA-core tile before the redesign (PERF.md's
+# kernel table, PR 14 call 2, CUDA events)
+B2_BEFORE_MS = {(2048, 896, 4864): 15.095584, (2048, 4864, 896): 17.864314}
 
 
 def flash_raw_ms(torch, q, k, v, reps: int = 50) -> float:
@@ -1443,31 +1599,61 @@ def train_timing(torch, dev, tb, tf) -> tuple:
             np.int32)).to(dev)
         w = torch.from_numpy(rng.integers(-32768, 32768, (k, n)).astype(
             np.int32)).to(dev)
-        run = lambda: tb.bbm_dot_scaled(x, w, wl=16, vbl=13, kind=0)  # noqa
-        plain = lambda: tb.bbm_dot_scaled_plain(  # noqa: E731
-            x, w, wl=16, vbl=13, kind=0)
-        dev_ms = kernel_device_ms(torch, run, 5, TRAIN_KERNELS[
-            "bbm_dot_scaled"])
-        call_ms = cuda_ms(torch, run, 5)
-        plain_ms = cuda_ms(torch, plain, 1)
-        err = float((run() - plain()).abs().max())
-        if err != 0:
-            fail(f"bbm_dot_scaled differs from its plain version at "
-                 f"({m}, {k}) x ({k}, {n})")
-        bound, by = dot_scaled_bound_ms(m, k, n, num_corr_rows(16, 13))
-        ms = call_ms if dev_ms is None else dev_ms
-        b2.append((ms, plain_ms, bound, by, err))
-        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
-        lines.append(f"bbm_dot_scaled at ({m}, {k}) x ({k}, {n}), wl 16 "
-                     f"vbl 13: kernel {dev_txt} on the device (profiler), "
-                     f"wrapper call {call_ms:.6f} ms, plain {plain_ms:.6f} "
-                     f"ms, bound {bound:.6f} ms ({by}), max abs error {err}")
+        # the card's int8 rate on the same (M, K, N): one int8 product
+        # (the second operand column-major, cuBLASLt's int8 layout)
+        a8 = torch.randint(-128, 128, (m, k), dtype=torch.int8, device=dev)
+        b8 = torch.randint(-128, 128, (n, k), dtype=torch.int8,
+                           device=dev).t()
+        int_mm_ms = cuda_ms(torch, lambda: torch._int_mm(a8, b8), 10)
+        for kind in ((0, 1) if k == 896 else (0,)):
+            route = tb.bbm_dot_route(16, 13, kind)
+            run = lambda: tb.bbm_dot_scaled(  # noqa: E731
+                x, w, wl=16, vbl=13, kind=kind)
+            tile = lambda: tb._bbm_dot_scaled_on(  # noqa: E731
+                "tile", x, w, wl=16, vbl=13, kind=kind)
+            plain = lambda: tb.bbm_dot_scaled_plain(  # noqa: E731
+                x, w, wl=16, vbl=13, kind=kind)
+            # one launch a call: the profiler's mean per launch where its
+            # trace holds the bare ctypes launches, else CUDA events
+            ms, how = launch_ms(torch, run, 5, TRAIN_KERNELS[
+                "bbm_dot_scaled"])
+            call_ms = cuda_ms(torch, run, 5)
+            tile_ms = cuda_ms(torch, tile, 2)
+            plain_ms = cuda_ms(torch, plain, 1)
+            want = plain()
+            err = float((run() - want).abs().max())
+            if err != 0 or not torch.equal(tile(), want):
+                fail(f"bbm_dot_scaled differs from its plain version at "
+                     f"({m}, {k}) x ({k}, {n}) kind {kind}")
+            bound, by = dot_scaled_bound_ms(m, k, n, kind=kind)
+            before = B2_BEFORE_MS.get((m, k, n)) if kind == 0 else None
+            if kind == 0:
+                b2.append((ms, plain_ms, bound, by, err, tile_ms, int_mm_ms,
+                           how))
+            lines.append(
+                f"bbm_dot_scaled at ({m}, {k}) x ({k}, {n}), wl 16 vbl 13 "
+                f"kind {kind}, {route} route: kernel {ms:.6f} ms ({how}), "
+                f"wrapper call {call_ms:.6f} ms (events), the CUDA-core "
+                f"tile route {tile_ms:.6f} ms (events, same card)"
+                + ("" if before is None else
+                   f", {before} ms before the redesign (PERF.md's kernel "
+                   f"table, an NVIDIA H100 80GB HBM3 at 700.00 W)")
+                + f", plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; "
+                f"{dot_byte_products(16, 13, kind)} int8 byte products a "
+                f"code product; bound / time {bound / ms:.4g}), max abs "
+                f"error {err}; yardstick torch._int_mm ({m}, {k}) x ({k}, "
+                f"{n}) int8 {int_mm_ms:.6f} ms = "
+                f"{2 * m * k * n / int_mm_ms / 1e9:.6g} TOP/s")
     # a step's mix: gate and up at the first shape, down at the second
     mix = lambda a, b: (2 * a + b) / 3  # noqa: E731
     entries["bbm_dot_scaled"] = dict(
         max_abs_err=max(b2[0][4], b2[1][4]), ms=mix(b2[0][0], b2[1][0]),
         plain_ms=mix(b2[0][1], b2[1][1]), bound_ms=mix(b2[0][2], b2[1][2]),
-        bound_by=b2[0][3], library_ms=None)
+        bound_by=b2[0][3], library_ms=None,
+        tile_route_ms=mix(b2[0][5], b2[1][5]),
+        int_mm_yardstick_ms=mix(b2[0][6], b2[1][6]),
+        timed_by=b2[0][7] if b2[0][7] == b2[1][7]
+        else f"{b2[0][7]}, {b2[1][7]}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     bh = TRAIN_BATCH * 14
@@ -1582,12 +1768,17 @@ B1_SOURCE = "src/repro_torch/kernels/csrc/bbm_matmul.cu"
 B1_REPLACES = {"bbm_matmul_rows": "src/repro/kernels/bbm_matmul.py:400",
                "bbm_matmul_dot": "src/repro/kernels/bbm_matmul.py:161",
                "bbm_dot_planes": "src/repro/kernels/bbm_matmul.py:112"}
-B1_SOURCES = {"bbm_matmul_rows": B1_SOURCE, "bbm_matmul_dot": B1_SOURCE,
-              "bbm_dot_planes": "src/repro_torch/kernels/csrc/bbm_dot.cu"}
+# on the B1 main path bbm_matmul_dot (shift 13) and bbm_dot_planes take
+# the tensor-core route
+B1_SOURCES = {"bbm_matmul_rows": B1_SOURCE, "bbm_matmul_dot": MMA_SOURCE,
+              "bbm_dot_planes": MMA_SOURCE}
+# profiler names, both routes (the planes-in mma route packs first)
 B1_KERNELS = {"bbm_matmul_rows": "bbm_matmul_rows_kernel",
-              "bbm_matmul_dot": "bbm_matmul_dot_kernel",
-              "bbm_dot_planes": "bbm_dot_planes_kernel",
-              "bbm_dot_scaled": "bbm_dot_kernel"}
+              "bbm_matmul_dot": ("bbm_matmul_dot_kernel", MMA_KERNEL,
+                                 MMA_PACK),
+              "bbm_dot_planes": ("bbm_dot_planes_kernel", MMA_KERNEL,
+                                 MMA_PACK),
+              "bbm_dot_scaled": TRAIN_KERNELS["bbm_dot_scaled"]}
 
 
 def b1_check(torch, tb, x, hm, hn, kw, what) -> None:
@@ -1595,8 +1786,10 @@ def b1_check(torch, tb, x, hm, hn, kw, what) -> None:
     (on CPU copies where the operating point has no f32 envelope)."""
     from repro_torch.kernels.booth_rows import f32_exact_chunk_len
     want = tb.bbm_matmul_rows_plain(x, hm, hn, **kw)
-    got = {"bbm_matmul_rows": tb.bbm_matmul_rows(x, hm, hn, **kw),
-           "bbm_matmul_dot": tb.bbm_matmul_dot(x, hm, hn, **kw)}
+    got = {"bbm_matmul_rows": tb.bbm_matmul_rows(x, hm, hn, **kw)}
+    for route in b2_routes(tb, kw["wl"], kw["vbl"], kw["shift"]):
+        got[f"bbm_matmul_dot (route {route})"] = routed(
+            tb, "bbm_matmul_dot", route)(x, hm, hn, **kw)
     on = x.device if f32_exact_chunk_len(kw["wl"], kw["vbl"]) else "cpu"
     got["bbm_matmul_dot_plain"] = tb.bbm_matmul_dot_plain(
         x.to(on), hm.to(on), hn.to(on), **kw)
@@ -1608,9 +1801,10 @@ def b1_check(torch, tb, x, hm, hn, kw, what) -> None:
 
 
 def b1_sweep(torch, tb, dev) -> int:
-    """The B1 kernels against their plain versions over wl, vbl, kind,
-    shift, ragged shapes, the most negative codes and one faulted-plane
-    case per lane; returns the case count."""
+    """The B1 kernels (``bbm_matmul_dot`` on each route it can take)
+    against their plain versions over wl, vbl, kind, shift, ragged
+    shapes, the most negative codes and one faulted-plane case per lane;
+    returns the case count."""
     from repro_torch.core.faults import FaultSpec, apply_plane_faults
     from repro_torch.kernels.booth_rows import booth_precode
     rng = np.random.default_rng(11)
@@ -1680,10 +1874,13 @@ def b1_full_size(torch, tb, ops, dev) -> dict:
             fail(f"ops.bbm_matmul(shift=15) at {B1_SHAPE} launched rows "
                  f"{after[0] - before[0]}, dot {after[1] - before[1]} "
                  f"times: the auto rule must pick the rows kernel once")
+        mma = tb.bbm_matmul_dot.mma_launches
         y13 = ops.bbm_matmul(x, w, shift=13, **kw)
         torch.cuda.synchronize()
-        if tb.bbm_matmul_dot.launches - after[1] != 1:
-            fail("ops.bbm_matmul(shift=13) did not launch bbm_matmul_dot")
+        if tb.bbm_matmul_dot.launches - after[1] != 1 \
+                or tb.bbm_matmul_dot.mma_launches - mma != 1:
+            fail("ops.bbm_matmul(shift=13) did not launch bbm_matmul_dot on "
+                 "the tensor-core route")
         y13r = ops.bbm_matmul(x, w, shift=13, form="rows", **kw)
         if not torch.equal(y13, y13r):
             fail(f"rows and dot forms differ at shift 13 kind={kind}")
@@ -1766,13 +1963,22 @@ def fault_curves(torch, tb, dev) -> dict:
 
 
 def fault_full_size(torch, tb, full) -> None:
-    """bbm0 at the full shape with plane flips and accumulator flips at
-    p = 1e-3: ``bbm_matmul_scaled`` (the planes-in kernel) bit-equal to
-    the plain version on the same planes, and different from the clean
-    sums."""
+    """bbm0 at the full shape, clean, with plane flips and with
+    accumulator flips at p = 1e-3: ``bbm_matmul_scaled`` (the planes-in
+    kernel, on the tensor-core route) bit-equal to the plain version on
+    the same planes, the faulted sums different from the clean ones."""
     from repro_torch.core.faults import FaultSpec, apply_plane_faults
     x, hm, hn = full["x"], full["hm"], full["hn"]
+    mma = tb.bbm_dot_planes.mma_launches
     clean = tb.bbm_matmul_scaled(x, hm, hn, wl=16, vbl=13, kind=0)
+    torch.cuda.synchronize()
+    if tb.bbm_dot_planes.mma_launches - mma != 1:
+        fail("bbm_matmul_scaled at the B1 shape did not launch the "
+             "tensor-core route")
+    if not torch.equal(clean, tb.bbm_dot_planes_plain(x, hm, hn, wl=16,
+                                                      vbl=13, kind=0)):
+        fail(f"the clean datapath at {B1_SHAPE} differs from its plain "
+             f"version")
     for f in (FaultSpec(target="plane", p=1e-3, seed=11),
               FaultSpec(target="acc", p=1e-3, bit=12, seed=11)):
         got = tb.bbm_matmul_scaled(x, hm, hn, wl=16, vbl=13, kind=0,
@@ -1857,15 +2063,14 @@ def poison_gate(dev) -> None:
 
 # int32 operations per product, the fewest any form of the Broken-Booth
 # product needs at (wl, vbl, shift), whichever kernel computes it: the
-# folded dot form's multiply-add for x*bq and, per truncated row, a
-# multiply, a floor shift and an add (1 + 3 R, bbm_dot.cuh), plus a
-# per-product shift and add when shift > vbl (each product floored before
-# the K sum).  ``shift=None``: the f32 chunked entries, which take no
-# shift.  The rows kernel's own loop (select, negate, floor and
-# shift-add for each of the wl/2 Booth rows) needs more; it is not the
-# bound of the function.
-def b1_ops_per_product(rows: int, vbl: int, shift=None) -> int:
-    return 1 + 3 * rows + (2 if shift is not None and shift > vbl else 0)
+# int32 operations per product of a form that floors each product before
+# the K sum (shift > vbl, bbm_matmul_rows): the folded dot form's
+# multiply-add for x*bq and, per truncated row, a multiply, a floor shift
+# and an add (1 + 3 R, bbm_dot.cuh), plus the per-product shift and add.
+# The rows kernel's own loop (select, negate, floor and shift-add for each
+# of the wl/2 Booth rows) needs more; it is not the bound of the function.
+def b1_ops_per_product(rows: int) -> int:
+    return 1 + 3 * rows + 2
 
 
 # each kernel's instantiation at WL 16 / kind 0, by its mangled name
@@ -1906,13 +2111,13 @@ def sass_per_product(lib: Path, kernel: str):
 
 def b1_timing(torch, tb, full) -> tuple:
     """Each new kernel at the full shape (and ``bbm_dot_scaled`` beside
-    them): ms (CUDA events; the profiler where it sees the launches),
-    plain ms, bound; returns (entries, lines)."""
+    them), each on the route its rule takes (the tensor cores but for
+    ``bbm_matmul_rows``): ms (CUDA events; the profiler where it sees the
+    launches), plain ms, bound; returns (entries, lines)."""
     from repro_torch.kernels.booth_rows import num_corr_rows
     m, k, n = B1_SHAPE
     x, w, hm, hn = full["x"], full["w"], full["hm"], full["hn"]
     rows = num_corr_rows(16, 13)
-    shifts = {"bbm_matmul_rows": 15, "bbm_matmul_dot": 13}
     runs = {
         "bbm_matmul_rows": (
             lambda: tb.bbm_matmul_rows(x, hm, hn, wl=16, vbl=13, kind=0,
@@ -1932,9 +2137,15 @@ def b1_timing(torch, tb, full) -> tuple:
             lambda: tb.bbm_dot_scaled(x, w, wl=16, vbl=13, kind=0),
             lambda: tb.bbm_dot_scaled_plain(x, w, wl=16, vbl=13, kind=0)),
     }
+    # kernel launches a call on the routes these calls take (the
+    # planes-in tensor-core calls pack the planes first): a trace that
+    # lost any of their records reads "not measured" and CUDA events stand
+    launches = {"bbm_matmul_rows": 1, "bbm_matmul_dot": 2,
+                "bbm_dot_planes": 2, "bbm_dot_scaled": 1}
     entries, lines = {}, []
     for name, (run, plain) in runs.items():
-        dev_ms = kernel_device_ms(torch, run, 5, B1_KERNELS[name])
+        dev_ms = kernel_device_ms(torch, run, 5, B1_KERNELS[name],
+                                  per_call=launches[name])
         call_ms = cuda_ms(torch, run, 5)
         plain_ms = cuda_ms(torch, plain, 1)
         got, want = run(), plain()
@@ -1942,13 +2153,20 @@ def b1_timing(torch, tb, full) -> tuple:
         err = float((got.double() - want.double()).abs().max())
         if err != 0:
             fail(f"{name} differs from its plain version at {B1_SHAPE}")
-        per_product = b1_ops_per_product(rows, 13, shifts.get(name))
-        ops = m * k * n * per_product
-        nbytes = 4 * (m * k + m * n) + 4 * (
-            k * n if name == "bbm_dot_scaled" else hm.numel() * 2)
-        t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        bound = max(t_ops, t_bytes) * 1e3
-        by = "operations" if t_ops >= t_bytes else "bytes"
+        wbytes = 4 * (k * n if name == "bbm_dot_scaled"
+                      else hm.numel() * 2)
+        if name == "bbm_matmul_rows":
+            # a per-product floor (shift 15 > vbl): no contraction form
+            per_product = b1_ops_per_product(rows)
+            t_ops = m * k * n * per_product / INT32_OPS_PER_S
+            t_bytes = (4 * (m * k + m * n) + wbytes) / HBM_BYTES_PER_S
+            bound = max(t_ops, t_bytes) * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            what = f"{per_product} int32 ops per product"
+        else:
+            bound, by = dot_scaled_bound_ms(m, k, n, weight_bytes=wbytes)
+            what = (f"{dot_byte_products(16, 13, 0)} int8 byte products "
+                    f"per product")
         ms = call_ms if dev_ms is None else dev_ms
         entries[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=None)
@@ -1957,8 +2175,8 @@ def b1_timing(torch, tb, full) -> tuple:
                      f"kernel {dev_txt} on the device (profiler), wrapper "
                      f"call {call_ms:.6f} ms (CUDA events), plain "
                      f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; "
-                     f"{per_product} int32 ops per "
-                     f"product), max abs error {err}")
+                     f"{what}; bound / time {bound / ms:.4g}), max abs "
+                     f"error {err}")
     return entries, lines
 
 
@@ -1995,6 +2213,12 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     for name, log in _build.BUILD_LOGS.items():
         print(f"{name} {ptxas_summary(log)}")
+    mma = {lib: mma_ptxas(_build.BUILD_LOGS.get(lib, ""))
+           for lib in ("bbm_dot", "bbm_matmul")}
+    print("bbm_mma_kernel in each library (registers, spill stores): "
+          + ", ".join(f"{lib} " + ("no report" if r is None else
+                                   f"{r[0]} regs {r[1]} B")
+                      for lib, r in mma.items()))
     flash = ptxas_kernels(_build.BUILD_LOGS.get("flash_attention", ""))
     print("flash_attention per kernel (registers, spill stores): " + (
         ", ".join(f"{k} {r} regs {sp} B" for k, r, sp in flash)
@@ -2214,10 +2438,12 @@ def main() -> None:
     # ------------------------------------------------------------ training
     tb, tf = train_modules()
     t0 = time.perf_counter()
-    b2_cases = b2_sweep(torch, tb, dev)
+    b2_cases, b2_mma = b2_sweep(torch, tb, dev)
     fl_cases, fl_worst, moved = flash_sweep(torch, tf, dev)
-    print(f"training sweeps: bbm_dot_scaled {b2_cases} cases bit-equal to "
-          f"its plain version; flash kernels {fl_cases} cases within their "
+    print(f"training sweeps: bbm_dot_scaled and bbm_dot_planes {b2_cases} "
+          f"cases bit-equal to their plain versions ({b2_mma} on the "
+          f"tensor-core route, the rest on the CUDA-core tile); flash "
+          f"kernels {fl_cases} cases within their "
           f"bounds (worst error/bound: flash_attention "
           f"{fl_worst['flash_attention']:.3g}, flash_attention_amm "
           f"{fl_worst['flash_attention_amm']:.3g}; {moved[0]} of {moved[1]} "
@@ -2231,12 +2457,15 @@ def main() -> None:
               f"controls beyond it: "
               + ", ".join(f"{n} {e!r}" for n, e in ctl.items()))
     counters = {"bbm_dot_scaled": tb.bbm_dot_scaled,
+                "bbm_dot_scaled (tensor cores)":
+                    MmaLaunches(tb.bbm_dot_scaled),
                 "flash_attention": tf.flash_attention,
                 "flash_attention_amm": tf.flash_attention_amm,
                 "quant_matmul": qm.quant_matmul}
     layers = 24
     t1 = train_run(torch, T1_FLAGS, counters)
     check_train_run("T1", t1, {"bbm_dot_scaled": 3 * layers,
+                               "bbm_dot_scaled (tensor cores)": 3 * layers,
                                "flash_attention": 0,
                                "flash_attention_amm": layers,
                                "quant_matmul": 0})
@@ -2244,6 +2473,7 @@ def main() -> None:
                      "--flash-attn)", t1, counters)
     t2 = train_run(torch, T2_FLAGS, counters)
     check_train_run("T2", t2, {"bbm_dot_scaled": 0,
+                               "bbm_dot_scaled (tensor cores)": 0,
                                "flash_attention": layers,
                                "flash_attention_amm": 0, "quant_matmul": 0})
     report_train_run("T2 (amm off, --flash-attn)", t2, counters)
@@ -2312,8 +2542,8 @@ def main() -> None:
     paths = _build.build_all(["bbm_matmul", "bbm_dot"])
     counts = {name: sass_per_product(paths[lib], part)
               for name, (lib, part) in SASS_KERNELS.items()}
-    print("compiled inner loops at wl 16, kind 0 (cuobjdump -sass), "
-          "instructions per product: " + ", ".join(
+    print("the CUDA-core tile routes' compiled inner loops at wl 16, kind "
+          "0 (cuobjdump -sass), instructions per product: " + ", ".join(
               f"{name} " + ("not measured" if c is None else f"{c:.4g}")
               for name, c in counts.items()))
     for name in b1_counters:

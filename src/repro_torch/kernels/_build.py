@@ -57,11 +57,15 @@ _SIGNATURES = {
         "bbm_dot_scaled_launch": ([_P] * 3 + [_I] * 8 + [_P], _I),
         "bbm_dot_planes_launch": ([_P] * 4 + [_F, _I, _P] + [_I] * 8 + [_P],
                                   _I),
+        "bbm_dot_scaled_mma_launch": ([_P] * 3 + [_I] * 7 + [_P], _I),
+        "bbm_dot_planes_mma_launch": ([_P] * 5 + [_F, _I, _P] + [_I] * 7
+                                      + [_P], _I),
         "bbm_dot_error_string": ([_I], ctypes.c_char_p),
     },
     "bbm_matmul": {
         "bbm_matmul_rows_launch": ([_P] * 4 + [_I] * 7 + [_P], _I),
         "bbm_matmul_dot_launch": ([_P] * 4 + [_I] * 8 + [_P], _I),
+        "bbm_matmul_dot_mma_launch": ([_P] * 5 + [_I] * 7 + [_P], _I),
         "bbm_matmul_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {

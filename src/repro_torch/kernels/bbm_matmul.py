@@ -40,6 +40,25 @@ plain PyTorch version beside it:
       each output's flat index, a host-computed key per chunk: no mask
       tensor, which at exact Booth's chunk of 1 would be K*M*N).
 
+``bbm_dot_scaled``, ``bbm_dot_planes`` and ``bbm_matmul_dot`` each have
+two routes on the card, chosen by ``bbm_dot_route`` from (wl, vbl, kind,
+shift) alone: the int8 tensor-core route (``csrc/bbm_mma.cuh``) where
+every K-chunk holds at least one ``MMA_K_STEP`` of products, the operand
+bytes need at most two significances and (for ``bbm_matmul_dot``) shift
+<= vbl; the CUDA-core tile (``csrc/bbm_tile.cuh``) elsewhere.  The
+tensor-core route contracts the floor form of each truncated row,
+
+    sum_{r<R} floor((d_r x - kind neg_r) / 2^m_r)
+      = sum_{r<R} (x >> m_r) d_r + b_r(x) B2_r
+        - (kind 0) nz1_r(x) [d_r = -1] - nz2_r(x) [d_r = -2]
+        - (kind 1) neg_r
+
+(``b_r`` bit m_r - 1 of x; ``nz1_r``, ``nz2_r``: x mod 2^m_r, x mod
+2^(m_r - 1) nonzero; ``B2_r = [d_r = 2] - [d_r = -2]``), so every term
+is a product of an x-side byte and a weight-side byte at one scale: no
+shift, and the chunk partial is the integer ``lo + 256 hi`` of two int32
+sums (``bbm_mma_operands``, ``bbm_dot_mma_emulated``).
+
 Both kernel families read digit planes as well as codes, so faulted
 planes (not the decode of any code) go through them unchanged.  The plain
 versions are the reference's schedules in PyTorch (the dot form's
@@ -47,7 +66,8 @@ one-hot contractions ``_dot_scaled``, the rows form in row blocks, so
 that neither materializes more than ``_ROW_BLOCK`` int32 products at
 once).  A wrapper runs the plain version only for tensors on the CPU; on
 CUDA tensors it launches its kernel or raises, and counts its launches
-in ``<wrapper>.launches``.
+in ``<wrapper>.launches`` (the tensor-core route's share also in
+``<wrapper>.mma_launches``).
 
 torch's CUDA matmul has no int32 route (``torch._int_mm`` takes int8):
 on the card the plain versions take the reference's own exact-f32 route
@@ -70,11 +90,13 @@ from .booth_rows import (amm_chunk_len, bbm_rows_product_precoded,
                          scaled_trunc_rows, signed_digit, split_signed)
 from .ref import amm_quantize
 
-__all__ = ["bbm_dot_planes", "bbm_dot_planes_plain", "bbm_dot_scaled",
+__all__ = ["MMA_K_STEP", "bbm_dot_mma_emulated", "bbm_dot_planes",
+           "bbm_dot_planes_plain", "bbm_dot_route", "bbm_dot_scaled",
            "bbm_dot_scaled_plain", "bbm_matmul", "bbm_matmul_dot",
            "bbm_matmul_dot_plain", "bbm_matmul_dynamic",
            "bbm_matmul_precoded", "bbm_matmul_rows", "bbm_matmul_rows_plain",
-           "bbm_matmul_scaled", "dot_scaled_chunked", "matmul_form"]
+           "bbm_matmul_scaled", "bbm_mma_operands", "dot_scaled_chunked",
+           "matmul_form", "mma_widths"]
 
 # auto-form only: above this many (M, K, N) products the shift > vbl
 # branch of the dot form (a per-product floor, an (M, K, N) temporary in
@@ -244,6 +266,177 @@ def bbm_matmul_dynamic(a, b, *, wl: int, vbl: int, kind: int = 0,
     return (yq * (s_a * s_b)).to(a.dtype)
 
 
+# ------------------------------------------------ the tensor-core route
+# products one k32 int8 tensor-core step (wgmma m64n128k32) contracts per
+# (m, n): the route's K step, the shortest K-chunk it takes
+MMA_K_STEP = 32
+
+# triplet (u_{2r+1}, u_{2r}, u_{2r-1}) of a radix-4 row -> byte of each
+# weight-side plane: the signed digit, B2 = [d = 2] - [d = -2], and the
+# kind-0 indicators -[d = -1], -[d = -2]; a row's sign bit is triplet
+# bit 2.  Planes map (mag, neg) to one triplet of the same digit and sign.
+_TRIPLET_D = (0, 1, 1, 2, -2, -1, -1, 0)
+_TRIPLET_B2 = (0, 0, 0, 1, -1, 0, 0, 0)
+_TRIPLET_NI1 = (0, 0, 0, 0, 0, -1, -1, 0)
+_TRIPLET_NI2 = (0, 0, 0, 0, -1, 0, 0, 0)
+_PLANE_TRIPLET = (0, 1, 3, 3, 7, 5, 4, 4)      # index mag | neg << 2
+
+
+def _byte_count(lo: int, hi: int) -> int:
+    """Bytes of a signed integer in [lo, hi]: one s8, or a u8 low byte
+    under an s8 high byte."""
+    return 1 if -128 <= lo and hi <= 127 else 2
+
+
+def mma_widths(wl: int, vbl: int) -> tuple:
+    """(x bytes, bq bytes, bytes of x >> m_r for each truncated row) of
+    the tensor-core route's operands at (wl, vbl); bq's bytes hold any
+    digits in [-2, 2] (faulted planes too)."""
+    rows = num_corr_rows(wl, vbl)
+    bq = sum(2 << (2 * r - vbl) for r in range(rows, num_pp_rows(wl)))
+    signed = lambda bits: _byte_count(-2 ** bits, 2 ** bits - 1)  # noqa
+    return (signed(wl - 1), _byte_count(-bq, bq),
+            tuple(signed(wl - 1 - (vbl - 2 * r)) for r in range(rows)))
+
+
+def bbm_dot_route(wl: int, vbl: int, kind: int, shift=None) -> str:
+    """The route of a B2 call (``shift=None``) or of ``bbm_matmul_dot`` at
+    ``shift``: "mma" (the int8 tensor cores) where ``amm_chunk_len(wl,
+    vbl) >= MMA_K_STEP``, the x and bq bytes need at most two
+    significances (an int32 pair ``lo + 256 hi``) and shift <= vbl; else
+    "tile" (the CUDA-core tile: chunks of a few products, exact Booth's
+    chunk of 1, the per-product floor of shift > vbl).  A pure function
+    of its arguments; ``kind`` selects no route."""
+    if kind not in (0, 1):
+        raise ValueError(f"kind must be 0 or 1, got {kind}")
+    if _mma_refusal(wl, vbl, shift) is None \
+            and amm_chunk_len(wl, vbl) >= MMA_K_STEP:
+        return "mma"
+    return "tile"
+
+
+def _mma_refusal(wl: int, vbl: int, shift):
+    """Why the tensor-core route cannot compute the call, or None."""
+    if shift is not None and shift > vbl:
+        return (f"shift={shift} > vbl={vbl} floors each product before "
+                f"the K sum: no contraction form")
+    xb, bqb, _ = mma_widths(wl, vbl)
+    if xb + bqb > 3:
+        return (f"x and bq both take two bytes at wl={wl} vbl={vbl}: their "
+                f"product needs a third significance")
+    return None
+
+
+def _pick_route(name: str, route, wl: int, vbl: int, kind: int,
+                shift=None) -> str:
+    """``route`` (forced by a test's hook, checked) or the rule's."""
+    if route is None:
+        return bbm_dot_route(wl, vbl, kind, shift)
+    if route not in ("mma", "tile"):
+        raise ValueError(f"{name}: unknown route {route!r} (expected "
+                         f"'mma', 'tile' or None)")
+    why = _mma_refusal(wl, vbl, shift) if route == "mma" else None
+    if why is not None:
+        raise ValueError(f"{name}: route 'mma' cannot compute this call: "
+                         f"{why}")
+    return route
+
+
+def _triplets(w=None, wmag=None, wneg=None, *, wl: int):
+    """(wl//2, K, N) int64 row triplets of codes ``w`` or of planes."""
+    if w is not None:
+        u = (w.to(torch.int64) & ((1 << wl) - 1)) << 1
+        return torch.stack([(u >> (2 * r)) & 7
+                            for r in range(num_pp_rows(wl))])
+    table = torch.tensor(_PLANE_TRIPLET, dtype=torch.int64,
+                         device=wmag.device)
+    return table[(wmag.to(torch.int64) & 3) | ((wneg.to(torch.int64) & 1)
+                                               << 2)]
+
+
+def _split(v, nbytes: int):
+    """[(byte, significance)] of int64 ``v``: one s8, or u8 low + s8
+    high."""
+    return [(v, 0)] if nbytes == 1 else [(v & 255, 0), (v >> 8, 1)]
+
+
+def bbm_mma_operands(x, *, w=None, wmag=None, wneg=None, wl: int,
+                     vbl: int, kind: int):
+    """The tensor-core route's byte operands: a list of (A (M, K), B (K,
+    N), significance) int64 tensors, each A and B a byte (u8 or s8 range)
+    as the kernel forms it, with ``sum_k M(x, w)`` over any K range equal
+    to ``sum (A @ B) * 256^significance`` over the list.  ``w`` codes or
+    (``wmag``, ``wneg``) planes (wl//2, K, N)."""
+    xb, bqb, fbytes = mma_widths(wl, vbl)
+    _, xs = split_signed(x, wl)
+    xs = xs.to(torch.int64)
+    t = _triplets(w, wmag, wneg, wl=wl)
+    look = lambda tab: torch.tensor(tab, dtype=torch.int64,  # noqa: E731
+                                    device=t.device)[t]
+    d, b2 = look(_TRIPLET_D), look(_TRIPLET_B2)
+    rows = num_corr_rows(wl, vbl)
+    bq = sum((d[r] << (2 * r - vbl) for r in range(rows, num_pp_rows(wl))),
+             torch.zeros_like(d[0]))
+    out = [(a, b, sa + sb) for a, sa in _split(xs, xb)
+           for b, sb in _split(bq, bqb)]
+    for r in range(rows):
+        m = vbl - 2 * r
+        out += [(a, d[r], sa) for a, sa in _split(xs >> m, fbytes[r])]
+        out.append(((xs >> (m - 1)) & 1, b2[r], 0))
+        if kind == 0:
+            out.append((((xs & ((1 << m) - 1)) != 0).to(torch.int64),
+                        look(_TRIPLET_NI1)[r], 0))
+            out.append((((xs & ((1 << (m - 1)) - 1)) != 0).to(torch.int64),
+                        look(_TRIPLET_NI2)[r], 0))
+    if kind == 1 and rows:
+        neg = sum(t[r] >> 2 for r in range(rows))
+        out.append((torch.ones_like(xs), -neg, 0))
+    return out
+
+
+def _wrap_i32(v):
+    """int64 -> int32 modulo 2^32 (the kernel's int32 sums wrap)."""
+    return (((v + 2 ** 31) % 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+def bbm_dot_mma_emulated(x, *, w=None, wmag=None, wneg=None, wl: int,
+                         vbl: int, kind: int, shift=None, fault=None):
+    """The tensor-core route's arithmetic in plain PyTorch (CPU): per
+    K-chunk, the two int32 sums ``lo`` and ``hi`` of
+    ``bbm_mma_operands``' byte products (exact in int64 here, modulo 2^32
+    in the kernel), the partial ``lo + 256 hi`` modulo 2^32, then the
+    kernel's epilogue.  ``shift=None``: the chunked f32 datapath of
+    ``bbm_dot_scaled`` / ``bbm_dot_planes`` (``fault``: an accumulator
+    spec, each chunk's partial XORed before its f32 add, the adds in
+    chunk order, scaled by 2^vbl each: exact); an int ``shift`` <= vbl:
+    ``bbm_matmul_dot``'s one int32 sum over K, ``<< (vbl - shift)``."""
+    why = _mma_refusal(wl, vbl, shift)
+    if why is not None:
+        raise ValueError(why)
+    ops = bbm_mma_operands(x, w=w, wmag=wmag, wneg=wneg, wl=wl, vbl=vbl,
+                           kind=kind)
+    k = x.shape[1]
+    if k == 0:
+        n = (w if w is not None else wmag).shape[-1]
+        return torch.zeros((x.shape[0], n), dtype=torch.float32
+                           if shift is None else torch.int32)
+    chunk = amm_chunk_len(wl, vbl) if shift is None else k
+    out = None
+    for ci, lo in enumerate(range(0, k, chunk)):
+        part = [torch.zeros((x.shape[0], ops[0][1].shape[1]),
+                            dtype=torch.int64) for _ in range(2)]
+        for a, b, sig in ops:
+            part[sig] += a[:, lo:lo + chunk] @ b[lo:lo + chunk]
+        p = _wrap_i32(_wrap_i32(part[0]).to(torch.int64)
+                      + 256 * _wrap_i32(part[1]).to(torch.int64))
+        if shift is not None:
+            return _wrap_i32(p.to(torch.int64) << (vbl - shift))
+        p = apply_acc_fault(p, _acc_fault(fault), ci).to(torch.float32)
+        p = p * float(1 << vbl)
+        out = p if out is None else out + p
+    return out
+
+
 # ----------------------------------------------------------- kernel B2
 def bbm_dot_scaled_plain(x, w, *, wl: int, vbl: int, kind: int):
     """Plain version of the kernel: decode ``w``'s digit planes and run
@@ -285,9 +478,19 @@ def bbm_dot_scaled(x, w, *, wl: int, vbl: int, kind: int) -> torch.Tensor:
     x: (M, K) and w: (K, N) contiguous int32 wl-bit codes (either view:
     the low wl bits are read, signed) on one device; ``w`` is the Booth
     multiplier operand.  Bit-identical to ``bbm_matmul_scaled`` on
-    ``w``'s digit planes.
+    ``w``'s digit planes.  On the card the launch takes
+    ``bbm_dot_route``'s route.
     """
+    return _bbm_dot_scaled_on(None, x, w, wl=wl, vbl=vbl, kind=kind)
+
+
+def _bbm_dot_scaled_on(route, x, w, *, wl: int, vbl: int,
+                       kind: int) -> torch.Tensor:
+    """``bbm_dot_scaled`` on ``route`` ("mma" or "tile", checked: one
+    that cannot compute the call raises; None: the rule's), the hook
+    through which the tests and ``chip_smoke.py`` force a route."""
     _check(x, w, wl, vbl, kind)
+    route = _pick_route("bbm_dot_scaled", route, wl, vbl, kind)
     if not x.is_cuda:
         return bbm_dot_scaled_plain(x, w, wl=wl, vbl=vbl, kind=kind)
     m, k = x.shape
@@ -301,17 +504,25 @@ def bbm_dot_scaled(x, w, *, wl: int, vbl: int, kind: int) -> torch.Tensor:
     lib = library("bbm_dot")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bbm_dot_scaled_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, wl, vbl,
-            kind, num_corr_rows(wl, vbl), amm_chunk_len(wl, vbl), stream)
+        if route == "mma":
+            err = lib.bbm_dot_scaled_mma_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, wl,
+                vbl, kind, amm_chunk_len(wl, vbl), stream)
+        else:
+            err = lib.bbm_dot_scaled_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, n, wl,
+                vbl, kind, num_corr_rows(wl, vbl), amm_chunk_len(wl, vbl),
+                stream)
     if err != 0:
         raise RuntimeError(f"bbm_dot_scaled failed: CUDA error {err} "
                            f"({lib.bbm_dot_error_string(err).decode()})")
     bbm_dot_scaled.launches += 1
+    bbm_dot_scaled.mma_launches += route == "mma"
     return out
 
 
 bbm_dot_scaled.launches = 0
+bbm_dot_scaled.mma_launches = 0      # the tensor-core route's share
 
 
 
@@ -346,12 +557,21 @@ def bbm_dot_planes(x, wmag, wneg, *, wl: int, vbl: int, kind: int,
 
     x: (M, K) contiguous int32 codes; wmag/wneg: (wl//2, K, N) contiguous
     int32 planes in the decode domain (faulted ones too), on one device.
-    Bit-identical to ``bbm_matmul_scaled`` on the same planes.
+    Bit-identical to ``bbm_matmul_scaled`` on the same planes.  On the
+    card the launch takes ``bbm_dot_route``'s route.
     """
+    return _bbm_dot_planes_on(None, x, wmag, wneg, wl=wl, vbl=vbl,
+                              kind=kind, fault=fault)
+
+
+def _bbm_dot_planes_on(route, x, wmag, wneg, *, wl: int, vbl: int,
+                       kind: int, fault: FaultSpec | None = None):
+    """``bbm_dot_planes`` on ``route``, as ``_bbm_dot_scaled_on``."""
     _check_operands("bbm_dot_planes", x, wmag, wneg, wl=wl, vbl=vbl,
                     kind=kind, shift=None)
     if vbl >= wl:
         raise ValueError(f"vbl={vbl} outside [0, wl)")
+    route = _pick_route("bbm_dot_planes", route, wl, vbl, kind)
     acc_fault = _acc_fault(fault)
     if not x.is_cuda:
         return bbm_dot_planes_plain(x, wmag, wneg, wl=wl, vbl=vbl,
@@ -372,19 +592,28 @@ def bbm_dot_planes(x, wmag, wneg, *, wl: int, vbl: int, kind: int,
     lib = library("bbm_dot")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.bbm_dot_planes_launch(
-            x.data_ptr(), wmag.data_ptr(), wneg.data_ptr(),
-            None if keys is None else keys.data_ptr(), p, bit,
-            out.data_ptr(), m, k, n, wl, vbl, kind, num_corr_rows(wl, vbl),
-            chunk, stream)
+        kptr = None if keys is None else keys.data_ptr()
+        if route == "mma":
+            words = torch.empty((k, n), dtype=torch.int32, device=x.device)
+            err = lib.bbm_dot_planes_mma_launch(
+                x.data_ptr(), wmag.data_ptr(), wneg.data_ptr(),
+                words.data_ptr(), kptr, p, bit, out.data_ptr(), m, k, n, wl,
+                vbl, kind, chunk, stream)
+        else:
+            err = lib.bbm_dot_planes_launch(
+                x.data_ptr(), wmag.data_ptr(), wneg.data_ptr(), kptr, p,
+                bit, out.data_ptr(), m, k, n, wl, vbl, kind,
+                num_corr_rows(wl, vbl), chunk, stream)
     if err != 0:
         raise RuntimeError(f"bbm_dot_planes failed: CUDA error {err} "
                            f"({lib.bbm_dot_error_string(err).decode()})")
     bbm_dot_planes.launches += 1
+    bbm_dot_planes.mma_launches += route == "mma"
     return out
 
 
 bbm_dot_planes.launches = 0
+bbm_dot_planes.mma_launches = 0
 
 
 # --------------------------------------------- kernel B1 and its twin
@@ -525,28 +754,44 @@ def bbm_matmul_dot(x, wmag, wneg, *, wl: int, vbl: int, kind: int = 0,
                    shift: int = 0) -> torch.Tensor:
     """Dot-form Broken-Booth matmul, same contract as ``bbm_matmul_rows``.
 
-    CUDA tensors launch the ``bbm_matmul_dot`` kernel; CPU tensors run
+    CUDA tensors launch the ``bbm_matmul_dot`` kernel on
+    ``bbm_dot_route``'s route at ``shift``; CPU tensors run
     ``bbm_matmul_dot_plain``.
     """
+    return _bbm_matmul_dot_on(None, x, wmag, wneg, wl=wl, vbl=vbl,
+                              kind=kind, shift=shift)
+
+
+def _bbm_matmul_dot_on(route, x, wmag, wneg, *, wl: int, vbl: int,
+                       kind: int = 0, shift: int = 0) -> torch.Tensor:
+    """``bbm_matmul_dot`` on ``route``, as ``_bbm_dot_scaled_on``."""
     _check_operands("bbm_matmul_dot", x, wmag, wneg, wl=wl, vbl=vbl,
                     kind=kind, shift=shift)
+    route = _pick_route("bbm_matmul_dot", route, wl, vbl, kind, shift)
     if not x.is_cuda:
         return bbm_matmul_dot_plain(x, wmag, wneg, wl=wl, vbl=vbl,
                                     kind=kind, shift=shift)
+    if route == "mma":
+        return _launch_matmul(bbm_matmul_dot, x, wmag, wneg, wl=wl, vbl=vbl,
+                              kind=kind, shift=shift, mma=True)
     return _launch_matmul(bbm_matmul_dot, x, wmag, wneg, wl=wl, vbl=vbl,
                           kind=kind, shift=shift,
                           extra=(num_corr_rows(wl, vbl),))
 
 
 bbm_matmul_dot.launches = 0
+bbm_matmul_dot.mma_launches = 0
 
 
 def _launch_matmul(wrapper, x, wmag, wneg, *, wl: int, vbl: int,
-                   kind: int, shift: int, extra=()) -> torch.Tensor:
-    """Launch ``wrapper``'s kernel (``<name>_launch`` in the library) and
-    count it in ``wrapper.launches``; an empty output or K = 0 launches
-    nothing and counts nothing."""
-    fn_name = wrapper.__name__ + "_launch"
+                   kind: int, shift: int, extra=(),
+                   mma: bool = False) -> torch.Tensor:
+    """Launch ``wrapper``'s kernel (``<name>_launch`` in the library, or
+    ``<name>_mma_launch`` on the tensor-core route, which takes a (K, N)
+    scratch for the packed planes) and count it in ``wrapper.launches``;
+    an empty output or K = 0 launches nothing and counts nothing
+    (``wrapper.mma_launches`` counts the tensor-core route's share)."""
+    fn_name = wrapper.__name__ + ("_mma_launch" if mma else "_launch")
     m, k = x.shape
     n = wmag.shape[2]
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
@@ -558,13 +803,18 @@ def _launch_matmul(wrapper, x, wmag, wneg, *, wl: int, vbl: int,
     lib = library("bbm_matmul")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, fn_name)(
-            x.data_ptr(), wmag.data_ptr(), wneg.data_ptr(), out.data_ptr(),
-            m, k, n, wl, vbl, kind, shift, *extra, stream)
+        ptrs = (x.data_ptr(), wmag.data_ptr(), wneg.data_ptr())
+        if mma:
+            words = torch.empty((k, n), dtype=torch.int32, device=x.device)
+            ptrs += (words.data_ptr(),)
+        err = getattr(lib, fn_name)(*ptrs, out.data_ptr(), m, k, n, wl,
+                                    vbl, kind, shift, *extra, stream)
     if err != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {err} "
                            f"({lib.bbm_matmul_error_string(err).decode()})")
     wrapper.launches += 1
+    if mma:
+        wrapper.mma_launches += 1
     return out
 
 

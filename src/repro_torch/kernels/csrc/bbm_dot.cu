@@ -13,26 +13,32 @@
 // with M the folded per-product form of bbm_dot.cuh, chunks of amm_chunk_len
 // (wl, vbl) products (each int32 partial exact), f32 adds in chunk order.
 // The reference sums each truncated row over K as a digit dot minus one-hot
-// residue dots; that K-sum equals the sum of the per-product floors, so one
-// pass over the products with integer multiply, shift and add gives the same
-// integers without any one-hot contraction.
+// residue dots; that K-sum equals the sum of the per-product floors, which
+// both routes below form without the residues.
 //
-// Design.  The shared CUDA-core tile of bbm_tile.cuh (64 x 64 outputs per
-// block of 256 threads, K through shared memory 32 at a time, the digits
-// decoded once per block) with its chunked f32 epilogue: each thread keeps
-// an int32 partial and an f32 sum per output, and a counter shared by the
-// block flushes the partials at every chunk boundary.
+// Two routes, chosen per call by the Python rule (bbm_matmul.py:
+// bbm_dot_route) from (wl, vbl) alone:
 //
-// Bound.  Integer issue, not bytes: per product one multiply-add for x*bq
-// and per truncated row a multiply, a shift and an add (kind 1: and a
-// subtract), 22 instructions at wl 16 / vbl 13 (R = 7), against 12 bytes
-// per (m, k) + (k, n) element pair read once.  No tensor cores: the
-// products of 16-bit codes need 30 bits, which no tensor-core type holds
-// exactly beside the truncation (an int8 IMMA route over split codes is
-// later work).
+// Tensor cores (bbm_dot_scaled_mma_launch, bbm_dot_planes_mma_launch):
+// the int8 wgmma kernel of bbm_mma.cuh, which contracts each row's floor
+// as byte products at one scale (34 per code product at wl 16 / vbl 13,
+// kind 0; 21 at kind 1), wherever every chunk holds a 32-deep step and
+// the operand bytes need at most two significances: the bitexact MLP
+// products of training (wl 16 / vbl 13, chunks of 8,191) go here.  Bound:
+// the int8 tensor cores (chip_smoke.py counts the fewest byte products of
+// the exact forms known, this kernel's 34 and 21, at 1,979 TOP/s).
+//
+// CUDA cores (bbm_dot_scaled_launch, bbm_dot_planes_launch): the shared
+// tile of bbm_tile.cuh (64 x 64 outputs per block of 256 threads, K
+// through shared memory 32 at a time, the digits decoded once per block)
+// with its chunked f32 epilogue, one integer multiply, shift and add per
+// truncated row and product.  It serves chunks shorter than a tensor-core
+// step (wl 16 / vbl 3: 7 products; exact Booth: 1) and the points whose
+// x and bq both take two bytes; bound there: int32 issue.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bbm_mma.cuh"
 #include "bbm_tile.cuh"
 
 namespace {
@@ -106,6 +112,32 @@ int bbm_dot_planes_launch(const int* x, const int* wmag, const int* wneg,
   else BBM_DOT_PLANES(0, false);
 #undef BBM_DOT_PLANES
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route of bbm_dot_scaled_launch (same operands; chunk =
+// amm_chunk_len(wl, vbl) >= 32).
+int bbm_dot_scaled_mma_launch(const int* x, const int* w, float* out, int M,
+                              int K, int N, int wl, int vbl, int kind,
+                              int chunk, void* stream) {
+  const bbm_mma::Epilogue epi{out, nullptr, 0.0f,
+                              static_cast<float>(1u << vbl), 0, 0, N, true};
+  return static_cast<int>(bbm_mma::launch(
+      x, w, nullptr, nullptr, nullptr, M, K, N, wl, vbl, kind, chunk, epi,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The tensor-core route of bbm_dot_planes_launch; words: a (K, N) int32
+// scratch the planes are packed into first.
+int bbm_dot_planes_mma_launch(const int* x, const int* wmag,
+                              const int* wneg, int* words, const void* keys,
+                              float p, int bit, float* out, int M, int K,
+                              int N, int wl, int vbl, int kind, int chunk,
+                              void* stream) {
+  const bbm_mma::Epilogue epi{out, static_cast<const uint32_t*>(keys), p,
+                              static_cast<float>(1u << vbl), bit, 0, N, true};
+  return static_cast<int>(bbm_mma::launch(
+      x, nullptr, wmag, wneg, words, M, K, N, wl, vbl, kind, chunk, epi,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* bbm_dot_error_string(int err) {

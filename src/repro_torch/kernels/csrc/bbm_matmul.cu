@@ -30,14 +30,22 @@
 // the envelope K * 2^(2wl-1-shift) < 2^31, which the Python wrappers
 // check, nothing wraps.
 //
-// Bound.  Integer issue, not bytes: a call reads 4 (M K + 2 (wl/2) K N)
-// bytes and writes 4 M N, but does M K N products of wl/2 rows (rows:
-// select, negate, floor, shifted add per row) or of 1 + R multiply-adds
-// (dot).  No tensor cores: a truncated row is not a product any
-// tensor-core type forms.
+// bbm_matmul_dot has a second route (bbm_matmul_dot_mma_launch) where
+// shift <= vbl and the Python rule (bbm_matmul.py: bbm_dot_route) allows
+// it: the planes packed into triplet words, then the int8 tensor-core
+// tile of bbm_mma.cuh, whose one int32 sum over K is shifted << (vbl -
+// shift) (its int32 epilogue); its bound is the int8 tensor cores.
+//
+// Bound of the CUDA-core tile.  Integer issue, not bytes: a call reads
+// 4 (M K + 2 (wl/2) K N) bytes and writes 4 M N, but does M K N products
+// of wl/2 rows (rows: select, negate, floor, shifted add per row) or of
+// 1 + R multiply-adds (dot).  The rows form and the dot form at shift >
+// vbl floor each product before the K sum, which no tensor-core product
+// forms.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bbm_mma.cuh"
 #include "bbm_rows.cuh"
 #include "bbm_tile.cuh"
 
@@ -162,6 +170,19 @@ int bbm_matmul_dot_launch(const int* x, const int* wmag, const int* wneg,
     bbm_matmul_dot_kernel<0><<<grid, kTileThreads, 0, st>>>(
         x, wmag, wneg, out, M, K, N, wl, vbl, R, u, up);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route of bbm_matmul_dot_launch (shift <= vbl); words:
+// a (K, N) int32 scratch the planes are packed into first.
+int bbm_matmul_dot_mma_launch(const int* x, const int* wmag,
+                              const int* wneg, int* words, int* out, int M,
+                              int K, int N, int wl, int vbl, int kind,
+                              int shift, void* stream) {
+  const bbm_mma::Epilogue epi{out, nullptr, 0.0f, 0.0f, 0, vbl - shift, N,
+                              false};
+  return static_cast<int>(bbm_mma::launch(
+      x, nullptr, wmag, wneg, words, M, K, N, wl, vbl, kind, K, epi,
+      static_cast<cudaStream_t>(stream)));
 }
 
 const char* bbm_matmul_error_string(int err) {

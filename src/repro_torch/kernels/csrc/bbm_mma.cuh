@@ -1,0 +1,765 @@
+// The contracted Broken-Booth dot form on the int8 tensor cores (sm_90a):
+// one kernel template and its host-side launcher.
+//
+// Shared by bbm_dot.cu (bbm_dot_scaled and bbm_dot_planes: the chunked
+// f32 datapath, with the keyed accumulator upsets) and bbm_matmul.cu
+// (bbm_matmul_dot at shift <= vbl: one int32 sum over K, << (vbl -
+// shift)).  The Python route rule (bbm_matmul.py: bbm_dot_route) sends a
+// call here where every K-chunk of amm_chunk_len(wl, vbl) products holds
+// at least one 32-deep tensor-core step and the operand bytes below need
+// at most two significances; elsewhere the CUDA-core tile of
+// bbm_tile.cuh runs.
+//
+// Arithmetic.  Each product is 2^vbl * M with M = x*bq + sum_{r<R} q_r,
+// q_r = floor((d_r x - kind neg_r) / 2^m_r), m_r = vbl - 2r
+// (bbm_dot.cuh).  Per row the floor splits into products of an x-side
+// value and a weight-side value, all at one scale:
+//
+//   q_r = (x >> m_r) d_r + b_r B2_r - [kind 0] (nz1_r I1_r + nz2_r I2_r)
+//                                    - [kind 1] neg_r
+//
+// with b_r = bit m_r - 1 of x, nz1_r = [x mod 2^m_r != 0], nz2_r = [x mod
+// 2^(m_r - 1) != 0], B2_r = [d_r = 2] - [d_r = -2], I1_r = [d_r = -1],
+// I2_r = [d_r = -2] (floor(2x / 2^m) = 2 (x >> m) + b, floor(-x / 2^m) =
+// -(x >> m) - nz1, floor((-x - 1) / 2^m) = -(x >> m) - 1, and so on).  So a
+// K-chunk's partial is a sum of int8 matrix products: x's bytes against
+// bq's, each row's (x >> m_r) bytes against d_r, the bit planes against
+// B2_r (and -I1_r, -I2_r at kind 0), and at kind 1 a ones plane against
+// -sum_{r<R} neg_r.  A value wider than s8 splits into a u8 low byte and
+// an s8 high byte; the high bytes' products go to a second int32
+// accumulator, so the partial is lo + 256 hi.  Integer sums are exact
+// modulo 2^32 in any order and any split, and the true partial fits in
+// int32 inside amm_chunk_len (that is how the chunk is derived), so the
+// wrapped lo + 256 hi is the exact partial: no per-row shift, no per-slab
+// fix-up.  At wl 16 / vbl 13 a code product takes 34 byte products at
+// kind 0 (2 for x bq, 11 for the seven rows' x >> m_r, 7 bits, 14
+// indicators) and 21 at kind 1, against the 56 and 66 of the reference's
+// one-hot residue contractions (bbm_matmul.py: _dot_scaled).
+//
+// Operands.  The weight side decodes once per block and K slab into
+// shared memory, as dot_tile decodes digits: per row a 16-bit selector of
+// four codes' Booth triplets (u_{2r+1}, u_{2r}, u_{2r-1}) comes straight
+// from the codes, and one prmt per selector looks up four k bytes of
+// d_r, B2_r, -I1_r or -I2_r; bq is the code less its low 2R bits' Booth
+// value, over 2^vbl.  The planes-in entries first pack (mag, neg) planes
+// into triplet words (bbm_pack_triplets_kernel, one pass over the planes;
+// a nibble per row, transposed in the decode).  A pre-pass writing the
+// byte planes per call instead would move 29 bytes a (k, n) at wl 16 /
+// vbl 13 through device memory and, for every 128-row block, L2.  The x
+// side is formed in registers, in the wgmma A fragment layout (each
+// warp's 16 rows as mma.m16n8k32's A), from the int32 codes of the staged
+// x tile: two codes a register as 16-bit lanes (and their high bytes,
+// sign-extended), so a shift and a prmt give four bytes of any x >> m_r,
+// and the trailing-zero counts of four codes give nz1_r and nz2_r by one
+// byte-wise compare.
+//
+// Tiling.  One block of 256 threads (two warpgroups) owns a 128 x 128
+// output tile; each warp holds 16 rows and all 128 columns of lo and hi
+// (128 accumulator registers), so each x byte is formed once a block.  K
+// streams in slabs of up to 32 codes that never cross a chunk boundary
+// (a chunk of 8,191 restarts the slabs at its end), through a two-stage
+// cp.async ring (x 128 x 32 and w 32 x 128 int32; 16-byte copies where K,
+// N, the chunk and the pointers allow, else 4-byte ones).  Each slab: the
+// ring's next copy starts, the block decodes the slab's weight planes
+// (bq's bytes, then d_r, B2_r, -I1_r, -I2_r per row, then -sum neg_r)
+// into wgmma's K-major shared-memory layout, and each warpgroup runs one
+// asynchronous wgmma.m64n128k32 (u8/s8, s32 accumulators, A from
+// registers) per byte plane, forming the next plane's A bytes while the
+// last runs; the codes past a short slab's end are masked to zero (and
+// the ones plane with them).  At a chunk's end each thread folds lo + 256
+// hi of its outputs into the epilogue.  The decode runs between two
+// barriers while no wgmma is in flight (about a quarter of the time at
+// the T1 shapes); a pre-pass per call, or decoding half a slab's planes
+// while the other half multiplies, would hide it (the latter, tried,
+// needed 255 registers and ran slower).
+//
+// Bound.  The int8 tensor cores: chip_smoke.py charges the fewest byte
+// products of the exact forms known, this kernel's own 34 a code product
+// at wl 16 / vbl 13 kind 0 and 21 at kind 1 (the reference's one-hot
+// residue contractions take 56 and 66), 0.307 and 0.189 ms at (2048,
+// 896) x (896, 4864) on an H100's 1,979 dense TOP/s; the bytes (codes in,
+// f32 out) take 0.019 ms.  The weight decode and the x bytes are
+// CUDA-core work beside the products.
+#pragma once
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include "bbm_dot.cuh"
+
+namespace bbm_mma {
+
+constexpr int kThreads = 256;
+constexpr int kBM = 128, kBN = 128, kBK = 32;   // block tile, K slab
+constexpr int kXS = kBK + 16;     // words per staged x row (conflict-free
+                                  // 16-byte fragment loads)
+constexpr int kWS = kBN + 4;      // words per staged w row (the decode's
+                                  // column loads two-way at most)
+constexpr int kNT = kBN / 8;      // n8 tiles of the block (and of a warp)
+constexpr int kPlane = kBK * kBN / 4;           // words per weight plane
+constexpr int kMaxPlanes = 2 + 4 * 8;
+constexpr size_t kStage = sizeof(int) * (kBM * kXS + kBK * kWS);
+
+// two cp.async stages and one slab's weight planes
+__host__ __device__ constexpr size_t smem_bytes(int planes) {
+  return 2 * kStage + sizeof(uint32_t) * kPlane * planes;
+}
+
+// Bytes of a two's-complement value of `bits` + 1 bits: s8, or u8 + s8.
+__host__ __device__ constexpr int signed_bytes(int bits) {
+  return bits <= 7 ? 1 : 2;
+}
+
+// The operating point, fixed per launch.
+struct Op {
+  int wl, vbl, kind, R;
+  int xb, bqb;                    // bytes of x and of bq
+  int planes;                     // weight planes in shared memory
+  uint32_t wlmask;
+};
+
+inline Op make_op(int wl, int vbl, int kind) {
+  Op op;
+  op.wl = wl;
+  op.vbl = vbl;
+  op.kind = kind;
+  op.R = (vbl + 1) / 2 < wl / 2 ? (vbl + 1) / 2 : wl / 2;
+  op.xb = signed_bytes(wl - 1);
+  long long bq = 0;
+  for (int r = op.R; r < wl / 2; ++r) bq += 2ll << (2 * r - vbl);
+  op.bqb = bq <= 127 ? 1 : 2;
+  op.planes = op.bqb + op.R * (kind ? 2 : 4) + (kind && op.R ? 1 : 0);
+  op.wlmask = wl >= 32 ? 0xFFFFFFFFu : (1u << wl) - 1u;
+  return op;
+}
+
+// ------------------------------------------------------------ epilogue
+// A chunk's partial into the output.  f32 (the amm datapath): chunk ci's
+// partial, XORed with its accumulator upset where keys is set, to f32,
+// times 2^vbl (scale), added to the output in chunk order; scaling each
+// partial before the add equals scaling the sum, every value an integer
+// times a power of two far from f32's range ends.  Else (bbm_matmul_dot
+// at shift <= vbl): the one K sum, << up, wrapping as torch's int32 does.
+// One kernel serves both (the same code in both libraries); out of line,
+// since inlined the threefry draw's registers beside the 128 accumulators
+// spill, and a chunk's end is rare.
+struct Epilogue {
+  void* out;
+  const uint32_t* keys;
+  float p, scale;
+  int bit, up, N;
+  bool f32;
+  __device__ __noinline__ void operator()(int gm, int gn, uint32_t part,
+                                          int ci) const {
+    const size_t o = static_cast<size_t>(gm) * N + gn;
+    if (!f32) {
+      static_cast<int32_t*>(out)[o] = static_cast<int32_t>(part << up);
+      return;
+    }
+    if (keys && bbm::bernoulli_hit(keys[2 * ci], keys[2 * ci + 1],
+                                   static_cast<uint32_t>(o), p))
+      part ^= 1u << bit;
+    const float v = __fmul_rn(__int2float_rn(static_cast<int>(part)), scale);
+    float* f = static_cast<float*>(out) + o;
+    *f = ci == 0 ? v : __fadd_rn(*f, v);
+  }
+};
+
+// ------------------------------------------------------------- helpers
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
+                                         uint32_t s) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
+  return d;
+}
+
+// byte 0 of each of a, b, c, d
+__device__ __forceinline__ uint32_t pack4(uint32_t a, uint32_t b, uint32_t c,
+                                          uint32_t d) {
+  return prmt(prmt(a, b, 0x0040), prmt(c, d, 0x0040), 0x5410);
+}
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 4 : 0));
+}
+
+// wgmma.mma_async m64n128k32, A (the warpgroup's 64 rows: each warp's 16
+// in the mma fragment layout) from registers, B (32 k x 128 n) from a
+// shared-memory plane, s32 accumulators (each thread's 64: n8 tile j's
+// four at 4 j), d += A B.
+__device__ __forceinline__ void wgmma_ss(int (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_su(int (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_us(int (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+}
+
+__device__ __forceinline__ void wgmma_uu(int (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.u8.u8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(1));
+}
+
+template <bool AS, bool BS>
+__device__ __forceinline__ void wgmma(int (&d)[64], const uint32_t (&a)[4],
+                                      uint64_t desc) {
+  if (AS && BS) wgmma_ss(d, a, desc);
+  else if (AS) wgmma_su(d, a, desc);
+  else if (BS) wgmma_us(d, a, desc);
+  else wgmma_uu(d, a, desc);
+}
+
+// Pin registers an asynchronous wgmma reads or writes: the compiler may
+// not move their other uses across this point.
+template <int N>
+__device__ __forceinline__ void hold(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// ---------------------------------------------------- the weight planes
+// the four low nibbles of e's bytes as a 16-bit prmt selector
+__device__ __forceinline__ uint32_t compact(uint32_t e) {
+  e = (e | (e >> 4)) & 0x00FF00FFu;
+  return (e | (e >> 8)) & 0xFFFFu;
+}
+
+// sel[r]: nibble i = row r's triplet of code i (four codes of one column)
+__device__ __forceinline__ void selectors(const uint32_t (&t)[4],
+                                          uint32_t (&sel)[8]) {
+  const uint32_t a_lo = prmt(t[0], t[1], 0x5140), a_hi = prmt(t[0], t[1], 0x7362);
+  const uint32_t c_lo = prmt(t[2], t[3], 0x5140), c_hi = prmt(t[2], t[3], 0x7362);
+  const uint32_t h[4] = {prmt(a_lo, c_lo, 0x5410), prmt(a_lo, c_lo, 0x7632),
+                         prmt(a_hi, c_hi, 0x5410), prmt(a_hi, c_hi, 0x7632)};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sel[2 * j] = compact(h[j] & 0x0F0F0F0Fu);
+    sel[2 * j + 1] = compact((h[j] >> 4) & 0x0F0F0F0Fu);
+  }
+}
+
+// triplet -> byte tables (low word: triplets 0-3, high word: 4-7)
+constexpr uint32_t kDLo = 0x02010100u, kDHi = 0x00FFFFFEu;    // d
+constexpr uint32_t kB2Lo = 0x01000000u, kB2Hi = 0x000000FFu;  // [d=2]-[d=-2]
+constexpr uint32_t kI1Lo = 0x00000000u, kI1Hi = 0x00FFFF00u;  // -[d = -1]
+constexpr uint32_t kI2Lo = 0x00000000u, kI2Hi = 0x000000FFu;  // -[d = -2]
+
+__device__ __forceinline__ int triplet_digit(uint32_t t) {
+  return static_cast<int>((t & 1u) + ((t >> 1) & 1u)) -
+         2 * static_cast<int>(t >> 2);
+}
+
+// A weight plane (32 k x 128 n bytes) in wgmma's K-major layout without
+// swizzle: core matrices of 8 columns x 16 k bytes (128 contiguous
+// bytes, a column's 16 bytes each), the two k halves 128 bytes apart
+// (the leading byte offset), the 16 column groups 256 bytes apart (the
+// stride byte offset).  Byte (n, k) sits at 256 (n / 8) + 128 (k / 16)
+// + 16 (n % 8) + k % 16.
+constexpr uint32_t kLeadBytes = 128, kStrideBytes = 256;
+
+// The shared-memory matrix descriptor of the plane at `plane`.
+__device__ __forceinline__ uint64_t plane_desc(const uint32_t* plane) {
+  const uint32_t a =
+      static_cast<uint32_t>(__cvta_generic_to_shared(plane));
+  return static_cast<uint64_t>((a >> 4) & 0x3FFFu) |
+         (static_cast<uint64_t>(kLeadBytes >> 4) << 16) |
+         (static_cast<uint64_t>(kStrideBytes >> 4) << 32);
+}
+
+// Row r's selector of four codes (one column, four consecutive k) from
+// their low wl bits packed as 16-bit lanes (l02: codes 0, 2; l13: 1, 3):
+// nibble i = bits (2r + 1, 2r, 2r - 1) of code i.
+__device__ __forceinline__ uint32_t code_selector(uint32_t l02, uint32_t l13,
+                                                  int r) {
+  uint32_t a, b;
+  if (r == 0) {
+    a = (l02 << 1) & 0x00060006u;
+    b = (l13 << 1) & 0x00060006u;
+  } else {
+    a = (l02 >> (2 * r - 1)) & 0x00070007u;
+    b = (l13 >> (2 * r - 1)) & 0x00070007u;
+  }
+  const uint32_t v = a | (b << 4);
+  return (v | (v >> 8)) & 0xFFFFu;
+}
+
+// Four k bytes of a column into k quads 0 and 4 (the word q0 at k 4 tq,
+// q1 at 16 + 4 tq) of weight plane `plane`, at the thread's dst.
+__device__ __forceinline__ void put(uint32_t* dst, int plane, uint32_t q0,
+                                    uint32_t q1) {
+  dst[plane * kPlane] = q0;
+  dst[plane * kPlane + 32] = q1;
+}
+
+// The block decodes the slab's weight planes into `bp`: bq's bytes, then
+// per row d_r, B2_r (and -I1_r, -I2_r at kind 0), then kind 1's -sum
+// neg_r.  Warp w, lane (nl, tq) takes column 8 (w + 8 h) + nl and k quads
+// tq and 4 + tq, for h = 0, 1: a warp's stores into a plane cover 32
+// distinct banks.  Codes give the selectors and bq directly; packed
+// triplet words go through selectors().
+__device__ __forceinline__ void form_weights(const int* __restrict__ ws,
+                                             uint32_t* __restrict__ bp,
+                                             const Op& op, bool words) {
+  const int lane = threadIdx.x & 31, nl = lane & 7, tq = lane >> 3;
+  const int per = op.kind ? 2 : 4;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    const int ng = (threadIdx.x >> 5) + 8 * h, n = 8 * ng + nl;
+    uint32_t* dst = bp + 64 * ng + 4 * nl + tq;
+    uint32_t c[2][4];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t v =
+            static_cast<uint32_t>(ws[(16 * q + 4 * tq + j) * kWS + n]);
+        c[q][j] = words ? v : v & op.wlmask;
+      }
+    uint32_t sel[2][8];
+    if (words) {
+      selectors(c[0], sel[0]);
+      selectors(c[1], sel[1]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint32_t l02 = prmt(c[q][0], c[q][2], 0x5410);
+        const uint32_t l13 = prmt(c[q][1], c[q][3], 0x5410);
+#pragma unroll
+        for (int r = 0; r < 8; ++r)
+          sel[q][r] = r < op.R ? code_selector(l02, l13, r) : 0u;
+      }
+    }
+    {
+      // bq = sum_{R <= r < wl/2} d_r 2^(2r - vbl): one s8 plane, or u8 + s8
+      uint32_t bq[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          int v = 0;
+          if (words) {
+#pragma unroll
+            for (int r = 0; r < 8; ++r)
+              if (r >= op.R && 2 * r < op.wl)
+                v += triplet_digit((c[q][j] >> (4 * r)) & 7u) *
+                     (1 << (2 * r - op.vbl));
+          } else {
+            // the code less its low 2R bits' Booth value, over 2^vbl
+            const int sh = 32 - op.wl, lo = 32 - 2 * op.R;
+            const int xs = static_cast<int>(c[q][j] << sh) >> sh;
+            const int low = op.R ? static_cast<int>(c[q][j] << lo) >> lo : 0;
+            v = (xs - low) >> op.vbl;
+          }
+          bq[q][j] = static_cast<uint32_t>(v);
+        }
+      put(dst, 0, pack4(bq[0][0], bq[0][1], bq[0][2], bq[0][3]),
+          pack4(bq[1][0], bq[1][1], bq[1][2], bq[1][3]));
+      if (op.bqb == 2)
+        put(dst, 1,
+            pack4(bq[0][0] >> 8, bq[0][1] >> 8, bq[0][2] >> 8, bq[0][3] >> 8),
+            pack4(bq[1][0] >> 8, bq[1][1] >> 8, bq[1][2] >> 8,
+                  bq[1][3] >> 8));
+    }
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      if (r >= op.R) break;
+      const int pl = op.bqb + r * per;
+      const uint32_t s0 = sel[0][r], s1 = sel[1][r];
+      put(dst, pl, prmt(kDLo, kDHi, s0), prmt(kDLo, kDHi, s1));
+      put(dst, pl + 1, prmt(kB2Lo, kB2Hi, s0), prmt(kB2Lo, kB2Hi, s1));
+      if (!op.kind) {
+        put(dst, pl + 2, prmt(kI1Lo, kI1Hi, s0), prmt(kI1Lo, kI1Hi, s1));
+        put(dst, pl + 3, prmt(kI2Lo, kI2Hi, s0), prmt(kI2Lo, kI2Hi, s1));
+      }
+    }
+    if (op.kind && op.R) {
+      // -sum_{r<R} neg_r: a row's sign is code bit 2r + 1, triplet bit 2
+      const uint32_t negs =
+          words ? 0x44444444u & (op.R >= 8 ? 0xFFFFFFFFu
+                                           : (1u << (4 * op.R)) - 1u)
+                : 0xAAAAu & ((1u << (2 * op.R)) - 1u);
+      uint32_t cn[2][4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          cn[q][j] = static_cast<uint32_t>(-__popc(c[q][j] & negs));
+      put(dst, op.bqb + op.R * per,
+          pack4(cn[0][0], cn[0][1], cn[0][2], cn[0][3]),
+          pack4(cn[1][0], cn[1][1], cn[1][2], cn[1][3]));
+    }
+  }
+}
+
+// ------------------------------------------------------ the x side
+// x's bytes in fragment order: word w holds row g + 8 (w & 1) of the
+// warp's 16 and k 4 t + 16 (w >> 1) .. + 3 (g = lane / 4, t = lane % 4).
+// p02 and p13 hold codes 0, 2 and 1, 3 of the word as sign-extended
+// 16-bit lanes, q02 and q13 the same shifted right by 8 (each lane's high
+// byte, sign-extended), tz the trailing-zero counts as bytes (32 for a
+// zero code).
+struct XWords {
+  uint32_t p02[4], p13[4], q02[4], q13[4], tz[4];
+};
+
+// bits [m, m + 8) of each of the four codes from p (m <= 8) or from q
+// (bits [8 + m, 16 + m), sign-extended)
+__device__ __forceinline__ uint32_t field(uint32_t a02, uint32_t a13,
+                                          int m) {
+  return prmt(a02 >> m, a13 >> m, 0x6240);
+}
+
+// bit b of each code as a 0/1 byte
+__device__ __forceinline__ uint32_t bit_bytes(uint32_t p02, uint32_t p13,
+                                              int b) {
+  return ((p02 >> b) & 0x00010001u) | (((p13 >> b) & 0x00010001u) << 8);
+}
+
+// [tz < mm] per byte: the code's low mm bits are not all zero
+__device__ __forceinline__ uint32_t nonzero_low(uint32_t tz, int mm) {
+  const uint32_t ge = ((tz + 0x01010101u * static_cast<uint32_t>(0x80 - mm))
+                       >> 7) & 0x01010101u;
+  return ge ^ 0x01010101u;
+}
+
+// acc += a (the warpgroup's 64 rows) times weight plane `plane`: one
+// asynchronous wgmma on a copy `ai` of a, issued once the previous one,
+// which read ai, is done; the caller forms the next a meanwhile, and
+// waits for the last (drain) before it reads acc or rewrites the planes.
+template <bool AS, bool BS>
+__device__ __forceinline__ void products(int (&acc)[64], uint32_t (&ai)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t* plane) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  hold(ai);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) ai[i] = a[i];
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+  wgmma<AS, BS>(acc, ai, plane_desc(plane));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void drain(int (&lo)[64], int (&hi)[64],
+                                      uint32_t (&ai)[4]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  hold(ai);
+  hold(lo);
+  hold(hi);
+}
+
+// A staged slab's products (its first rb k) into lo and hi: warp w takes
+// rows [16 w, 16 w + 16) of the block and all 128 columns, so each x byte
+// is formed once a block.
+__device__ __forceinline__ void warp_slab(const int* __restrict__ xs,
+                                          const uint32_t* __restrict__ bp,
+                                          const Op& op, int rb,
+                                          int (&lo)[64], int (&hi)[64]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const bool full = rb == kBK;
+  const int sh = 32 - op.wl;
+  XWords xw;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const int row = warp * 16 + g + 8 * (w & 1);
+    const int kq = 4 * t + 16 * (w >> 1);
+    const int4 c = *reinterpret_cast<const int4*>(xs + row * kXS + kq);
+    int v[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = static_cast<int>(static_cast<uint32_t>(v[j]) << sh) >> sh;
+      if (!full && kq + j >= rb) v[j] = 0;
+    }
+    xw.p02[w] = prmt(v[0], v[2], 0x5410);
+    xw.p13[w] = prmt(v[1], v[3], 0x5410);
+    xw.q02[w] = prmt(xw.p02[w], xw.p02[w], 0xB391);
+    xw.q13[w] = prmt(xw.p13[w], xw.p13[w], 0xB391);
+    if (!op.kind)
+      xw.tz[w] = pack4(__clz(__brev(v[0])), __clz(__brev(v[1])),
+                       __clz(__brev(v[2])), __clz(__brev(v[3])));
+  }
+  uint32_t a[4], ai[4] = {0u, 0u, 0u, 0u};
+  // a[w] = f(word w) over the warp's fragment
+  auto frag = [&](auto f) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) a[w] = f(w);
+  };
+  const int per = op.kind ? 2 : 4;
+  {
+    // x bq: x's bytes against bq's (two significances at most)
+    frag([&](int w) { return field(xw.p02[w], xw.p13[w], 0); });
+    if (op.xb == 1 && op.bqb == 1) {
+      products<true, true>(lo, ai, a, bp);
+    } else if (op.xb == 1) {
+      products<true, false>(lo, ai, a, bp);
+      products<true, true>(hi, ai, a, bp + kPlane);
+    } else {
+      products<false, true>(lo, ai, a, bp);
+      frag([&](int w) { return field(xw.q02[w], xw.q13[w], 0); });
+      products<true, true>(hi, ai, a, bp);
+    }
+  }
+  const uint32_t* row0 = bp + op.bqb * kPlane;
+#pragma unroll 1
+  for (int r = 0; r < op.R; ++r) {
+    const int m = op.vbl - 2 * r;
+    const uint32_t* pl = row0 + r * per * kPlane;
+    // (x >> m) d_r
+    if (signed_bytes(op.wl - 1 - m) == 1) {
+      if (m <= 8)
+        frag([&](int w) { return field(xw.p02[w], xw.p13[w], m); });
+      else
+        frag([&](int w) { return field(xw.q02[w], xw.q13[w], m - 8); });
+      products<true, true>(lo, ai, a, pl);
+    } else {
+      frag([&](int w) { return field(xw.p02[w], xw.p13[w], m); });
+      products<false, true>(lo, ai, a, pl);
+      frag([&](int w) { return field(xw.q02[w], xw.q13[w], m); });
+      products<true, true>(hi, ai, a, pl);
+    }
+    // b_r B2_r
+    frag([&](int w) { return bit_bytes(xw.p02[w], xw.p13[w], m - 1); });
+    products<false, true>(lo, ai, a, pl + kPlane);
+    if (!op.kind) {
+      frag([&](int w) { return nonzero_low(xw.tz[w], m); });
+      products<false, true>(lo, ai, a, pl + 2 * kPlane);
+      frag([&](int w) { return nonzero_low(xw.tz[w], m - 1); });
+      products<false, true>(lo, ai, a, pl + 3 * kPlane);
+    }
+  }
+  if (op.kind && op.R) {
+    // the ones plane: 1 for each k of the slab
+    frag([&](int w) {
+      const int kq = 4 * t + 16 * (w >> 1);
+      uint32_t v = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kq + j < rb) v |= 1u << (8 * j);
+      return v;
+    });
+    products<false, true>(lo, ai, a, row0 + op.R * per * kPlane);
+  }
+  drain(lo, hi, ai);
+}
+
+
+// ------------------------------------------------------------ the kernel
+// The slab's x (128 x 32) and w (32 x 128) int32 into stage buffers.
+__device__ __forceinline__ void issue(const int* __restrict__ x,
+                                      const int* __restrict__ w, int* xs,
+                                      int* ws, int m0, int n0, int k0, int M,
+                                      int K, int N, bool vx, bool vw) {
+  const int tid = threadIdx.x;
+  if (vx) {
+#pragma unroll
+    for (int e = tid; e < kBM * kBK / 4; e += kThreads) {
+      const int r = e >> 3, q = e & 7;
+      const int gm = m0 + r, gk = k0 + 4 * q;
+      const bool ok = gm < M && gk < K;
+      cp_async(xs + r * kXS + 4 * q, ok ? x + (size_t)gm * K + gk : x, 16,
+               ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < kBM * kBK; e += kThreads) {
+      const int r = e >> 5, q = e & 31;
+      const int gm = m0 + r, gk = k0 + q;
+      const bool ok = gm < M && gk < K;
+      cp_async(xs + r * kXS + q, ok ? x + (size_t)gm * K + gk : x, 4, ok);
+    }
+  }
+  if (vw) {
+#pragma unroll
+    for (int e = tid; e < kBK * kBN / 4; e += kThreads) {
+      const int r = e >> 5, q = e & 31;
+      const int gk = k0 + r, gn = n0 + 4 * q;
+      const bool ok = gk < K && gn < N;
+      cp_async(ws + r * kWS + 4 * q, ok ? w + (size_t)gk * N + gn : w, 16,
+               ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int e = tid; e < kBK * kBN; e += kThreads) {
+      const int r = e >> 7, q = e & 127;
+      const int gk = k0 + r, gn = n0 + q;
+      const bool ok = gk < K && gn < N;
+      cp_async(ws + r * kWS + q, ok ? w + (size_t)gk * N + gn : w, 4, ok);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Slabs of up to 32 k that never cross a chunk boundary: k0 steps by 32
+// inside a chunk and restarts at the next chunk's first k.
+struct Slabs {
+  long long chunk;
+  int K, k0, cend;                // slab start, its chunk's end
+  __device__ __forceinline__ Slabs(long long chunk_, int K_)
+      : chunk(chunk_), K(K_), k0(0),
+        cend(chunk_ < K_ ? static_cast<int>(chunk_) : K_) {}
+  __device__ __forceinline__ int k1() const { return min(k0 + kBK, cend); }
+  __device__ __forceinline__ bool last() const { return k1() == cend; }
+  __device__ __forceinline__ bool done() const { return k0 >= K; }
+  __device__ __forceinline__ void next() {
+    if (last()) {
+      k0 = cend;
+      cend = static_cast<int>(cend + chunk < K ? cend + chunk : K);
+    } else {
+      k0 += kBK;
+    }
+  }
+};
+
+// grid (ceil(N / 128), ceil(M / 128)), 256 threads, smem_bytes(op.planes).
+// w: int32 codes (words = false) or packed triplet words (K, N).  Chunks
+// of `chunk` products end at multiples of chunk and at K; each chunk's
+// partial goes to epi(gm, gn, partial, chunk index).
+__global__ void __launch_bounds__(kThreads, 1)
+bbm_mma_kernel(const int* __restrict__ x, const int* __restrict__ w,
+               bool words, bool vx, bool vw, int M, int K, int N, Op op,
+               long long chunk, Epilogue epi) {
+  extern __shared__ uint4 bbm_mma_smem[];
+  int* xs = reinterpret_cast<int*>(bbm_mma_smem);        // [2][kBM][kXS]
+  int* ws = xs + 2 * kBM * kXS;                          // [2][kBK][kWS]
+  uint32_t* bp = reinterpret_cast<uint32_t*>(ws + 2 * kBK * kWS);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+
+  int lo[64], hi[64];             // n8 tile j's four at 4 j
+#pragma unroll
+  for (int i = 0; i < 64; ++i) lo[i] = hi[i] = 0;
+
+  Slabs cur(chunk, K);
+  issue(x, w, xs, ws, m0, n0, cur.k0, M, K, N, vx, vw);
+  int stage = 0, ci = 0;
+  while (!cur.done()) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();        // this slab landed; every warp is done with the last
+    Slabs nxt = cur;
+    nxt.next();
+    if (!nxt.done())
+      issue(x, w, xs + (stage ^ 1) * kBM * kXS, ws + (stage ^ 1) * kBK * kWS,
+            m0, n0, nxt.k0, M, K, N, vx, vw);
+    form_weights(ws + stage * kBK * kWS, bp, op, words);
+    // the planes' generic stores, seen by wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    warp_slab(xs + stage * kBM * kXS, bp, op, cur.k1() - cur.k0, lo, hi);
+    if (cur.last()) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int gm = m0 + warp * 16 + g + 8 * (e >> 1);
+          const int gn = n0 + j * 8 + 2 * t + (e & 1);
+          if (gm < M && gn < N)
+            epi(gm, gn,
+                static_cast<uint32_t>(lo[4 * j + e]) +
+                    (static_cast<uint32_t>(hi[4 * j + e]) << 8),
+                ci);
+          lo[4 * j + e] = hi[4 * j + e] = 0;
+        }
+      ++ci;
+    }
+    cur = nxt;
+    stage ^= 1;
+  }
+}
+
+// (mag, neg) planes (rows, K, N) -> triplet words (K, N): row r's nibble is
+// a triplet of the same digit and sign, (0, 0) -> 000, (1, 0) -> 001,
+// (2, 0) -> 011, (0, 1) -> 111, (1, 1) -> 101, (2, 1) -> 100 (mag 3, which
+// no decode or fault makes, reads as 2).
+__global__ void __launch_bounds__(256)
+bbm_pack_triplets_kernel(const int* __restrict__ mag,
+                         const int* __restrict__ neg,
+                         uint32_t* __restrict__ words, size_t kn, int rows) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < kn;
+       i += (size_t)gridDim.x * blockDim.x) {
+    uint32_t tw = 0;
+    for (int r = 0; r < rows; ++r) {
+      const uint32_t idx = (static_cast<uint32_t>(mag[r * kn + i]) & 3u) |
+                           ((static_cast<uint32_t>(neg[r * kn + i]) & 1u) << 2);
+      tw |= ((0x44573310u >> (4 * idx)) & 0xFu) << (4 * r);
+    }
+    words[i] = tw;
+  }
+}
+
+// Launch the kernel on codes (wmag null) or on planes, which are first
+// packed into `tw` (K x N int32 scratch).  Returns the cudaError_t.
+inline cudaError_t launch(const int* x, const int* w, const int* wmag,
+                          const int* wneg, int* tw, int M, int K, int N,
+                          int wl, int vbl, int kind, long long chunk,
+                          Epilogue epi, cudaStream_t st) {
+  const Op op = make_op(wl, vbl, kind);
+  const bool words = wmag != nullptr;
+  if (words) {
+    const size_t kn = static_cast<size_t>(K) * N;
+    const int blocks = static_cast<int>((kn + 255) / 256 < 132 * 16
+                                            ? (kn + 255) / 256 : 132 * 16);
+    bbm_pack_triplets_kernel<<<blocks, 256, 0, st>>>(
+        wmag, wneg, reinterpret_cast<uint32_t*>(tw), kn, wl / 2);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    w = tw;
+  }
+  const size_t smem = smem_bytes(op.planes);
+  cudaError_t e = cudaFuncSetAttribute(
+      bbm_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_bytes(kMaxPlanes)));
+  if (e != cudaSuccess) return e;
+  // 16-byte x copies need every slab start on a multiple of 4
+  const bool vx = K % 4 == 0 && (chunk >= K || chunk % 4 == 0) &&
+                  (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool vw = N % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  bbm_mma_kernel<<<grid, kThreads, smem, st>>>(x, w, words, vx, vw, M, K, N,
+                                                op, chunk, epi);
+  return cudaGetLastError();
+}
+
+}  // namespace bbm_mma

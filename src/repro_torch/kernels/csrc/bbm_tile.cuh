@@ -9,6 +9,11 @@
 // (stage_x), the multiplier's digits decoded once per block into bq and
 // packed truncated rows (bbm_dot.cuh; from codes or from digit planes),
 // unpacked into registers per use and reused across the thread's 4 rows.
+// This is the CUDA-core route: the Python rule (bbm_matmul.py:
+// bbm_dot_route) sends the contracted dot form to the int8 tensor cores
+// (bbm_mma.cuh) wherever its chunks and operand bytes allow, and here only
+// for chunks shorter than a tensor-core step, x and bq both two bytes
+// wide, or bbm_matmul_dot at shift > vbl; bbm_matmul_rows always runs here.
 //
 // What becomes of each product is the epilogue's, a policy class with
 // add(i, j, product), end_k (after every k) and store (after the last):

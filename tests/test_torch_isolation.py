@@ -917,3 +917,98 @@ def test_build_directory_is_git_ignored():
         assert _build.SOURCES[name].relative_to(PKG).as_posix() \
             == f"kernels/csrc/{name}.cu"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+# ------------------------------- the routes of the contracted dot form
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mma", "tile"])
+@pytest.mark.parametrize("wl,vbl,kind", [(8, 5, 0), (12, 7, 1), (16, 13, 0),
+                                         (16, 13, 1)])
+def test_bbm_dot_routes_equal_plain_versions_on_the_card(route, wl, vbl,
+                                                         kind):
+    """Each route of ``bbm_dot_scaled`` and of ``bbm_dot_planes`` (clean,
+    plane-faulted and accumulator-faulted planes), forced, bit-equal to
+    the plain version on ragged shapes, K one past a chunk where the
+    chunk is short; ``mma_launches`` counts the tensor-core launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    tb = _tb()
+    rng = np.random.default_rng(wl + vbl + kind)
+    lim = 1 << (wl - 1)
+    chunk = t_rows.amm_chunk_len(wl, vbl)
+    for m, k, n in ((7, 50, 9), (130, 97, 131),
+                    (5, chunk + 1 if chunk < 40_000 else 45, 7)):
+        x = torch.from_numpy(rng.integers(-lim, lim, (m, k)).astype(
+            np.int32)).cuda()
+        w = torch.from_numpy(rng.integers(-lim, lim, (k, n)).astype(
+            np.int32)).cuda()
+        x[0], w[:, 0] = lim - 1, -lim
+        before = (tb.bbm_dot_scaled.launches, tb.bbm_dot_scaled.mma_launches)
+        got = tb._bbm_dot_scaled_on(route, x, w, wl=wl, vbl=vbl, kind=kind)
+        want = tb.bbm_dot_scaled_plain(x, w, wl=wl, vbl=vbl, kind=kind)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert (tb.bbm_dot_scaled.launches, tb.bbm_dot_scaled.mma_launches) \
+            == (before[0] + 1, before[1] + (route == "mma"))
+        hm, hn = t_rows.booth_precode(w, wl)
+        for fault in (None, FaultSpec(target="plane", p=0.1, seed=k),
+                      FaultSpec(target="acc", p=0.1, bit=11, seed=k)):
+            fm, fn = (t.contiguous() for t in apply_plane_faults(
+                hm, hn, fault, vbl=vbl))
+            acc = fault if fault is not None and fault.target == "acc" \
+                else None
+            got = tb._bbm_dot_planes_on(route, x, fm, fn, wl=wl, vbl=vbl,
+                                        kind=kind, fault=acc)
+            want = tb.bbm_dot_planes_plain(x, fm, fn, wl=wl, vbl=vbl,
+                                           kind=kind, fault=acc)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), fault
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mma", "tile"])
+@pytest.mark.parametrize("kind", [0, 1])
+def test_bbm_matmul_dot_routes_equal_plain_versions_on_the_card(route, kind):
+    """``bbm_matmul_dot`` forced onto each route at shifts up to vbl, on
+    clean and faulted planes, bit-equal to the plain rows form; the
+    tile alone at shift > vbl."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    tb = _tb()
+    x, hm, hn = _matmul_operands("cuda", m=130, k=37, n=131)
+    for fault in (None, FaultSpec(p=0.1, seed=5)):
+        fm, fn = (t.contiguous() for t in apply_plane_faults(hm, hn, fault,
+                                                             vbl=13))
+        for shift in (12, 13, 15):
+            kw = dict(wl=16, vbl=13, kind=kind, shift=shift)
+            if shift > 13 and route == "mma":
+                continue
+            before = tb.bbm_matmul_dot.mma_launches
+            got = tb._bbm_matmul_dot_on(route, x, fm, fn, **kw)
+            want = tb.bbm_matmul_rows_plain(x, fm, fn, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (fault, shift)
+            assert tb.bbm_matmul_dot.mma_launches == before + (
+                route == "mma")
+
+
+@pytest.mark.cuda
+def test_the_tensor_cores_refuse_what_they_cannot_compute_on_the_card():
+    """Forced onto the tensor cores, a call whose x and bq both take two
+    bytes, or ``bbm_matmul_dot`` at shift > vbl, raises before any
+    launch; the rule sends both to the tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    tb = _tb()
+    x, hm, hn = _matmul_operands("cuda", m=9, k=40, n=70)
+    w = torch.zeros((40, 70), dtype=torch.int32, device="cuda")
+    before = (tb.bbm_dot_scaled.launches, tb.bbm_matmul_dot.launches)
+    with pytest.raises(ValueError, match="third significance"):
+        tb._bbm_dot_scaled_on("mma", x, w, wl=16, vbl=3, kind=0)
+    with pytest.raises(ValueError, match="no contraction form"):
+        tb._bbm_matmul_dot_on("mma", x, hm, hn, wl=16, vbl=13, shift=15)
+    assert (tb.bbm_dot_scaled.launches, tb.bbm_matmul_dot.launches) == before
+    assert tb.bbm_dot_route(16, 3, 0) == "tile"
+    assert tb.bbm_dot_route(16, 13, 0, shift=15) == "tile"
