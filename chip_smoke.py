@@ -9,23 +9,31 @@ of the JAX package.  Phases, each of which fails the run:
   1. build: compiles every kernel from ``src/repro_torch/kernels/csrc``
      (nvcc, sm_90a) and prints the card, the build time and each
      library's (and each flash kernel's) registers and spills;
-  2. sweep: each kernel against its plain PyTorch version on the card,
-     with ``torch.equal`` (zero tolerance: the datapath is integer), over
-     wl in {8, 12, 16}, vbl in {0, 5, 13, 15}, both Broken-Booth kinds,
+  2. sweep: both FIR wrappers on each route they can take (forced
+     through the private hooks: the CUDA-core kernels everywhere, the
+     int8 tensor cores of ``csrc/fir_mma.cuh`` where ``fir_bank_route``
+     allows them) against the plain rows form on the card, with
+     ``torch.equal`` (zero tolerance: the datapath is integer), over wl
+     in {8, 12, 16}, vbl in {0, 5, 13, 15}, both Broken-Booth kinds,
      shifts {0, the minimal safe shift, > vbl}, ragged channel counts and
-     lengths;
+     lengths (both of the tensor cores' schedules);
   3. main path: ``FilterbankEngine`` at the paper's operating point
      (bbm0, WL = 16, VBL = 13, 31 taps, shift 5) serves flush A, 64
      requests x 65,536 samples (one 64-channel dispatch above the
-     auto-form budget: the rows kernel), and flush B, 16 requests of
-     4,096-8,192 samples (the dot kernel).  Launch counts are zeroed just
-     before and read just after; both kernels must have launched, nothing
-     may be quarantined, and 8 sampled channels of each flush must equal,
-     bit for bit, the same requests served on the CPU;
+     auto-form budget: ``fir_bank_rows``), and flush B, 16 requests of
+     4,096-8,192 samples (``fir_bank_dot``).  Launch counts are zeroed
+     just before and read just after; each flush must launch its wrapper
+     once, on the tensor-core route, nothing may be quarantined, and 8
+     sampled channels of each flush must equal, bit for bit, the same
+     requests served on the CPU;
   4. the paper's penalty through the kernels: exact Booth minus bbm0 at
      VBL = 15 on the 30-tap testbed, which must be 0.4 +- 0.15 dB;
   5. timing: where each flush's time goes, stage by stage, and each
-     kernel and its plain version at the main path's shapes;
+     wrapper at the main path's shapes on its tensor-core route (both
+     kinds) and on the CUDA-core route, against the bound (at shift <=
+     vbl the contracted dot form's int8 byte products against the bytes,
+     ``fir_bound_ms``), its plain version, and one f32
+     ``F.conv1d(groups=C)`` at the same (C, N, taps) as a yardstick;
   6. quant_matmul sweep: the kernel against its plain version on the
      card over wl in {8, 12, 16}, no noise and bbm0's noise, M in
      {1, 8, 200}, K in {64, 512, 896, 4864}, N in {896, 4864, 130}:
@@ -134,7 +142,9 @@ of the JAX package.  Phases, each of which fails the run:
      CPU port), and poison ejection on the card's engine;
  18. B1 timing: each new kernel and ``bbm_dot_scaled`` at the full shape
      against its bound (int8 byte products for the contracted forms,
-     int32 issue for ``bbm_matmul_rows``) and its plain version.
+     int32 issue for ``bbm_matmul_rows``) and its plain version; the
+     CUDA-core routes' instructions per product in their compiled inner
+     loops, the FIR rows kernel's among them.
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -163,6 +173,12 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 
 SOURCE = "src/repro_torch/kernels/csrc/fir_bank.cu"
+FIR_MMA_SOURCE = "src/repro_torch/kernels/csrc/fir_mma.cuh"
+# profiler names of the FIR routes' kernels: the tensor cores' (both
+# wrappers), the CUDA-core rows and dot kernels
+FIR_KERNELS = {"mma": "fir_mma_kernel",
+               "fir_bank_rows": "fir_bank_rows_kernel",
+               "fir_bank_dot": "fir_bank_dot_kernel"}
 REPLACES = {"fir_bank_rows": "src/repro/kernels/fir_kernel.py:106",
             "fir_bank_dot": "src/repro/kernels/fir_kernel.py:136",
             "quant_matmul": "src/repro/kernels/quant_matmul.py:69",
@@ -318,6 +334,14 @@ def launch_ms(torch, fn, reps: int, kernel) -> tuple:
         t = kernel_device_ms(torch, fn, reps, kernel, per_launch=True)
         if t is not None:
             return t, "profiler"
+    return spin_ms(torch, fn, reps), "events behind a spin"
+
+
+def spin_ms(torch, fn, reps: int) -> float:
+    """Mean ms per call of ``fn`` between CUDA events around ``reps`` calls
+    queued behind a spin kernel, so that the host's enqueue time hides
+    behind the spin (each call then also counts the device's gap to the
+    next)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -328,15 +352,19 @@ def launch_ms(torch, fn, reps: int, kernel) -> tuple:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, "events behind a spin"
+    return start.elapsed_time(end) / reps
 
 
-def sweep(torch, fk, booth_precode, dev) -> int:
-    """Each kernel == its plain version on the card; returns the case count."""
+def sweep(torch, fk, booth_precode, dev) -> tuple:
+    """Both wrappers on each route they can take (through the private
+    hooks) and the plain dot form == the plain rows form on the card;
+    returns (cases, calls on the tensor-core route)."""
     rng = np.random.default_rng(1)
     taps = 31
-    shapes = [(5, 1500), (1, 7), (3, 513), (70, 600)]
-    cases = 0
+    # ragged; (70, 600) fills the SMs (the tensor cores' tiled schedule),
+    # the others take its split schedule; (2, 4097) crosses a tile
+    shapes = [(5, 1500), (1, 7), (3, 513), (70, 600), (2, 4097)]
+    cases = mma = 0
     for wl in (8, 12, 16):
         lo = fk.min_safe_shift(taps, wl)
         for vbl in (0, 5, 13, 15):
@@ -351,10 +379,17 @@ def sweep(torch, fk, booth_precode, dev) -> int:
                     hm, hn = (p.contiguous() for p in booth_precode(h, wl))
                     kw = dict(wl=wl, vbl=vbl, kind=kind, shift=shift)
                     want = fk.fir_bank_rows_plain(x, hm, hn, **kw)
-                    got = {"fir_bank_rows": fk.fir_bank_rows(x, hm, hn, **kw),
-                           "fir_bank_dot": fk.fir_bank_dot(x, hm, hn, **kw),
-                           "fir_bank_dot_plain":
+                    routes = ["cuda-core"] + (
+                        ["mma"] if fk.fir_bank_route(wl, vbl, kind, shift,
+                                                     taps) == "mma" else [])
+                    got = {"fir_bank_dot_plain":
                                fk.fir_bank_dot_plain(x, hm, hn, **kw)}
+                    for route in routes:
+                        got[f"fir_bank_rows ({route})"] = \
+                            fk._fir_bank_rows_on(route, x, hm, hn, **kw)
+                        got[f"fir_bank_dot ({route})"] = \
+                            fk._fir_bank_dot_on(route, x, hm, hn, **kw)
+                    mma += 2 * (len(routes) - 1)
                     torch.cuda.synchronize()
                     for name, y in got.items():
                         if not torch.equal(y, want):
@@ -363,7 +398,7 @@ def sweep(torch, fk, booth_precode, dev) -> int:
                                  f"kind={kind} shift={shift} C={c} N={n}: "
                                  f"{bad} elements differ")
                     cases += 1
-    return cases
+    return cases, mma
 
 
 # ------------------------------------------------------------ quant_matmul
@@ -1522,6 +1557,45 @@ def dot_scaled_bound_ms(m: int, k: int, n: int, wl: int = 16, vbl: int = 13,
                                        else "bytes")
 
 
+def fir_bound_ms(name: str, c: int, n: int, taps: int, *, wl: int, vbl: int,
+                 kind: int, shift: int) -> tuple:
+    """(bound ms, what bounds it, the operations' ms) of one filterbank
+    call on (c, n) int32 codes and ``taps`` taps: x read once, y written
+    once and the digit planes read once over 3.35 TB/s, against the
+    operations.  At shift <= vbl every product is 2^vbl M and the tap sum
+    is a contraction: the fewest exact form's int8 byte products a tap
+    product (``dot_byte_products``), 2 operations each, over the int8
+    tensor-core peak.  At shift > vbl each product floors before the sum:
+    the CUDA-core kernel's int32 count (a row evaluation per Booth row in
+    ``fir_bank_rows``, a multiply-add for x bq and per truncated row in
+    ``fir_bank_dot``) over int32 issue."""
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    products = c * n * taps
+    if shift <= vbl:
+        t_ops = 2 * dot_byte_products(wl, vbl, kind) * products \
+            / INT8_OPS_PER_S
+    else:
+        rows = wl // 2 if name == "fir_bank_rows" \
+            else 1 + num_corr_rows(wl, vbl)
+        t_ops = products * rows / INT32_OPS_PER_S
+    t_bytes = (4 * 2 * c * n + 4 * 2 * (wl // 2) * c * taps) \
+        / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", t_ops * 1e3)
+
+
+def conv1d_ms(torch, c: int, n: int, taps: int, dev) -> float:
+    """One f32 depthwise ``F.conv1d(groups=C)`` at the filterbank's (C, N,
+    taps), TF32 off: a yardstick of the card's rate for a C-channel FIR,
+    not the same function (never called by the port)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((1, c, n + taps - 1), device=dev, generator=gen)
+    w = torch.randn((c, 1, taps), device=dev, generator=gen)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        return spin_ms(torch, lambda: F.conv1d(x, w, groups=c), 20)
+
+
 # the fewest keys at which the exact kernel's error model
 # (csrc/flash_attention.cu) admits 3xTF32 for P V inside flash_tolerance's
 # sum term: (30 + Skv / 8) u <= (Skv + 8) u
@@ -2080,12 +2154,14 @@ SASS_KERNELS = {"bbm_matmul_rows": ("bbm_matmul", "rows_kernelILi8ELi0E"),
                 "bbm_dot_scaled": ("bbm_dot", "bbm_dot_kernelILi0E")}
 
 
-def sass_per_product(lib: Path, kernel: str):
+def sass_per_product(lib: Path, kernel: str, per_load: float = 2.0):
     """Instructions per product in the innermost loop of ``kernel`` (a
     part of its mangled name) in ``cuobjdump -sass`` of ``lib``: the
-    longest backward branch with no barrier inside; each trip makes 8
-    shared-memory loads per k step (4 of x, 4 of the weight) and 16
-    products per k step.  None where cuobjdump or the loop is missing."""
+    longest backward branch with no barrier inside, ``per_load`` products
+    for each shared-memory load in it (the tiles: 8 loads per k step, 4 of
+    x and 4 of the weight, for 16 products; the FIR rows kernel: per tap a
+    digit word and 2 samples for 2 products).  None where cuobjdump or the
+    loop is missing."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).is_file():
@@ -2106,7 +2182,7 @@ def sass_per_product(lib: Path, kernel: str):
             if len(span) > len(best) and not any("BAR" in u for u in span):
                 best = span
     loads = sum(1 for u in best if "LDS" in u)
-    return len(best) / (2 * loads) if loads else None
+    return len(best) / (per_load * loads) if loads else None
 
 
 def b1_timing(torch, tb, full) -> tuple:
@@ -2226,9 +2302,11 @@ def main() -> None:
 
     # ---------------------------------------------------------------- sweep
     t0 = time.perf_counter()
-    cases = sweep(torch, fk, booth_precode, dev)
-    print(f"sweep: {cases} cases, fir_bank_rows, fir_bank_dot and the plain "
-          f"dot form all bit-equal to the plain rows form "
+    cases, mma_calls = sweep(torch, fk, booth_precode, dev)
+    print(f"sweep: {cases} cases, fir_bank_rows and fir_bank_dot on the "
+          f"CUDA-core route in each and on the tensor-core route in "
+          f"{mma_calls // 2} (shift <= vbl, the bytes and the band fitting), "
+          f"and the plain dot form, all bit-equal to the plain rows form "
           f"({time.perf_counter() - t0:.1f} s)")
 
     # ------------------------------------------------------------ main path
@@ -2250,24 +2328,38 @@ def main() -> None:
 
     counts = {}
     served = {}
-    fk.fir_bank_rows.launches = 0
-    fk.fir_bank_dot.launches = 0
+    fir_wrappers = {"fir_bank_rows": fk.fir_bank_rows,
+                    "fir_bank_dot": fk.fir_bank_dot}
+
+    def fir_counts():
+        """{wrapper: (launches, tensor-core launches)}"""
+        return {n: (f.launches, f.mma_launches)
+                for n, f in fir_wrappers.items()}
+
+    for f in fir_wrappers.values():
+        f.launches = f.mma_launches = 0
     for tag, sigs in flushes.items():
-        before = (fk.fir_bank_rows.launches, fk.fir_bank_dot.launches)
+        before = fir_counts()
         rids = [eng.submit(s.x, bank=c % 2) for c, s in enumerate(sigs)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.flush()
         dt = time.perf_counter() - t0
-        counts[tag] = (fk.fir_bank_rows.launches - before[0],
-                       fk.fir_bank_dot.launches - before[1])
+        counts[tag] = {n: (a - before[n][0], m - before[n][1])
+                       for n, (a, m) in fir_counts().items()}
         served[tag] = (rids, out, dt)
-    launches = {"fir_bank_rows": fk.fir_bank_rows.launches,
-                "fir_bank_dot": fk.fir_bank_dot.launches}
+    launches = {n: a for n, (a, _) in fir_counts().items()}
+    by_route = {n: {"mma": m, "cuda-core": a - m}
+                for n, (a, m) in fir_counts().items()}
     if eng.failed or eng.stats["quarantined"]:
         fail(f"the engine quarantined requests: {eng.failed}")
-    if counts["A"][0] < 1 or counts["B"][1] < 1:
-        fail(f"a kernel of the main path never launched: {counts}")
+    # each flush is one dispatch: flush A the rows form (above the
+    # auto-form budget), flush B the dot form, both on the tensor cores
+    want = {"A": {"fir_bank_rows": (1, 1), "fir_bank_dot": (0, 0)},
+            "B": {"fir_bank_rows": (0, 0), "fir_bank_dot": (1, 1)}}
+    if counts != want:
+        fail(f"the main path's launches (all, tensor-core) {counts}, "
+             f"expected {want}")
     for tag, sigs in flushes.items():
         rids, out, dt = served[tag]
         if sorted(out) != sorted(rids):
@@ -2284,11 +2376,13 @@ def main() -> None:
         snr = np.mean([snr_db(s.d1, out[r], FIR_DELAY)
                        for r, s in zip(rids, sigs)])
         samples = sum(len(s.x) for s in sigs)
+        cnt = counts[tag]
         print(f"flush {tag}: {len(sigs)} requests, {samples} samples, "
               f"{dt * 1e3:.3f} ms, {samples / dt:.6g} samples/s, launches "
-              f"rows={counts[tag][0]} dot={counts[tag][1]}, mean SNR "
-              f"{snr:.6f} dB, 8 sampled channels bit-equal to the CPU "
-              f"engine")
+              + ", ".join(f"{n} {a} (tensor cores {m}, CUDA cores {a - m})"
+                          for n, (a, m) in cnt.items())
+              + f", mean SNR {snr:.6f} dB, 8 sampled channels bit-equal to "
+              f"the CPU engine")
 
     # -------------------------------------------------------- paper penalty
     sig = make_signals(n=1 << 13, seed=0)
@@ -2330,36 +2424,52 @@ def main() -> None:
         c, n = xc.shape
         if fk.auto_form(None, c, n, taps, dev) != name.split("_")[-1]:
             fail(f"flush {tag} shape does not select {name}")
+        if fk.fir_bank_route(WL, vbl, kind, shift, taps) != "mma":
+            fail(f"flush {tag} does not take the tensor-core route")
         plain = getattr(fk, name + "_plain")
+        hook = getattr(fk, f"_{name}_on")
         y_p = plain(xc, hm, hn, **kw)
         torch.cuda.synchronize()
         err = int((y_k.to(torch.int64) - y_p.to(torch.int64)).abs().max())
-        call_ms = cuda_ms(torch, lambda: kern(xc, hm, hn, **kw), 20)
-        dev_ms = kernel_device_ms(torch, lambda: kern(xc, hm, hn, **kw), 20,
-                                  name + "_kernel")
-        ms = call_ms if dev_ms is None else dev_ms
-        plain_ms = cuda_ms(torch, lambda: plain(xc, hm, hn, **kw), 3)
-        rows = WL // 2 if name == "fir_bank_rows" \
-            else 1 + num_corr_rows(WL, vbl)
-        ops = c * n * taps * rows
-        nbytes = 4 * c * n * 2 + 4 * hm.numel() * 2
-        t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None})
-        dev_txt = "not measured" if dev_ms is None else f"{dev_ms:.6f} ms"
-        print(f"{name} at ({c}, {n}) x {taps} taps: kernel {dev_txt} on "
-              f"the device (profiler), wrapper call {call_ms:.6f} ms "
-              f"(CUDA events), plain {plain_ms:.6f} ms, bound "
-              f"{max(t_ops, t_bytes) * 1e3:.6f} ms ({ops} int32 ops, "
-              f"{nbytes} bytes)")
         if err != 0:
             fail(f"{name} differs from its plain version at the main "
                  f"path's shape (max abs error {err})")
+        call_ms = cuda_ms(torch, lambda: kern(xc, hm, hn, **kw), 20)
+        ms, how = launch_ms(torch, lambda: kern(xc, hm, hn, **kw), 20,
+                            FIR_KERNELS["mma"])
+        kw1 = dict(kw, kind=1)
+        ms1, how1 = launch_ms(torch, lambda: kern(xc, hm, hn, **kw1), 20,
+                              FIR_KERNELS["mma"])
+        cc_ms, cc_how = launch_ms(
+            torch, lambda: hook("cuda-core", xc, hm, hn, **kw), 20,
+            FIR_KERNELS[name])
+        plain_ms = cuda_ms(torch, lambda: plain(xc, hm, hn, **kw), 3)
+        conv_ms = conv1d_ms(torch, c, n, taps, dev)
+        bound, by, ops_ms = fir_bound_ms(name, c, n, taps, wl=WL, vbl=vbl,
+                                         kind=kind, shift=shift)
+        bound1, _, ops1_ms = fir_bound_ms(name, c, n, taps, wl=WL, vbl=vbl,
+                                          kind=1, shift=shift)
+        cc_bound, cc_by, _ = fir_bound_ms(name, c, n, taps, wl=WL, vbl=vbl,
+                                          kind=kind, shift=vbl + 1)
+        kernels.append({
+            "name": name, "route": "cuda", "source": FIR_MMA_SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "timed_by": how, "launches_by_route": by_route[name],
+            "cuda_core_ms": cc_ms})
+        print(f"{name} at ({c}, {n}) x {taps} taps (flush {tag}), wl 16 "
+              f"vbl 13 shift 5: the tensor-core route (fir_mma_kernel) "
+              f"{ms:.6f} ms ({how}; kind 1 {ms1:.6f} ms, {how1}), wrapper "
+              f"call {call_ms:.6f} ms (CUDA events); bound {bound:.6f} ms "
+              f"({by}; the {dot_byte_products(WL, vbl, kind)} int8 byte "
+              f"products a tap product take {ops_ms:.6f} ms, "
+              f"{ops1_ms:.6f} at kind 1), bound / time {bound / ms:.4g} "
+              f"(kind 1 {bound1 / ms1:.4g}); the CUDA-core route "
+              f"({FIR_KERNELS[name]}) {cc_ms:.6f} ms ({cc_how}), its int32 "
+              f"count {cc_bound:.6f} ms ({cc_by}); plain {plain_ms:.6f} ms; "
+              f"f32 F.conv1d(groups=C) at the same (C, N, taps) "
+              f"{conv_ms:.6f} ms (a yardstick, not the same function)")
 
     # ---------------------------------------------------- quant_matmul sweep
     import importlib
@@ -2539,11 +2649,13 @@ def main() -> None:
     entries, lines = b1_timing(torch, tb, full)
     for line in lines:
         print(line)
-    paths = _build.build_all(["bbm_matmul", "bbm_dot"])
+    paths = _build.build_all(["bbm_matmul", "bbm_dot", "fir_bank"])
     counts = {name: sass_per_product(paths[lib], part)
               for name, (lib, part) in SASS_KERNELS.items()}
-    print("the CUDA-core tile routes' compiled inner loops at wl 16, kind "
-          "0 (cuobjdump -sass), instructions per product: " + ", ".join(
+    counts["fir_bank_rows (CUDA-core route)"] = sass_per_product(
+        paths["fir_bank"], "fir_bank_rows_kernelILi8ELi0E", per_load=2 / 3)
+    print("the CUDA-core routes' compiled inner loops at wl 16, kind 0 "
+          "(cuobjdump -sass), instructions per product: " + ", ".join(
               f"{name} " + ("not measured" if c is None else f"{c:.4g}")
               for name, c in counts.items()))
     for name in b1_counters:

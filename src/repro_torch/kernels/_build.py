@@ -43,6 +43,7 @@ _SIGNATURES = {
     "fir_bank": {
         "fir_bank_rows_launch": ([_P, _P, _P, _P] + [_I] * 7 + [_P], _I),
         "fir_bank_dot_launch": ([_P] * 5 + [_I] * 7 + [_P], _I),
+        "fir_bank_mma_launch": ([_P, _P, _P, _P] + [_I] * 7 + [_P], _I),
         "fir_bank_error_string": ([_I], ctypes.c_char_p),
     },
     "quant_matmul": {

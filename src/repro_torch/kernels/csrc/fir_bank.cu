@@ -1,5 +1,17 @@
 // Broken-Booth FIR filterbank kernels for Hopper (sm_90a), plain C interface.
 //
+// Two routes, chosen by the Python rule fir_kernel.py: fir_bank_route from
+// (wl, vbl, kind, shift, taps) alone:
+//
+//   "mma"        (fir_mma.cuh) wherever shift <= vbl, x and bq are not both
+//                two bytes wide and the band fits in shared memory: every
+//                product is 2^vbl M, so the tap sum is one contraction, run
+//                on the int8 tensor cores as a banded (Toeplitz) product.
+//                Both wrappers, fir_bank_rows and fir_bank_dot, take it.
+//   "cuda-core"  the two kernels below, for shift > vbl (a floor per
+//                product: no contraction form), exact Booth's two-byte x and
+//                bq, and tap counts whose band exceeds shared memory:
+//
 //   fir_bank_rows  replaces the Pallas kernel repro/kernels/fir_kernel.py
 //                  _fir_bank_kernel: y[c,n] = sum_k bbm(x[c,n-k], h[c,k]) >> shift,
 //                  walking the wl/2 Booth rows of every tap product.
@@ -9,9 +21,9 @@
 //                  then the shift rules of the reference (per-product >> u when
 //                  shift > vbl, a final << (vbl - shift) when vbl > shift).
 //
-// Both are bound by int32 ALU issue, not memory: a (C, N) flush moves
-// 8*C*N bytes but does C*N*taps*wl/2 row evaluations (rows) or
-// C*N*taps*(1+R) multiply-adds (dot).  The design keeps every operand of
+// The CUDA-core kernels are bound by int32 ALU issue, not memory: a (C, N)
+// flush moves 8*C*N bytes but does C*N*taps*wl/2 row evaluations (rows) or
+// C*N*taps*(1+R) multiply-adds (dot).  Their design keeps every operand of
 // that arithmetic on chip: one block owns one (channel, time tile), stages
 // the tile's samples plus the taps-1 samples before it (zeros before n = 0)
 // sign-extended into shared memory, and stages its channel's digit planes
@@ -34,6 +46,7 @@
 #include <stdint.h>
 
 #include "bbm_rows.cuh"
+#include "fir_mma.cuh"
 
 namespace {
 
@@ -268,6 +281,18 @@ int fir_bank_dot_launch(const void* x, const void* bq, const void* hmag,
       static_cast<const int32_t*>(hmag), static_cast<const int32_t*>(hneg),
       static_cast<int32_t*>(out), C, N, taps, wl, vbl, kind, shift,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Either wrapper's tensor-core route (shift <= vbl): the same arguments as
+// fir_bank_rows_launch; cudaErrorInvalidValue where the route cannot take
+// the call.
+int fir_bank_mma_launch(const void* x, const void* hmag, const void* hneg,
+                        void* out, int C, int N, int taps, int wl, int vbl,
+                        int kind, int shift, void* stream) {
+  return static_cast<int>(fir_mma::launch(
+      static_cast<const int*>(x), static_cast<const int*>(hmag),
+      static_cast<const int*>(hneg), static_cast<int*>(out), C, N, taps, wl,
+      vbl, kind, shift, static_cast<cudaStream_t>(stream)));
 }
 
 const char* fir_bank_error_string(int err) {

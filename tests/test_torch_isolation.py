@@ -406,6 +406,62 @@ def test_kernels_equal_plain_versions_on_the_card(kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mma", "cuda-core"])
+@pytest.mark.parametrize("kind", [0, 1])
+def test_fir_routes_equal_plain_versions_on_the_card(route, kind):
+    """Both FIR wrappers forced onto each route: the tensor cores' split
+    schedule (few tiles) and tiled one (70 channels), shifts up to vbl
+    (and past it on the CUDA cores), each call counted once, the
+    tensor-core share in ``mma_launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for c, n in ((3, 1), (2, 4097), (70, 600)):
+        x, hm, hn = _operands("cuda", c=c, n=n)
+        for shift in (5, 13, 15):
+            if route == "mma" and shift > 13:
+                continue
+            kw = dict(wl=16, vbl=13, kind=kind, shift=shift)
+            want = t_fk.fir_bank_rows_plain(x, hm, hn, **kw)
+            for name in ("fir_bank_rows", "fir_bank_dot"):
+                fn, hook = getattr(t_fk, name), getattr(t_fk, f"_{name}_on")
+                before = (fn.launches, fn.mma_launches)
+                got = hook(route, x, hm, hn, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (name, c, n, shift)
+                assert (fn.launches, fn.mma_launches) == (
+                    before[0] + 1, before[1] + (route == "mma"))
+
+
+@pytest.mark.cuda
+def test_fir_rule_takes_the_tensor_cores_on_the_card():
+    """The public wrappers take the rule's route: the tensor cores at
+    shift <= vbl (faulted planes too), the CUDA cores past it; a forced
+    tensor-core call past it raises and counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core.faults import FaultSpec, apply_plane_faults
+    x, hm, hn = _operands("cuda", c=4, n=3000)
+    fm, fn_ = apply_plane_faults(hm, hn, FaultSpec(
+        target="plane", model="flip", p=0.05, lane="all", seed=3), vbl=13)
+    for planes in ((hm, hn), (fm.contiguous(), fn_.contiguous())):
+        for shift, mma in ((5, 1), (15, 0)):
+            kw = dict(wl=16, vbl=13, kind=1, shift=shift)
+            want = t_fk.fir_bank_rows_plain(x, *planes, **kw)
+            for fn in (t_fk.fir_bank_rows, t_fk.fir_bank_dot):
+                before = (fn.launches, fn.mma_launches)
+                got = fn(x, *planes, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+                assert (fn.launches, fn.mma_launches) == (
+                    before[0] + 1, before[1] + mma)
+    before = (t_fk.fir_bank_rows.launches, t_fk.fir_bank_rows.mma_launches)
+    with pytest.raises(ValueError, match="no contraction form"):
+        t_fk._fir_bank_rows_on("mma", x, hm, hn, wl=16, vbl=13, shift=15)
+    assert (t_fk.fir_bank_rows.launches,
+            t_fk.fir_bank_rows.mma_launches) == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("wl", [8, 16])
 def test_kernel_within_bound_of_plain_version_on_the_card(wl):
     if not torch.cuda.is_available():
