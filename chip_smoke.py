@@ -146,6 +146,28 @@ of the JAX package.  Phases, each of which fails the run:
      CUDA-core routes' instructions per product in their compiled inner
      loops, the FIR rows kernel's among them.
 
+ 19. slice 5, bitexact serving from the int-code KV cache: the batched
+     codes-in entry ``bbm_dot_coded_batched`` bit-equal to its plain
+     version (CPU copies) on both products of decode attention (the score
+     product with per-column K scales, the value product with per-block V
+     scales and the ordered block add), both kinds, S 16-512, ragged
+     lengths over stale codes and never-written blocks, a chunk shorter
+     than a block, int8 codes, unit scales; then full-width
+     qwen2-0.5b bitexact (bbm0 WL 16 VBL 13, ``apply_to="all"``,
+     ``kv_codes``) through the continuous ``Scheduler``: 8 slots,
+     max_len 512, 32 requests of 32-256 prompt tokens and 64 new tokens
+     each, the weights precoded once; the counts zeroed just before and
+     every ``lm_apply`` call held to exactly 72 ``bbm_dot_scaled`` and 48
+     ``bbm_dot_coded_batched`` launches, prefills and decodes alike;
+     nothing failed, every logit finite; decode p50 / p90 and tokens/s;
+     the code cache's bytes against bf16 (``memory_report``); a 2-layer
+     cut at full width served on the card and teacher-forced on the CPU
+     port (logits within ``LOGIT_RTOL``); each coded launch of a decode
+     step at the main path's lengths (device ms, plain ms, bound, an f32
+     ``torch.bmm`` yardstick) and ``bbm_dot_scaled`` at the decode
+     shapes (8, 896) x (896, 4864) and (8, 4864) x (4864, 896); a
+     profiled decode window (idle share, device operations, host time).
+
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -755,15 +777,20 @@ def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
 LOGIT_RTOL = 2.0 ** -5
 
 
-def lm_cpu_check(torch, dev, cfg, rt, params) -> dict:
+def lm_cpu_check(torch, dev, cfg, rt, params, kv_codes=False) -> dict:
     """Two requests on the card, then on the CPU port teacher-forced on
-    the card's tokens: every step's logits within ``LOGIT_RTOL``."""
+    the card's tokens: every step's logits within ``LOGIT_RTOL``.  Each
+    side's step functions carry its own weight planes (bitexact mode);
+    ``kv_codes``: both serve from the int-code KV cache."""
     from repro_torch.serve import Request, Scheduler, make_serve_fns
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (32, 40)]
-    rec = Recorder(torch, make_serve_fns(cfg, rt), keep=True)
+    rec = Recorder(torch, make_serve_fns(
+        cfg, rt, amm_planes=rt.build_planes(cfg, params),
+        kv_codes=kv_codes), keep=True)
     card = Scheduler(cfg, rt, params, 8, 64, decode_fn=rec.decode,
-                     prefill_fn=rec.prefill, continuous=True, device=dev)
+                     prefill_fn=rec.prefill, continuous=True,
+                     kv_codes=kv_codes, device=dev)
     for i, p in enumerate(prompts):
         card.submit(Request(rid=i, prompt=p, max_new=8))
     while card.step():
@@ -772,7 +799,8 @@ def lm_cpu_check(torch, dev, cfg, rt, params) -> dict:
         return {k: to_cpu(v) for k, v in tree.items()} \
             if isinstance(tree, dict) else tree.cpu()
     cpu_params = to_cpu(params)
-    fns = make_serve_fns(cfg, rt)
+    fns = make_serve_fns(cfg, rt, amm_planes=rt.build_planes(cfg, cpu_params),
+                         kv_codes=kv_codes)
     state = {"i": 0, "worst": 0.0, "flips": 0, "checked": 0}
 
     def forced(kind, logits):
@@ -804,7 +832,8 @@ def lm_cpu_check(torch, dev, cfg, rt, params) -> dict:
         return forced("decode", logits), c
 
     cpu = Scheduler(cfg, rt, cpu_params, 8, 64, decode_fn=decode,
-                    prefill_fn=prefill, continuous=True, device="cpu")
+                    prefill_fn=prefill, continuous=True, kv_codes=kv_codes,
+                    device="cpu")
     for i, p in enumerate(prompts):
         cpu.submit(Request(rid=i, prompt=p, max_new=8))
     while cpu.step():
@@ -900,6 +929,74 @@ def qm_host_us(torch, qm, dev, cfg, rt, params) -> str:
             f"{got['bare launch']:.3f} us")
 
 
+def decode_window(torch, sched, name: str, kernels, prefills: int,
+                  steps: int = 5) -> tuple:
+    """A profiled window of ``steps`` pure decode steps of ``sched``
+    (device time only), then 2 more with the host's operations traced
+    too; returns (printed lines, the window's idle share).  ``kernels``:
+    the profiler names of the ``name`` wrapper's kernels, whose share is
+    reported apart; ``prefills``: the scheduler's prefills so far, which
+    the window must not add to."""
+    from torch.profiler import ProfilerActivity, profile
+    lines = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            sched.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, k_us, k_n, launches, by_kernel = 0.0, 0.0, 0, 0, []
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", None)
+        t = t if t is not None else ev.self_cuda_time_total
+        if t <= 0:
+            continue
+        busy_us += t
+        launches += ev.count
+        by_kernel.append((t, ev.count, ev.key))
+        if any(q in ev.key for q in kernels):
+            k_us += t
+            k_n += ev.count
+    idle = 1.0 - busy_us / 1e3 / wall_ms
+    lines.append(
+        f"decode window ({steps} steps, {sched.stats['steps']} so far, "
+        f"profiled): {wall_ms / steps:.3f} ms per step, device busy "
+        f"{busy_us / steps / 1e3:.3f} ms per step ({name} "
+        f"{k_us / steps / 1e3:.3f} ms in {k_n / steps:.0f} launches), idle "
+        f"share {idle:.4f}, {launches / steps:.0f} device operations per "
+        f"step")
+    for t, count, key in sorted(by_kernel, reverse=True)[:10]:
+        lines.append(f"  decode step device time: {t / steps / 1e3:.4f} ms "
+                     f"in {count / steps:.0f} launches of {key[:90]}")
+    host_steps = 2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(host_steps):
+            sched.step()
+        torch.cuda.synchronize()
+        host_wall = (time.perf_counter() - t0) * 1e3 / host_steps
+    if sched.stats["prefills"] != prefills:
+        fail("a profiled decode window admitted a prefill")
+    ops = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
+                  for ev in prof.key_averages()
+                  if ev.self_cpu_time_total > 0), reverse=True)
+    in_ops = sum(t for t, _, _ in ops) / 1e3 / host_steps
+    lines.append(
+        f"decode host account ({host_steps} steps, host and device "
+        f"profiled): {host_wall:.3f} ms per step with the profiler's own "
+        f"cost, {in_ops:.3f} ms of it inside torch operations (self CPU), "
+        f"{sum(c for _, c, _ in ops) / host_steps:.0f} host operations per "
+        f"step; the rest is Python between them")
+    for t, count, key in ops[:12]:
+        lines.append(f"  decode step host time: {t / 1e3 / host_steps:.4f} "
+                     f"ms self CPU in {count / host_steps:.0f} calls of "
+                     f"{key[:70]}")
+    return lines, idle
+
+
 def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
     """quant_matmul at the main path's shapes, both routes around the
     threshold, the wrapper's host time, and a profiled decode window
@@ -980,60 +1077,9 @@ def lm_timing(torch, dev, cfg, rt, params, qm, amm_scale) -> tuple:
             0, cfg.vocab, 64).tolist(), max_new=40))
     for _ in range(10):
         sched.step()                 # admit all 8 and warm up
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            sched.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_us, qm_us, qm_n, launches, by_kernel = 0.0, 0.0, 0, 0, []
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", None)
-        t = t if t is not None else ev.self_cuda_time_total
-        if t <= 0:
-            continue
-        busy_us += t
-        launches += ev.count
-        by_kernel.append((t, ev.count, ev.key))
-        if any(q in ev.key for q in QM_KERNELS):
-            qm_us += t
-            qm_n += ev.count
-    idle = 1.0 - busy_us / 1e3 / wall_ms
-    lines.append(
-        f"decode window (5 steps, 8 residents, profiled): {wall_ms / 5:.3f} "
-        f"ms per step, device busy {busy_us / 5e3:.3f} ms per step "
-        f"(quant_matmul {qm_us / 5e3:.3f} ms in {qm_n / 5:.0f} launches), "
-        f"idle share {idle:.4f}, {launches / 5:.0f} device operations per "
-        f"step")
-    for t, count, key in sorted(by_kernel, reverse=True)[:10]:
-        lines.append(f"  decode step device time: {t / 5e3:.4f} ms in "
-                     f"{count / 5:.0f} launches of {key[:90]}")
-    steps = 2
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            sched.step()
-        torch.cuda.synchronize()
-        host_wall = (time.perf_counter() - t0) * 1e3 / steps
-    if sched.stats["prefills"] != 8:
-        fail("a profiled decode window admitted a prefill")
-    ops = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
-                  for ev in prof.key_averages()
-                  if ev.self_cpu_time_total > 0), reverse=True)
-    in_ops = sum(t for t, _, _ in ops) / 1e3 / steps
-    lines.append(
-        f"decode host account ({steps} steps, host and device profiled): "
-        f"{host_wall:.3f} ms per step with the profiler's own cost, "
-        f"{in_ops:.3f} ms of it inside torch operations (self CPU), "
-        f"{sum(c for _, c, _ in ops) / steps:.0f} host operations per "
-        f"step; the rest is Python between them")
-    for t, count, key in ops[:12]:
-        lines.append(f"  decode step host time: {t / 1e3 / steps:.4f} ms "
-                     f"self CPU in {count / steps:.0f} calls of {key[:70]}")
+    win_lines, idle = decode_window(torch, sched, "quant_matmul",
+                                    QM_KERNELS, prefills=8)
+    lines += win_lines
     return rows, lines, idle
 
 
@@ -1541,18 +1587,27 @@ def dot_byte_products(wl: int, vbl: int, kind: int) -> int:
                floor_split_byte_products(wl, vbl, kind))
 
 
+def code_bytes(wl: int) -> int:
+    """The fewest bytes a wl-bit code can move in: 1 at wl <= 8, 2 at
+    wl <= 16."""
+    return -(-wl // 8)
+
+
 def dot_scaled_bound_ms(m: int, k: int, n: int, wl: int = 16, vbl: int = 13,
                         kind: int = 0, weight_bytes=None) -> tuple:
     """(bound ms, what bounds it) of one contracted dot-form call
     (``bbm_dot_scaled``, ``bbm_dot_planes``, ``bbm_matmul_dot`` at shift
     <= vbl): its int8 byte products (``dot_byte_products``, 2 operations
     each) over the int8 tensor-core peak, against the x codes and the
-    weight operand read once (``weight_bytes``, default int32 codes) and
-    the 4-byte output written once over 3.35 TB/s."""
+    weight operand read once (``weight_bytes``, default the weight's
+    codes) and the 4-byte output written once over 3.35 TB/s.  A wl-bit
+    code needs ``code_bytes(wl)`` bytes, whatever the int32 it is held
+    in."""
     t_ops = 2 * dot_byte_products(wl, vbl, kind) * m * k * n \
         / INT8_OPS_PER_S
-    wb = 4 * k * n if weight_bytes is None else weight_bytes
-    t_bytes = (4 * (m * k + m * n) + wb) / HBM_BYTES_PER_S
+    cb = code_bytes(wl)
+    wb = cb * k * n if weight_bytes is None else weight_bytes
+    t_bytes = (cb * m * k + 4 * m * n + wb) / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -2256,6 +2311,316 @@ def b1_timing(torch, tb, full) -> tuple:
     return entries, lines
 
 
+# ------------------------------------------------ slice 5: bitexact serving
+CODED_SOURCE = "src/repro_torch/kernels/csrc/bbm_dot.cu"
+CODED_KERNEL = "bbm_coded_kernel"
+CODED_REPLACES = "src/repro/kernels/bbm_matmul.py:112"
+KV_BLOCK = 16
+SERVE_SLOTS, SERVE_LEN, SERVE_KV, SERVE_G, SERVE_D = 8, 512, 2, 7, 64
+
+
+def bitexact_config(layers=None):
+    """qwen2-0.5b at full width, bitexact bbm0 WL 16 / VBL 13 on the MLPs
+    and the attention products (``--amm bitexact --amm-attn``)."""
+    import dataclasses
+    from repro_torch.configs.base import AmmConfig
+    cfg = dataclasses.replace(lm_config(), amm=AmmConfig(
+        mode="bitexact", mul="bbm0", wl=16, param=13, apply_to="all"))
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def coded_operands(torch, rng, dev, *, s: int, wl: int, b=SERVE_SLOTS,
+                   kvh=SERVE_KV, g=SERVE_G, d=SERVE_D, kv_len=None) -> dict:
+    """Both coded products' operands of one decode step over a code cache
+    of S positions: random cached codes (stale past each slot's length),
+    block scales, zeroed (never written) past the live blocks of every
+    other slot, ragged lengths (1 and S among them) unless given; q and
+    the probabilities quantized per (slot, kv-head) slice."""
+    from repro_torch.kernels.ref import amm_quantize_slices
+    lim = 2 ** (wl - 1) - 1
+    dt = torch.int16 if wl > 8 else torch.int8
+    if kv_len is None:
+        kv_len = rng.integers(1, s + 1, b)
+        kv_len[0], kv_len[-1] = 1, s
+    kv_len = np.asarray(kv_len, np.int64)
+    ops = {}
+    for side in ("k", "v"):
+        ops[side] = torch.from_numpy(rng.integers(
+            -lim - 1, lim + 1, (b, s, kvh, d))).to(dt).to(dev)
+        sc = rng.uniform(1e-3, 0.1, (b, s // KV_BLOCK, kvh)).astype(
+            np.float32)
+        for i in range(1, b, 2):
+            sc[i, -(-int(kv_len[i]) // KV_BLOCK):] = 0.0
+        ops[side + "_scale"] = torch.from_numpy(sc).to(dev)
+    live = np.arange(s)[None, :] < kv_len[:, None]
+    q = rng.standard_normal((b, kvh, g, d)).astype(np.float32) / 8.0
+    p = rng.exponential(1.0, (b, kvh, g, s)) * live[:, None, None, :]
+    p = (p / p.sum(-1, keepdims=True)).astype(np.float32)
+    ops["aq"], ops["s_a"] = amm_quantize_slices(torch.from_numpy(q).to(dev),
+                                                wl)
+    ops["pq"], ops["s_p"] = amm_quantize_slices(torch.from_numpy(p).to(dev),
+                                                wl)
+    ops["live"] = torch.from_numpy(kv_len).to(dev)
+    ops["kv_len"] = kv_len
+    return ops
+
+
+def coded_calls(ops) -> dict:
+    """{product: (a, s_a, b view, s_b view, per)} of decode attention on
+    the code cache, the views those ``decode_attention_codes`` takes."""
+    return {"qk": (ops["aq"], ops["s_a"], ops["k"].permute(0, 2, 3, 1),
+                   ops["k_scale"].permute(0, 2, 1), "column"),
+            "pv": (ops["pq"], ops["s_p"], ops["v"].permute(0, 2, 1, 3),
+                   ops["v_scale"].permute(0, 2, 1), "kblock")}
+
+
+def coded_sweep(torch, tb, dev) -> int:
+    """``bbm_dot_coded_batched`` bit-equal to its plain version (on CPU
+    copies) over both products, both kinds, S 16-512, the WL 16 points of
+    the main path and of a chunk shorter than a block, int8 codes at WL
+    8, and unit scales (the raw sums, ``bbm_dot_scaled`` of each slice)."""
+    rng = np.random.default_rng(11)
+    cases = 0
+    for wl, vbl, kind, sizes in ((16, 13, 0, (16, 48, 128, 512)),
+                                 (16, 13, 1, (16, 48, 128, 512)),
+                                 (16, 3, 0, (48, 128)), (8, 5, 1, (64,))):
+        for s in sizes:
+            ops = coded_operands(torch, rng, dev, s=s, wl=wl)
+            kw = dict(wl=wl, vbl=vbl, kind=kind)
+            for name, (a, s_a, b, s_b, per) in coded_calls(ops).items():
+                ones = (torch.ones_like(s_a),
+                        torch.ones((*b.shape[:2], b.shape[3]), device=dev))
+                for descale in (True, False) if s == 48 else (True,):
+                    args = (a, s_a, b, s_b) if descale \
+                        else (a, ones[0], b, ones[1])
+                    extra = dict(block=KV_BLOCK, per=per, live=ops["live"]) \
+                        if descale else dict(block=1)
+                    got = tb.bbm_dot_coded_batched(*args, **kw, **extra)
+                    cpu = [t.cpu() for t in args]
+                    if descale:
+                        extra["live"] = extra["live"].cpu()
+                    want = tb.bbm_dot_coded_batched_plain(*cpu, **kw,
+                                                          **extra)
+                    if not torch.equal(got.cpu(), want):
+                        fail(f"bbm_dot_coded_batched ({name}, S={s}, wl={wl} "
+                             f"vbl={vbl} kind={kind}, descale={descale}) "
+                             f"differs from its plain version by "
+                             f"{float((got.cpu() - want).abs().max())}")
+                    cases += 1
+    return cases
+
+
+class LaunchRecorder(Recorder):
+    """A ``Recorder`` that also holds every ``lm_apply`` call's launches of
+    each counted wrapper to ``want``; ``start()`` zeroes the counts."""
+
+    def __init__(self, torch, fns, counters: dict, want: dict):
+        super().__init__(torch, fns, keep=False)
+        self.counters, self.want = counters, want
+        self.kinds = set()
+
+    def start(self):
+        for f in self.counters.values():
+            f.launches = 0
+        self.last = {n: 0 for n in self.counters}
+
+    def _note(self, kind, tokens, pos, logits):
+        super()._note(kind, tokens, pos, logits)
+        now = {n: f.launches for n, f in self.counters.items()}
+        got = {n: now[n] - self.last[n] for n in now}
+        self.last = now
+        if got != self.want:
+            fail(f"an lm_apply {kind} call launched {got}, expected "
+                 f"{self.want}")
+        self.kinds.add(kind)
+
+
+def serve_bitexact(torch, dev, cfg, params, tb) -> dict:
+    """The bitexact kv-codes workload through the continuous Scheduler:
+    8 slots, max_len 512, 32 requests of 32-256 prompt tokens and 64 new
+    tokens each; every call's launches checked."""
+    from repro_torch.models import ModelRuntime
+    from repro_torch.serve import Request, Scheduler, make_serve_fns
+    rt = ModelRuntime.build(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planes = rt.build_planes(cfg, params)
+    torch.cuda.synchronize()
+    planes_s = time.perf_counter() - t0
+    layers = cfg.n_layers
+    rec = LaunchRecorder(
+        torch, make_serve_fns(cfg, rt, amm_planes=planes, kv_codes=True),
+        {"bbm_dot_scaled": tb.bbm_dot_scaled,
+         "bbm_dot_coded_batched": tb.bbm_dot_coded_batched},
+        {"bbm_dot_scaled": 3 * layers, "bbm_dot_coded_batched": 2 * layers})
+    sched = Scheduler(cfg, rt, params, SERVE_SLOTS, SERVE_LEN,
+                      decode_fn=rec.decode, prefill_fn=rec.prefill,
+                      continuous=True, kv_codes=True, device=dev)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, int(rng.integers(32, 257))).tolist(), max_new=64)
+        for i in range(32)]
+    for r in reqs:
+        sched.submit(r)
+    step_ms, lens = [], None
+    rec.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        pre = sched.stats["prefills"]
+        ts = time.perf_counter()
+        n = sched.step()
+        if not n:
+            break
+        if sched.stats["prefills"] == pre:      # a pure decode step
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            if lens is None and all(s is not None for s in sched.slots):
+                lens = sched.pos.copy()         # a full decode batch
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sched.stats
+    calls = st["steps"] + st["prefills"]
+    if rec.calls != calls or rec.kinds != {"prefill", "decode"}:
+        fail(f"the Scheduler made {rec.calls} lm_apply calls ({rec.kinds}),"
+             f" its stats say {calls}")
+    if st["failed"] or st["deadline_expired"] or st["completed"] != len(reqs):
+        fail(f"the Scheduler did not serve every request: {st}")
+    if any(r.error or len(r.out) != 64 for r in reqs):
+        fail("a request ended early or failed")
+    if int(rec.bad) != 0:
+        fail(f"{int(rec.bad)} non-finite logits on the bitexact path")
+    step_ms.sort()
+    return {"stats": st, "calls": calls, "wall_s": wall, "step_ms": step_ms,
+            "tokens": sum(len(r.out) for r in reqs),
+            "prompt_tokens": sum(len(r.prompt) for r in reqs),
+            "launches": {n: f.launches for n, f in rec.counters.items()},
+            "planes": planes, "planes_s": planes_s, "lens": lens, "rt": rt}
+
+
+def first_layers(params, n: int):
+    """The parameters of an ``n``-layer cut: the first n of every stacked
+    layer leaf (views)."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) \
+            else t[:n]
+    return dict(params, layers=cut(params["layers"]))
+
+
+def coded_bound_ms(ops, per: str, wl=16, vbl=13, kind=0) -> tuple:
+    """(bound ms, what bounds it) of one batched coded launch on this
+    run's data: the bytes it must move (a's codes at ``code_bytes(wl)``
+    and scales, the live cached codes and their block scales, the int32
+    lengths, the f32 output) over 3.35 TB/s, against its live products at
+    the contracted dot form's fewest int8 byte products
+    (``dot_byte_products``, 2 operations each) over the int8 tensor-core
+    peak."""
+    b, s_max, kvh, d = ops["k"].shape
+    bt, m = b * kvh, ops["aq"].shape[2]
+    live = int(np.sum(ops["kv_len"])) * kvh             # slice positions
+    blocks = int(np.sum(-(-ops["kv_len"] // KV_BLOCK))) * kvh
+    # a: q's codes (M, d) a slice, or P's live columns; out: (M, S) scores
+    # or (M, d) values a slice
+    a_elems, n_out = (bt * m * d, s_max) if per == "column" \
+        else (m * live, d)
+    nbytes = (code_bytes(wl) * a_elems + 4 * bt
+              + ops["k"].element_size() * live * d
+              + 4 * blocks + 4 * b + 4 * bt * m * n_out)
+    products = m * live * d
+    t_ops = 2 * dot_byte_products(wl, vbl, kind) * products / INT8_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def coded_timing(torch, tb, dev, lens) -> tuple:
+    """The batched entry's two launches of a decode step at the main
+    path's shapes and its slots' lengths: device ms, plain ms (on the
+    card), bound, and one f32 ``torch.bmm`` of the same (Bt, M, K) x (Bt,
+    K, N) as a yardstick (exact products, not the same function)."""
+    rng = np.random.default_rng(12)
+    ops = coded_operands(torch, rng, dev, s=SERVE_LEN, wl=16, kv_len=lens)
+    rows, lines = {}, []
+    for name, (a, s_a, b, s_b, per) in coded_calls(ops).items():
+        kw = dict(wl=16, vbl=13, kind=0, block=KV_BLOCK, per=per,
+                  live=ops["live"])
+        run = lambda: tb.bbm_dot_coded_batched(  # noqa: E731
+            a, s_a, b, s_b, **kw)
+        plain = lambda: tb.bbm_dot_coded_batched_plain(  # noqa: E731
+            a, s_a, b, s_b, **kw)
+        ms, how = launch_ms(torch, run, 50, CODED_KERNEL)
+        call_ms = cuda_ms(torch, run, 50)
+        plain_ms = cuda_ms(torch, plain, 3)
+        err = float((run() - plain()).abs().max())
+        if err != 0:
+            fail(f"bbm_dot_coded_batched ({name}) differs from its plain "
+                 f"version on the card by {err}")
+        af = a.reshape(-1, *a.shape[2:]).float()
+        bf = b.reshape(-1, *b.shape[2:]).float().contiguous()
+        bmm_ms = cuda_ms(torch, lambda: torch.bmm(af, bf), 50)
+        bound, by = coded_bound_ms(ops, per)
+        rows[name] = dict(ms=ms, how=how, plain_ms=plain_ms, bound=bound,
+                          by=by, bmm_ms=bmm_ms, err=err)
+        lines.append(
+            f"bbm_dot_coded_batched {name} ({a.shape[0] * a.shape[1]} slices"
+            f" of ({a.shape[2]}, {a.shape[3]}) x ({b.shape[2]}, "
+            f"{b.shape[3]}), per={per}, lengths {list(map(int, lens))}): "
+            f"kernel {ms:.6f} ms ({how}), wrapper call {call_ms:.6f} ms "
+            f"(CUDA events), plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
+            f"({by}; bound / time {bound / ms:.4g}), f32 torch.bmm "
+            f"yardstick {bmm_ms:.6f} ms; bit-equal to the plain version")
+    return rows, lines
+
+
+def b2_decode_timing(torch, tb, dev, planes, params) -> tuple:
+    """``bbm_dot_scaled`` at the decode step's two MLP shapes, each call on
+    the next layer's precoded weight codes (cold in L2, as on the main
+    path): device ms, plain ms, bound, and the f32 ``torch.matmul`` of the
+    same shape on the layer's float weight as a yardstick."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    mlp = planes["layers"]["mlp"]
+    rows, lines = [], []
+    for name, key in (("gate/up", "w_gate"), ("down", "w_down")):
+        codes = mlp[key]["codes"]                 # (L, K, N) int32
+        weights = params["layers"]["mlp"][key]    # (L, K, N) f32
+        k, n = codes.shape[1:]
+        x = torch.randint(-32768, 32768, (8, k), generator=gen,
+                          device=dev, dtype=torch.int32)
+        turn = [0]
+
+        def w():
+            turn[0] += 1
+            return codes[turn[0] % codes.shape[0]]
+        run = lambda: tb.bbm_dot_scaled(  # noqa: E731
+            x, w(), wl=16, vbl=13, kind=0)
+        plain = lambda: tb.bbm_dot_scaled_plain(  # noqa: E731
+            x, w(), wl=16, vbl=13, kind=0)
+        ms, how = launch_ms(torch, run, 2 * codes.shape[0],
+                            TRAIN_KERNELS["bbm_dot_scaled"])
+        plain_ms = cuda_ms(torch, plain, 3)
+        xf = x.float()
+        lib_ms = cuda_ms(torch, lambda: xf @ weights[turn[0] % len(weights)],
+                         2 * codes.shape[0])
+        turn[0] = 0
+        got = run()
+        turn[0] = 0
+        err = float((got - plain()).abs().max())
+        if err != 0:
+            fail(f"bbm_dot_scaled at the decode shape (8, {k}) x ({k}, {n}) "
+                 f"differs from its plain version by {err}")
+        bound, by = dot_scaled_bound_ms(8, k, n)
+        rows.append(dict(ms=ms, how=how, plain_ms=plain_ms, bound=bound,
+                         by=by, lib_ms=lib_ms, err=err))
+        lines.append(
+            f"bbm_dot_scaled at the decode {name} shape (8, {k}) x ({k}, "
+            f"{n}), weights from device memory: kernel {ms:.6f} ms ({how}), "
+            f"plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; bound / "
+            f"time {bound / ms:.4g}), f32 torch.matmul yardstick {lib_ms:.6f} "
+            f"ms; bit-equal to the plain version")
+    return rows, lines
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2664,6 +3029,91 @@ def main() -> None:
                              "replaces": B1_REPLACES[name],
                              "launches": b1_launches[name]},
                             **entries[name]))
+
+    # --------------------------------- slice 5: bitexact kv-codes serving
+    from repro_torch.serve.kv_cache import memory_report
+    t0 = time.perf_counter()
+    coded_cases = coded_sweep(torch, tb, dev)
+    print(f"coded sweep: {coded_cases} cases, bbm_dot_coded_batched "
+          f"bit-equal to its plain version (CPU copies): the score and value "
+          f"products, bbm0 and bbm1 at WL 16 / VBL 13, S 16-512, bbm0 at VBL "
+          f"3 (chunks of 7 inside a block), int8 codes at WL 8, ragged "
+          f"lengths over stale codes and never-written blocks, and unit "
+          f"scales ({time.perf_counter() - t0:.1f} s)")
+    bx_cfg = bitexact_config()
+    res = serve_bitexact(torch, dev, bx_cfg, params, tb)
+    st, steps = res["stats"], res["step_ms"]
+    print(f"bitexact kv-codes serving: {bx_cfg.name} at full width, bbm0 "
+          f"WL 16 VBL 13 apply_to=all, {SERVE_SLOTS} slots, max_len "
+          f"{SERVE_LEN}: {len(steps)} pure decode steps of {st['steps']}, "
+          f"{st['prefills']} prefills, {res['tokens']} tokens generated "
+          f"({res['prompt_tokens']} prompt tokens) in {res['wall_s']:.3f} "
+          f"s: {res['tokens'] / res['wall_s']:.6g} generated tokens/s; "
+          f"decode step ms p50 {steps[len(steps) // 2]:.3f}, p90 "
+          f"{steps[int(len(steps) * 0.9)]:.3f}; launches {res['launches']} "
+          f"= (72, 48) x {res['calls']} lm_apply calls, each call checked "
+          f"(prefills and decodes); nothing failed; all logits finite; "
+          f"weight planes built once in {res['planes_s']:.3f} s")
+    rep = memory_report(bx_cfg, SERVE_SLOTS, SERVE_LEN, wl=16)
+    print(f"code cache at {SERVE_SLOTS} slots x {SERVE_LEN} positions, WL "
+          f"16: codes {rep['code_bytes']} B, scales {rep['scale_bytes']} "
+          f"B, bf16 cache {rep['bf16_bytes']} B: ratio_codes "
+          f"{rep['ratio_codes']!r}, ratio_total {rep['ratio_total']!r}, "
+          f"scale_overhead {rep['scale_overhead']!r}")
+    t0 = time.perf_counter()
+    cut = bitexact_config(layers=2)
+    chk = lm_cpu_check(torch, dev, cut, res["rt"], first_layers(params, 2),
+                       kv_codes=True)
+    print(f"bitexact card vs CPU (2 layers, full width, kv codes): "
+          f"{chk['calls']} lm_apply calls of two requests replayed on the "
+          f"CPU port, teacher-forced: worst |logit error| / max|logit| "
+          f"{chk['worst']:.4g} (tolerance {LOGIT_RTOL}), greedy tokens "
+          f"equal at all {chk['checked']} clear rows "
+          f"({time.perf_counter() - t0:.1f} s)")
+    coded_rows, lines = coded_timing(torch, tb, dev, res["lens"])
+    b2_rows, b2_lines = b2_decode_timing(torch, tb, dev, res["planes"],
+                                         params)
+    for line in lines + b2_lines:
+        print(line)
+    from repro_torch.serve import Request, Scheduler
+    sched = Scheduler(bx_cfg, res["rt"], params, SERVE_SLOTS, SERVE_LEN,
+                      continuous=True, kv_codes=True, device=dev)
+    rng = np.random.default_rng(6)
+    for i in range(SERVE_SLOTS):
+        sched.submit(Request(rid=i, prompt=rng.integers(
+            0, bx_cfg.vocab, 64).tolist(), max_new=40))
+    for _ in range(10):
+        sched.step()                 # admit all 8 and warm up
+    win, idle = decode_window(torch, sched, "bbm_dot_coded_batched",
+                              (CODED_KERNEL,), prefills=SERVE_SLOTS)
+    for line in win:
+        print("bitexact " + line.lstrip())
+    mean = lambda key, rows: sum(r[key] for r in rows) / len(rows)  # noqa
+    kernels.append({
+        "name": "bbm_dot_coded_batched", "route": "cuda",
+        "source": CODED_SOURCE, "replaces": CODED_REPLACES,
+        "launches": res["launches"]["bbm_dot_coded_batched"],
+        "max_abs_err": max(r["err"] for r in coded_rows.values()),
+        "ms": mean("ms", coded_rows.values()),
+        "plain_ms": mean("plain_ms", coded_rows.values()),
+        "bound_ms": mean("bound", coded_rows.values()),
+        "bound_by": coded_rows["qk"]["by"], "library_ms": None,
+        "bmm_ms": mean("bmm_ms", coded_rows.values()),
+        "timed_by": ", ".join(sorted({r["how"]
+                                      for r in coded_rows.values()})),
+        "per_launch": {k: {"ms": r["ms"], "bound_ms": r["bound"]}
+                       for k, r in coded_rows.items()},
+        "idle_share": idle})
+    mix = lambda key: (2 * b2_rows[0][key] + b2_rows[1][key]) / 3  # noqa
+    kernels.append({
+        "name": "bbm_dot_scaled (bitexact decode)", "route": "cuda",
+        "source": MMA_SOURCE, "replaces": REPLACES["bbm_dot_scaled"],
+        "launches": res["launches"]["bbm_dot_scaled"],
+        "max_abs_err": max(r["err"] for r in b2_rows),
+        "ms": mix("ms"), "plain_ms": mix("plain_ms"),
+        "bound_ms": mix("bound"), "bound_by": b2_rows[0]["by"],
+        "library_ms": None, "matmul_ms": mix("lib_ms"),
+        "timed_by": ", ".join(sorted({r["how"] for r in b2_rows}))})
 
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

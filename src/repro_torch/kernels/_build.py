@@ -61,6 +61,8 @@ _SIGNATURES = {
         "bbm_dot_scaled_mma_launch": ([_P] * 3 + [_I] * 7 + [_P], _I),
         "bbm_dot_planes_mma_launch": ([_P] * 5 + [_F, _I, _P] + [_I] * 7
                                       + [_P], _I),
+        "bbm_dot_coded_batched_launch": ([_P] * 3 + [_I] + [_P] * 5
+                                         + [_I] * 12 + [_P], _I),
         "bbm_dot_error_string": ([_I], ctypes.c_char_p),
     },
     "bbm_matmul": {

@@ -90,9 +90,11 @@ from .booth_rows import (amm_chunk_len, bbm_rows_product_precoded,
                          scaled_trunc_rows, signed_digit, split_signed)
 from .ref import amm_quantize
 
-__all__ = ["MMA_K_STEP", "bbm_dot_mma_emulated", "bbm_dot_planes",
-           "bbm_dot_planes_plain", "bbm_dot_route", "bbm_dot_scaled",
-           "bbm_dot_scaled_plain", "bbm_matmul", "bbm_matmul_dot",
+__all__ = ["MMA_K_STEP", "bbm_dot_coded_batched",
+           "bbm_dot_coded_batched_plain", "bbm_dot_mma_emulated",
+           "bbm_dot_planes", "bbm_dot_planes_plain", "bbm_dot_route",
+           "bbm_dot_scaled", "bbm_dot_scaled_plain", "bbm_matmul",
+           "bbm_matmul_coded", "bbm_matmul_coded_kblocks", "bbm_matmul_dot",
            "bbm_matmul_dot_plain", "bbm_matmul_dynamic",
            "bbm_matmul_precoded", "bbm_matmul_rows", "bbm_matmul_rows_plain",
            "bbm_matmul_scaled", "bbm_mma_operands", "dot_scaled_chunked",
@@ -264,6 +266,41 @@ def bbm_matmul_dynamic(a, b, *, wl: int, vbl: int, kind: int = 0,
         yq = bbm_matmul_scaled(aq, mag, neg, wl=wl, vbl=vbl, kind=kind,
                                fault=fault)
     return (yq * (s_a * s_b)).to(a.dtype)
+
+
+def _coded_one(a, b_codes, s_b, *, wl, vbl, kind, block, per):
+    """One slice through the batched entry: ``a`` (M, K) float quantized
+    per call, ``s_b`` (J,) f32."""
+    aq, s_a = amm_quantize(a, wl)
+    s_b = torch.as_tensor(s_b, dtype=torch.float32, device=aq.device)
+    out = bbm_dot_coded_batched(
+        aq.contiguous()[None, None], s_a.reshape(1, 1), b_codes[None, None],
+        s_b[None, None], wl=wl, vbl=vbl, kind=kind, block=block, per=per)
+    return out[0, 0].to(a.dtype)
+
+
+def bbm_matmul_coded(a, b_codes, s_b, *, wl: int, vbl: int, kind: int = 0):
+    """Codes-in sibling of ``bbm_matmul_dynamic``: ``a`` (M, K) float is
+    quantized per call, ``b_codes`` (K, N) arrive as wl-bit codes with a
+    scalar or per-column (N,) scale ``s_b``; ``yq * (s_a * s_b)`` in
+    ``a.dtype``.  With ``s_b`` the scale ``amm_quantize`` derives for the
+    float ``b``, bit-equal to ``bbm_matmul_dynamic(a, b)``.  One slice of
+    ``bbm_dot_coded_batched`` (``per="column"``)."""
+    s_b = torch.as_tensor(s_b, dtype=torch.float32, device=a.device)
+    return _coded_one(a, b_codes, s_b.expand(b_codes.shape[1]), wl=wl,
+                      vbl=vbl, kind=kind, block=1, per="column")
+
+
+def bbm_matmul_coded_kblocks(a, b_codes, s_b, *, wl: int, vbl: int,
+                             kind: int = 0, block: int):
+    """``bbm_matmul_coded`` with one ``b`` scale per K-block of ``block``
+    rows (the value product against the V cache): each block contracts
+    alone and is descaled by ``s_a * s_b[j]``, the blocks added in f32 in
+    block order, the first as is; ``a``'s scale is that of the whole
+    (M, K) slice.  s_b: (K // block,) f32.  One slice of
+    ``bbm_dot_coded_batched`` (``per="kblock"``)."""
+    return _coded_one(a, b_codes, s_b, wl=wl, vbl=vbl, kind=kind,
+                      block=block, per="kblock")
 
 
 # ------------------------------------------------ the tensor-core route
@@ -524,6 +561,148 @@ def _bbm_dot_scaled_on(route, x, w, *, wl: int, vbl: int,
 bbm_dot_scaled.launches = 0
 bbm_dot_scaled.mma_launches = 0      # the tensor-core route's share
 
+
+
+# ------------------------------------------- kernel B2, batched codes in
+CODED_PER = ("column", "kblock")
+
+
+def _coded_args(a, s_a, b, s_b, block, per, live) -> None:
+    """The batched entry's operand checks (any device)."""
+    if a.dtype != torch.int32 or a.dim() != 4 or not a.is_contiguous():
+        raise ValueError(f"a: (B1, B2, M, K) contiguous int32 codes, got "
+                         f"{a.dtype} {tuple(a.shape)}")
+    b1, b2, m, k = a.shape
+    if k == 0:
+        raise ValueError("bbm_dot_coded_batched: empty contraction (K = 0)")
+    if b.dim() != 4 or tuple(b.shape[:3]) != (b1, b2, k) \
+            or b.dtype not in (torch.int8, torch.int16, torch.int32):
+        raise ValueError(f"b: (B1, B2, K, N) int8/int16/int32 codes "
+                         f"matching a {tuple(a.shape)}, got {b.dtype} "
+                         f"{tuple(b.shape)}")
+    n = b.shape[3]
+    for t in (b, s_a, s_b, live):
+        if t is not None and t.device != a.device:
+            raise ValueError(f"operands on {a.device} and {t.device}")
+    if per not in CODED_PER:
+        raise ValueError(f"per must be one of {CODED_PER}, got {per!r}")
+    if s_a is None or s_a.dtype != torch.float32 \
+            or tuple(s_a.shape) != (b1, b2):
+        raise ValueError(f"s_a: (B1, B2) f32, got "
+                         f"{None if s_a is None else tuple(s_a.shape)}")
+    if not isinstance(block, int) or block < 1:
+        raise ValueError(f"block must be a positive int, got {block!r}")
+    axis = n if per == "column" else k
+    if per == "kblock" and k % block:
+        raise ValueError(f"K={k} not a multiple of block={block}")
+    if s_b is None or s_b.dtype != torch.float32 or s_b.dim() != 3 \
+            or tuple(s_b.shape[:2]) != (b1, b2) \
+            or s_b.shape[2] != -(-axis // block):
+        raise ValueError(f"s_b: (B1, B2, {-(-axis // block)}) f32 for "
+                         f"per={per!r}, block={block}, got "
+                         f"{None if s_b is None else tuple(s_b.shape)}")
+    if live is not None and (live.dim() != 1 or live.shape[0] != b1):
+        raise ValueError(f"live: (B1,) positions, got {tuple(live.shape)}")
+
+
+def bbm_dot_coded_batched_plain(a, s_a, b, s_b, *, wl: int, vbl: int,
+                                kind: int, block: int, per="column",
+                                live=None):
+    """Plain version of the batched entry: ``bbm_dot_scaled_plain`` over
+    the slices (over each K-block's rows in turn for ``per="kblock"``),
+    then the descale in the reference's expression order; codes at or
+    past ``live`` along the blocked axis zeroed first."""
+    _coded_args(a, s_a, b, s_b, block, per, live)
+    b1, b2, m, k = a.shape
+    n = b.shape[3]
+    bc = b.to(torch.int32)
+    if live is not None:
+        at = torch.arange(n if per == "column" else k, device=a.device)
+        keep = at[None, :] < live.to(torch.int64)[:, None]
+        keep = keep[:, None, None, :] if per == "column" \
+            else keep[:, None, :, None]
+        bc = torch.where(keep, bc, 0)
+
+    def yq(lo, hi):        # (B1, B2, M, N): the slices' rows lo:hi
+        out = bbm_dot_scaled_plain(
+            a[..., lo:hi].reshape(-1, m, hi - lo).contiguous(),
+            bc[:, :, lo:hi].reshape(-1, hi - lo, n).contiguous(), wl=wl,
+            vbl=vbl, kind=kind)
+        return out.reshape(b1, b2, m, n)
+    if per == "column":
+        cols = s_b.repeat_interleave(block, dim=-1)[..., :n]
+        return yq(0, k) * (s_a[..., None] * cols)[:, :, None, :]
+    acc = None
+    for j, lo in enumerate(range(0, k, block)):
+        part = yq(lo, lo + block) * (s_a * s_b[..., j])[..., None, None]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def bbm_dot_coded_batched(a, s_a, b, s_b, *, wl: int, vbl: int, kind: int,
+                          block: int, per="column", live=None):
+    """``B1 * B2`` independent codes-in products in one launch: the score
+    and value products of decode attention on the int-code KV cache, one
+    slice per (slot, kv-head).
+
+    a: (B1, B2, M, K) contiguous int32 codes (each slice quantized with
+    its own scale ``s_a`` (B1, B2) f32); b: (B1, B2, K, N) int8, int16
+    or int32 codes in any strides (a view of the cache itself); ``yq`` is
+    each slice's f32 sum at full product scale (``bbm_dot_scaled``).
+    ``s_b`` (B1, B2, J) f32 (any strides): ``per="column"`` gives ``yq *
+    (s_a * s_b[..., n // block])`` (the score product against per-block K
+    scales; J = ceil(N / block));
+    ``per="kblock"`` descales each K-block of ``block`` rows by ``s_a *
+    s_b[..., j]`` before the f32 add in block order (the value product;
+    J = K / block).  ``live`` (B1,): positions of the blocked axis at or
+    past ``live[i]`` read as zero codes.  Returns (B1, B2, M, N) f32,
+    bit-equal to ``bbm_matmul_coded`` / ``bbm_matmul_coded_kblocks`` of
+    each slice on its masked codes.  CUDA tensors launch the kernel
+    (``csrc/bbm_dot.cu``: ``bbm_coded_kernel``, the CUDA-core route),
+    counted in ``bbm_dot_coded_batched.launches``; CPU tensors run the
+    plain version.
+    """
+    _coded_args(a, s_a, b, s_b, block, per, live)
+    if not a.is_cuda:
+        return bbm_dot_coded_batched_plain(a, s_a, b, s_b, wl=wl, vbl=vbl,
+                                           kind=kind, block=block, per=per,
+                                           live=live)
+    if wl % 2 or not 2 <= wl <= 16 or not 0 <= vbl < wl \
+            or kind not in (0, 1):
+        raise ValueError(f"unsupported operating point wl={wl} vbl={vbl} "
+                         f"kind={kind}")
+    b1, b2, m, k = a.shape
+    n = b.shape[3]
+    out = torch.empty((b1, b2, m, n), dtype=torch.float32, device=a.device)
+    if out.numel() == 0:
+        return out
+    if b1 * b2 >= 65536 or max(m * k, k * n, m * n) >= 2 ** 31:
+        raise ValueError("bbm_dot_coded_batched dimensions exceed the "
+                         "kernel's grid or int32 indexing")
+    mode = 1 if per == "column" else 2
+    b_strides = torch.tensor(b.stride(), dtype=torch.int64)
+    s_strides = torch.tensor(s_b.stride(), dtype=torch.int64)
+    live32 = None if live is None else live.to(torch.int32).contiguous()
+    s_a = s_a.contiguous()
+    from ._build import library
+    lib = library("bbm_dot")
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.bbm_dot_coded_batched_launch(
+            a.data_ptr(), s_a.data_ptr(), b.data_ptr(), b.element_size(),
+            b_strides.data_ptr(), s_b.data_ptr(), s_strides.data_ptr(),
+            None if live32 is None else live32.data_ptr(),
+            out.data_ptr(), b1, b2, m, k, n, wl, vbl, kind,
+            num_corr_rows(wl, vbl), amm_chunk_len(wl, vbl), mode, block,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"bbm_dot_coded_batched failed: CUDA error {err} "
+                           f"({lib.bbm_dot_error_string(err).decode()})")
+    bbm_dot_coded_batched.launches += 1
+    return out
+
+
+bbm_dot_coded_batched.launches = 0
 
 
 # ------------------------------------------------ kernel B2, planes in

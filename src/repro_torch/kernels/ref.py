@@ -13,10 +13,12 @@ from .booth_rows import (amm_chunk_len, bbm_rows_product_precoded,
                          booth_precode_faulty, split_signed)
 
 __all__ = ["AMM_BOOTH_KINDS", "amm_approx_ref", "amm_attention_ref",
+           "amm_coded_kblocks_ref", "amm_coded_ref",
+           "amm_decode_attention_codes_ref", "amm_decode_attention_ref",
            "amm_dense_ref", "amm_dot_ref", "amm_effective_vbl",
            "amm_faulty_ref", "amm_flash_attention_ref", "amm_quantize",
-           "amm_scale", "attention_ref", "bbm_matmul_ref", "fir_bank_ref",
-           "quant_matmul_ref"]
+           "amm_quantize_slices", "amm_scale", "attention_ref",
+           "bbm_matmul_ref", "fir_bank_ref", "quant_matmul_ref"]
 
 # Booth-family specs and their closed-form truncation kind; every other
 # multiplier family has no dot-form lowering
@@ -55,6 +57,20 @@ def amm_quantize(v, wl: int):
     vf = torch.as_tensor(v).to(torch.float32)
     s = amm_scale(vf, wl)
     codes = torch.clamp(torch.round(vf / s), -lim - 1, lim)
+    return codes.to(torch.int32), s
+
+
+def amm_quantize_slices(v, wl: int):
+    """``amm_quantize`` of every (M, K) slice over the last two axes at
+    once: (int32 codes, f32 scales of the leading shape), each slice's
+    scale in ``amm_scale``'s expression (its own maximum, times 1/lim,
+    floored at 1e-12), so each slice's codes and scale are bit-equal to
+    ``amm_quantize`` of that slice alone."""
+    lim = 2 ** (wl - 1) - 1
+    vf = torch.as_tensor(v).to(torch.float32)
+    vmax = torch.linalg.vector_norm(vf, ord=float("inf"), dim=(-2, -1))
+    s = torch.clamp_min(vmax * (1.0 / lim), 1e-12)
+    codes = torch.clamp(torch.round(vf / s[..., None, None]), -lim - 1, lim)
     return codes.to(torch.int32), s
 
 
@@ -179,6 +195,49 @@ def amm_faulty_ref(x, w, spec: MulSpec, fault=None):
     return (yq * (s_x * s_w)).to(x.dtype)
 
 
+def _coded_yq_ref(aq, b_codes, spec: MulSpec) -> torch.Tensor:
+    """Closed-form contraction of two code grids, chunk-scheduled: the
+    products through ``core.multipliers``, divided by 2^vbl, summed int32
+    per K-chunk, the chunks added in f32 in order, times 2^vbl (the
+    full-product-scale accumulator of the codes-in oracles)."""
+    prod = core_mul(spec)(aq[..., :, None], b_codes[None, :, :])
+    return _chunked_yq(prod, spec.wl, amm_effective_vbl(spec))
+
+
+def amm_coded_ref(a, b_codes, s_b, spec: MulSpec):
+    """Scalar oracle of ``bbm_matmul.bbm_matmul_coded``: ``a`` (M, K)
+    float quantized per call, ``b_codes`` (K, N) codes with a scalar or
+    per-column (N,) scale ``s_b``; descale ``yq * (s_a * s_b)``."""
+    if spec.name not in AMM_BOOTH_KINDS:
+        raise ValueError(f"no codes-in lowering for family {spec.name!r}")
+    aq, s_a = amm_quantize(a, spec.wl)
+    yq = _coded_yq_ref(aq, torch.as_tensor(b_codes).to(torch.int32), spec)
+    s_b = torch.as_tensor(s_b, dtype=torch.float32, device=yq.device)
+    if s_b.ndim == 1:
+        s_b = s_b[None, :]
+    return (yq * (s_a * s_b)).to(a.dtype)
+
+
+def amm_coded_kblocks_ref(a, b_codes, s_b, spec: MulSpec, *, block: int):
+    """Scalar oracle of ``bbm_matmul.bbm_matmul_coded_kblocks``: each
+    K-block of ``block`` rows contracted on the closed forms, descaled by
+    ``s_a * s_b[j]``, the blocks added in f32 in block order."""
+    if spec.name not in AMM_BOOTH_KINDS:
+        raise ValueError(f"no codes-in lowering for family {spec.name!r}")
+    kk = b_codes.shape[0]
+    if kk % block:
+        raise ValueError(f"K={kk} not a multiple of block={block}")
+    aq, s_a = amm_quantize(a, spec.wl)
+    b_codes = torch.as_tensor(b_codes).to(torch.int32)
+    acc = None
+    for bi, lo in enumerate(range(0, kk, block)):
+        yq = _coded_yq_ref(aq[..., lo:lo + block], b_codes[lo:lo + block],
+                           spec)
+        part = yq * (s_a * s_b[bi])
+        acc = part if acc is None else acc + part
+    return acc.to(a.dtype)
+
+
 def amm_dense_ref(x, w, spec: MulSpec):
     """The bitexact ``amm_dense`` oracle with the straight-through sum
     ``exact + (approx - exact)`` as the layer writes it."""
@@ -231,6 +290,28 @@ def amm_flash_attention_ref(q, k, v, spec: MulSpec, *, causal: bool = True):
                             v.transpose(1, 2), spec, causal=causal,
                             bq=FLASH_AMM_BQ, bk=FLASH_AMM_BK)
     return out.transpose(1, 2)
+
+
+def amm_decode_attention_ref(q, k_cache, v_cache, kv_len, spec: MulSpec, *,
+                             ste: bool = True):
+    """Oracle of single-position amm attention against a float cache:
+    ``models.attention.decode_attention``'s schedule with every product
+    on the closed forms; ``ste=False`` gives the approximate forward
+    alone."""
+    from ..models.attention import decode_attention
+    return decode_attention(q, k_cache, v_cache, kv_len,
+                            amm=_attn_runtime(spec), amm_oracle=True,
+                            amm_ste=ste)
+
+
+def amm_decode_attention_codes_ref(q, cache, kv_len, spec: MulSpec):
+    """Oracle of ``models.attention.decode_attention_codes``: the same
+    schedule with the products through ``amm_coded_ref`` and
+    ``amm_coded_kblocks_ref``; ``cache`` is one layer of the int-code
+    cache."""
+    from ..models.attention import decode_attention_codes
+    return decode_attention_codes(q, cache, kv_len, amm=_attn_runtime(spec),
+                                  amm_oracle=True)
 
 
 def attention_ref(q, k, v, *, causal: bool = True):

@@ -4,10 +4,6 @@ from __future__ import annotations
 __all__ = ["add_amm_attn_arg", "resolve_amm_apply_to", "validate_amm_args",
            "validate_serve_flags"]
 
-_SERVE_BITEXACT = ("bitexact serving with the int-code KV cache is ROADMAP "
-                   "slice 5")
-
-
 def validate_amm_args(ap, args) -> None:
     """Reject invalid (--mul, --wl, --vbl) combinations at parse time,
     with the reference's rules: a known multiplier family, an even word
@@ -30,15 +26,22 @@ def validate_amm_args(ap, args) -> None:
 
 
 def validate_serve_flags(ap, args) -> None:
-    """The serve launcher's ``--kv-codes``, ``--amm bitexact`` and
-    ``--amm-attn`` belong to a later slice; the train launcher takes the
-    last two."""
-    if getattr(args, "kv_codes", False):
-        raise NotImplementedError(f"--kv-codes: {_SERVE_BITEXACT}")
-    if args.amm == "bitexact":
-        raise NotImplementedError(f"--amm bitexact: {_SERVE_BITEXACT}")
-    if args.amm_attn is not None:
-        raise NotImplementedError(f"--amm-attn: {_SERVE_BITEXACT}")
+    """Reject ``--kv-codes`` combinations the code cache cannot serve, with
+    the reference's rules: the int-code cache holds what the Booth
+    attention lowering consumes, so it needs ``--amm bitexact``, a
+    Booth-family ``--mul`` and ``--amm-attn``."""
+    if not getattr(args, "kv_codes", False):
+        return
+    from ..kernels.ref import AMM_BOOTH_KINDS
+    if args.amm != "bitexact":
+        ap.error(f"--kv-codes stores Booth codes, which only the bitexact "
+                 f"datapath consumes; got --amm {args.amm}")
+    if args.mul not in AMM_BOOTH_KINDS:
+        ap.error(f"--kv-codes needs a Booth-family --mul "
+                 f"({sorted(AMM_BOOTH_KINDS)}); got --mul {args.mul!r}")
+    if args.amm_attn is None:
+        ap.error("--kv-codes caches the attention operands, so attention "
+                 "must be amm-routed: pass --amm-attn (or --amm-attn attn)")
 
 
 def add_amm_attn_arg(ap) -> None:

@@ -3,18 +3,27 @@
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
         --requests 6 --max-new 16 --amm noise --amm-pallas
 
+    python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
+        --amm bitexact --amm-attn --kv-codes --continuous
+
 Counterpart of ``repro.launch.serve`` with the same flags.  It runs on
-the GPU (``--device cpu`` runs the kernels' plain versions).  ``--amm
-noise --amm-pallas`` serves through the hand-written ``quant_matmul``
-kernel: every MLP product is quantized to WL-bit codes and carries the
-calibrated noise of the multiplier ``--mul`` at ``--vbl``.  The
+the GPU (``--device cpu`` runs the kernels' plain versions).  The
 parameters are random, from a seeded generator.
 
-``--continuous`` switches the Scheduler to continuous batching.  ``--amm
-bitexact``, ``--amm-attn`` and ``--kv-codes`` are bitexact serving,
-ROADMAP slice 5, and raise (the train launcher takes the first two).
-The reference's ``--flash-attn`` is left out: under the Scheduler
-every call carries a cache, so it changes nothing there (ROADMAP C3).
+``--amm noise --amm-pallas`` serves through the hand-written
+``quant_matmul`` kernel: every MLP product is quantized to WL-bit codes
+and carries the calibrated noise of the multiplier ``--mul`` at
+``--vbl``.  ``--amm bitexact`` serves through the Broken-Booth datapath
+(the ``bbm_dot_scaled`` kernel), its weight codes precoded once here and
+carried by the step functions; ``--amm-attn`` widens it to the attention
+score and value products (bare: MLPs and attention; ``attn``: attention
+only).  ``--kv-codes`` stores the KV cache as WL-bit codes plus
+per-block f32 scales, decoded straight from the codes
+(``bbm_dot_coded_batched``); it needs ``--amm bitexact``, a Booth-family
+``--mul`` and ``--amm-attn``.  ``--continuous`` switches the Scheduler
+to continuous batching.  The reference's ``--flash-attn`` is left out:
+under the Scheduler every call carries a cache, so it changes nothing
+there (ROADMAP C3).
 """
 from __future__ import annotations
 
@@ -39,9 +48,7 @@ def main(argv=None):
                     "scheduler, on the GPU unless --device cpu.",
         epilog="The reference's --flash-attn is left out: under the "
                "Scheduler every call carries a KV cache, so the flag "
-               "changes nothing there (ROADMAP C3).  --amm bitexact, "
-               "--amm-attn and --kv-codes are bitexact serving, ROADMAP "
-               "slice 5, and raise.")
+               "changes nothing there (ROADMAP C3).")
     ap.add_argument("--arch", choices=ARCH_NAMES, default="qwen2-0.5b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=6)
@@ -60,14 +67,16 @@ def main(argv=None):
                          "free slots, per-request eviction, prefill on "
                          "batch-1 slot slices")
     ap.add_argument("--kv-codes", action="store_true",
-                    help="int-code KV cache (ROADMAP slice 5; raises)")
+                    help="store the KV cache as wl-bit int codes + "
+                         "per-block f32 scales; needs --amm bitexact with "
+                         "a Booth-family --mul and --amm-attn")
     ap.add_argument("--device", default=None,
                     help="'cuda' (the default) or 'cpu'")
     add_amm_attn_arg(ap)
     args = ap.parse_args(argv)
-    validate_serve_flags(ap, args)
     apply_to = resolve_amm_apply_to(ap, args)
     validate_amm_args(ap, args)
+    validate_serve_flags(ap, args)
     dev = resolve_device(args.device)
 
     cfg = get_arch(args.arch)
@@ -79,11 +88,16 @@ def main(argv=None):
                            apply_to=apply_to))
     rt = ModelRuntime.build(cfg)
     params = lm_init(cfg, 0, device=dev)
-    prefill_fn, decode_fn = make_serve_fns(cfg, rt)
+    # the bitexact weight precode happens once, here; the step functions
+    # carry it, so every token after pays the contractions only
+    planes = rt.build_planes(cfg, params)
+    prefill_fn, decode_fn = make_serve_fns(cfg, rt, amm_planes=planes,
+                                           kv_codes=args.kv_codes)
     sched = Scheduler(cfg, rt, params, args.slots, args.max_len,
                       decode_fn=decode_fn,
                       prefill_fn=prefill_fn if args.continuous else None,
-                      continuous=args.continuous, device=dev)
+                      continuous=args.continuous, kv_codes=args.kv_codes,
+                      device=dev)
 
     rng = np.random.default_rng(0)
     for rid in range(args.requests):

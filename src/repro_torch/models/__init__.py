@@ -1,9 +1,9 @@
 """The LM zoo's dense family with the paper's approximate matmul as a
 layer (``repro.models``)."""
 from .common import AmmRuntime, amm_dense, amm_dot, cross_entropy_loss
-from .transformer import (ModelRuntime, init_cache, lm_apply, lm_init,
-                          lm_loss, lm_table)
+from .transformer import (ModelRuntime, init_cache, lm_amm_planes,
+                          lm_apply, lm_init, lm_loss, lm_table)
 
 __all__ = ["AmmRuntime", "amm_dense", "amm_dot", "cross_entropy_loss",
-           "ModelRuntime", "init_cache", "lm_apply", "lm_init", "lm_loss",
-           "lm_table"]
+           "ModelRuntime", "init_cache", "lm_amm_planes", "lm_apply",
+           "lm_init", "lm_loss", "lm_table"]

@@ -22,11 +22,14 @@ differentiates the plain exact blockwise attention, the amm one the
 flash-amm plain version, fed the approximate products the kernel kept
 (the reference's straight-through schedule at the flash tiles).
 
-Not ported here: the int-code cache and amm on the cache branches
-(decode), which bitexact serving needs (ROADMAP slice 5).  They raise
-``NotImplementedError`` where the reference would take them.
+The int-code KV cache (``serve.kv_cache``): ``code_cache_update``
+quantizes each written row against its block's first-touch frozen
+scale, ``code_cache_dequant`` expands a leaf back to f32 (prefill rides
+the chunked schedule on it), and ``decode_attention_codes`` contracts the
+cached codes directly, the score and value products of every (slot,
+kv-head) slice in one ``bbm_dot_coded_batched`` launch each.
 
-The port writes the cache in place: ``attention`` updates the given
+The port writes the caches in place: ``attention`` updates the given
 ``cache`` tensors and returns the same dict, where the reference returns
 new arrays.
 """
@@ -44,16 +47,16 @@ from ..kernels.flash_attention import (FLASH_AMM_BK, FLASH_AMM_BQ,
                                        flash_attention,
                                        flash_attention_amm,
                                        flash_attention_plain)
+from ..kernels.bbm_matmul import bbm_dot_coded_batched
+from ..kernels.ref import amm_quantize_slices
 from .common import Spec, amm_dot, apply_rope, rmsnorm
 
 __all__ = ["attn_table", "attention", "chunked_attention",
-           "decode_attention", "flash_amm_chunked_equiv",
+           "code_cache_dequant", "code_cache_update", "decode_attention",
+           "decode_attention_codes", "flash_amm_chunked_equiv",
            "FlashFallbackWarning", "reset_flash_fallback_dedup", "NEG_INF"]
 
 NEG_INF = -1e30
-
-_CODES = ("the int-code KV cache and amm attention against a cache are "
-          "bitexact serving, ROADMAP slice 5")
 
 # flash-path sequence cap: above it the chunked path is taken instead.
 # Module-level so tests can lower it to exercise the fallback warning.
@@ -261,26 +264,187 @@ def _flash_amm_ste(amm, causal, q, k, v):
     return _FlashAmmSTE.apply(q, k, v, amm, causal)
 
 
-def decode_attention(q, k_cache, v_cache, kv_len, *, amm=None):
+def decode_attention(q, k_cache, v_cache, kv_len, *, amm=None,
+                     amm_oracle: bool = False, amm_ste: bool = True):
     """Single-position attention against a float cache.
 
     q: (B, 1, H, D); caches: (B, S, KV, D); kv_len: valid length, a
-    scalar or a (B,) per-slot tensor (continuous batching).
+    scalar or a (B,) per-slot tensor (continuous batching).  ``amm``: the
+    score and value products through ``amm_dot``, each (slot, kv-head)
+    slice quantized over the whole cache slice on every call;
+    ``amm_oracle`` forms them on the closed forms, ``amm_ste=False``
+    returns the approximate forward without the straight-through sum.
     """
-    if amm is not None:
-        raise NotImplementedError(f"attention-side amm: {_CODES}")
     b, _, h, d = q.shape
     _, s, kvh, _ = k_cache.shape
     dv = v_cache.shape[-1]
     groups = h // kvh
     qf = q.to(torch.float32).reshape(b, kvh, groups, d) / (d ** 0.5)
-    sc = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(torch.float32))
+    if amm is not None:
+        sc = amm_dot(qf, k_cache.to(torch.float32).permute(0, 2, 3, 1), amm,
+                     oracle=amm_oracle, ste=amm_ste)         # (B, KV, g, S)
+    else:
+        sc = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(torch.float32))
     kvl = torch.as_tensor(kv_len, device=q.device)
     if kvl.ndim == 1:
         kvl = kvl[:, None, None, None]
     live = torch.arange(s, device=q.device)[None, None, None, :] < kvl
     p = torch.softmax(torch.where(live, sc, NEG_INF), dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    if amm is not None:
+        out = amm_dot(p, v_cache.to(torch.float32).permute(0, 2, 1, 3), amm,
+                      oracle=amm_oracle, ste=amm_ste)        # (B, KV, g, Dv)
+    else:
+        out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(torch.float32))
+    return out.reshape(b, 1, h, dv).to(q.dtype)
+
+
+# ------------------------------------------------------- int-code KV cache
+def code_cache_update(codes, scales, x, pos, *, wl: int):
+    """Write new K/V rows into an int-code cache leaf as frozen codes, in
+    place; returns (codes, scales).
+
+    codes: (B, S, KV, hd); scales: (B, nb, KV) f32 with nb * block == S,
+    0.0 marking a never-written block; x: (B, s, KV, hd) float rows; pos:
+    scalar or (B,) per-slot positions.  Per slot, the rows touch at most
+    ``ceil(s / block) + 1`` blocks from ``pos // block`` on; the first
+    write touching a block fixes its per-kv-head scale from that write's
+    rows in it, in ``amm_quantize``'s expression (``max|v| * (1/lim)``
+    floored at 1e-12; so a block's first one-shot write freezes the scale
+    ``amm_quantize`` derives for the same values), and every later write
+    into the block quantizes, and clips to ``[-lim-1, lim]``, against the
+    frozen scale.  As in the reference, the blocks are accounted from the
+    unclamped ``pos`` while the codes land at the start clamped to ``S -
+    s`` (``dynamic_update_slice``'s rule).
+    """
+    lim = 2 ** (wl - 1) - 1
+    bsz, s_max = codes.shape[0], codes.shape[1]
+    nb, kvh = scales.shape[1], scales.shape[2]
+    block = s_max // nb
+    vf = x.to(torch.float32)
+    s_new = vf.shape[1]
+    dev = codes.device
+    p = torch.as_tensor(pos, device=dev).to(torch.int64)
+    p = p.expand(bsz) if p.ndim == 0 else p
+    rows = torch.arange(bsz, device=dev)
+    b0 = torch.div(p, block, rounding_mode="floor")
+    in_blk = torch.arange(block, device=dev)
+    blk_scales = []
+    for t in range(-(-s_new // block) + 1):   # worst-case misaligned span
+        bi = b0 + t
+        rel = (bi * block - p)[:, None] + in_blk[None, :]  # block -> x rows
+        m = (rel >= 0) & (rel < s_new)
+        vals = vf[rows[:, None], rel.clamp(0, s_new - 1)].abs() \
+            * m[:, :, None, None]
+        cand = torch.clamp_min(torch.amax(vals, dim=(1, 3)) * (1.0 / lim),
+                               1e-12)                             # (B, KV)
+        bic = bi.clamp(0, nb - 1)
+        old = scales[rows, bic]
+        sc = torch.where(old > 0.0, old, cand)
+        keep = m.any(dim=1) & (bi < nb)
+        scales[rows, bic] = torch.where(keep[:, None], sc, old)
+        blk_scales.append(sc)
+    per_blk = torch.stack(blk_scales, dim=1)               # (B, n_touch, KV)
+    at = torch.arange(s_new, device=dev)
+    tok_blk = torch.div(p[:, None] + at[None, :], block,
+                        rounding_mode="floor") - b0[:, None]
+    sc_tok = torch.gather(per_blk, 1, tok_blk[..., None].expand(-1, -1, kvh))
+    q = torch.clamp(torch.round(vf / sc_tok[..., None]), -lim - 1, lim)
+    start = p.clamp(0, s_max - s_new)
+    codes[rows[:, None], start[:, None] + at[None, :]] = q.to(codes.dtype)
+    return codes, scales
+
+
+def _live(kv_len, b: int, s: int, device) -> tuple:
+    """((B,) int64 valid lengths, (B, S) live mask) of a scalar or (B,)
+    ``kv_len``."""
+    kvl = torch.as_tensor(kv_len, device=device).to(torch.int64)
+    kvl = kvl.reshape(-1).expand(b)
+    return kvl, torch.arange(s, device=device)[None, :] < kvl[:, None]
+
+
+def code_cache_dequant(codes, scales, kv_len=None):
+    """An int-code cache leaf as f32 values: codes (B, S, KV, hd) times
+    their blocks' scales (B, nb, KV); positions at or past ``kv_len``
+    (scalar or (B,)) are zeros (a reused slot may hold stale codes under
+    a frozen scale)."""
+    b, s = codes.shape[0], codes.shape[1]
+    block = s // scales.shape[1]
+    sc = torch.repeat_interleave(scales, block, dim=1)          # (B, S, KV)
+    out = codes.to(torch.float32) * sc[..., None]
+    if kv_len is not None:
+        _, live = _live(kv_len, b, s, codes.device)
+        out = torch.where(live[:, :, None, None], out, 0.0)
+    return out
+
+
+def decode_attention_codes(q, cache, kv_len, *, amm,
+                           amm_oracle: bool = False):
+    """Single-position attention straight from the int-code KV cache.
+
+    q: (B, 1, H, D); cache: one layer of the code cache, {"k_codes",
+    "k_scale", "v_codes", "v_scale"} shaped as in ``code_cache_update``;
+    kv_len: scalar or (B,).  Only q and the softmax probabilities are
+    quantized per call (each (slot, kv-head) slice with its own scale);
+    the cached codes go into the datapath as they are: the score product
+    with per-column K scales (each position's block scale), the value
+    product descaled per K-block before the f32 add in block order.  The
+    value is the approximate forward alone (no straight-through sum).
+    Codes at or past ``kv_len`` read as zero before either contraction:
+    the softmax gives them weight 0.0, hence P codes 0, but under kind 1
+    a zero P code times a negative-row V code is not 0.  On the card
+    each product is one ``bbm_dot_coded_batched`` launch over every slice,
+    reading the cache's codes and scales in place.  ``amm_oracle`` forms
+    each slice's products on the closed forms (``amm_coded_ref``,
+    ``amm_coded_kblocks_ref``).  Returns (B, 1, H, Dv) in q's dtype.
+    """
+    if amm is None or not amm.attn_active or amm.attn_lowering is None:
+        raise ValueError("int-code KV cache decode requires an active "
+                         "Booth-family bitexact amm attention lowering "
+                         "(mode='bitexact', Booth-family mul, apply_to "
+                         "'attn' or 'all')")
+    wl, vbl, kind = amm.attn_lowering
+    kc, vc = cache["k_codes"], cache["v_codes"]
+    ks, vs = cache["k_scale"], cache["v_scale"]
+    b, s, kvh, d = kc.shape
+    dv = vc.shape[-1]
+    block = s // ks.shape[1]
+    h = q.shape[2]
+    groups = h // kvh
+    qf = q.to(torch.float32).reshape(b, kvh, groups, d) / (d ** 0.5)
+    kvl, live = _live(kv_len, b, s, q.device)
+    if amm_oracle:
+        from ..kernels.ref import amm_coded_kblocks_ref, amm_coded_ref
+        spec = amm.spec
+        out = torch.empty((b, kvh, groups, dv), dtype=torch.float32,
+                          device=q.device)
+        for i in range(b):
+            for j in range(kvh):
+                kt = torch.where(live[i][None, :],
+                                 kc[i, :, j].to(torch.int32).T, 0)
+                sc = amm_coded_ref(qf[i, j], kt,
+                                   ks[i, :, j].repeat_interleave(block),
+                                   spec)
+                pr = torch.softmax(torch.where(live[i][None, :], sc,
+                                               NEG_INF), dim=-1)
+                vv = torch.where(live[i][:, None],
+                                 vc[i, :, j].to(torch.int32), 0)
+                out[i, j] = amm_coded_kblocks_ref(pr, vv, vs[i, :, j], spec,
+                                                  block=block)
+    else:
+        aq, s_a = amm_quantize_slices(qf, wl)
+        sc = bbm_dot_coded_batched(aq.contiguous(), s_a,
+                                   kc.permute(0, 2, 3, 1),
+                                   ks.permute(0, 2, 1), wl=wl, vbl=vbl,
+                                   kind=kind, block=block, per="column",
+                                   live=kvl)                 # (B, KV, g, S)
+        pr = torch.softmax(torch.where(live[:, None, None, :], sc, NEG_INF),
+                           dim=-1)
+        pq, s_p = amm_quantize_slices(pr, wl)
+        out = bbm_dot_coded_batched(pq.contiguous(), s_p,
+                                    vc.permute(0, 2, 1, 3),
+                                    vs.permute(0, 2, 1), wl=wl, vbl=vbl,
+                                    kind=kind, block=block, per="kblock",
+                                    live=kvl)                # (B, KV, g, Dv)
     return out.reshape(b, 1, h, dv).to(q.dtype)
 
 
@@ -304,10 +468,14 @@ def attention(p, x, cfg: ArchConfig, *, positions, cache=None, pos=None,
               amm=None):
     """GQA attention.  x: (B, S, d_model).
 
-    cache: optional {"k", "v"} (B, S_max, KV, D) float cache, written in
-    place at ``pos`` (a scalar, or a (B,) per-slot tensor for one-token
-    decode).  kv: optional external (k, v) (cross-attention).  Returns
-    (out, cache).
+    cache: optional {"k", "v"} (B, S_max, KV, D) float cache, or one
+    layer of the int-code cache {"k_codes", "k_scale", "v_codes",
+    "v_scale"}, written in place at ``pos`` (a scalar, or a (B,) per-slot
+    tensor for one-token decode).  The code cache needs an active
+    Booth-family amm lowering: its decode contracts the codes
+    (``decode_attention_codes``), its prefill dequantizes once and takes
+    the chunked schedule.  kv: optional external (k, v)
+    (cross-attention).  Returns (out, cache).
     """
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -331,13 +499,29 @@ def attention(p, x, cfg: ArchConfig, *, positions, cache=None, pos=None,
     if cache is not None and s > 1 and torch.as_tensor(pos).ndim == 1:
         raise ValueError("multi-token prefill needs a scalar position; "
                          "per-slot position vectors are decode-only")
-    if cache is not None and "k_codes" in cache:
-        raise NotImplementedError(_CODES)
     if cache is not None:
-        _cache_put(cache["k"], k.to(cache["k"].dtype), pos)
-        _cache_put(cache["v"], v.to(cache["v"].dtype), pos)
         kv_len = torch.as_tensor(pos, device=x.device) + s \
             if torch.as_tensor(pos).ndim == 1 else int(pos) + s
+    if cache is not None and "k_codes" in cache:
+        if amm is None or amm.attn_lowering is None:
+            raise ValueError("int-code KV cache requires an active "
+                             "Booth-family bitexact amm attention lowering")
+        wl = amm.attn_lowering[0]
+        code_cache_update(cache["k_codes"], cache["k_scale"], k, pos, wl=wl)
+        code_cache_update(cache["v_codes"], cache["v_scale"], v, pos, wl=wl)
+        if s == 1:
+            out = decode_attention_codes(q, cache, kv_len, amm=amm)
+        else:
+            kk = code_cache_dequant(cache["k_codes"], cache["k_scale"],
+                                    kv_len=kv_len)
+            vv = code_cache_dequant(cache["v_codes"], cache["v_scale"],
+                                    kv_len=kv_len)
+            out = chunked_attention(q, kk, vv, causal=causal,
+                                    q_offset=int(pos), kv_len=kv_len,
+                                    amm=amm)
+    elif cache is not None:
+        _cache_put(cache["k"], k.to(cache["k"].dtype), pos)
+        _cache_put(cache["v"], v.to(cache["v"].dtype), pos)
         if s == 1:
             out = decode_attention(q, cache["k"], cache["v"], kv_len,
                                    amm=amm)

@@ -9,8 +9,9 @@ reference's come across through numpy instead (``convert``).
 
 The amm layer has its three modes: "off", "noise" (through the
 ``quant_matmul`` kernel) and "bitexact" (the Broken-Booth dot form, the
-``bbm_dot_scaled`` kernel on the card), and the attention-side
-``amm_dot``.  The plain noise branch with a key and non-zero moments
+``bbm_dot_scaled`` kernel on the card, optionally on weight codes
+precoded once by ``AmmRuntime.precode``), and the attention-side
+``amm_dot`` (every slice in one ``bbm_dot_coded_batched`` launch).  The plain noise branch with a key and non-zero moments
 (it draws with ``jax.random.normal``) raises ``NotImplementedError``
 naming ROADMAP item A10.
 """
@@ -26,10 +27,11 @@ from ..configs.base import AmmConfig
 from ..core.multipliers import MulSpec
 from ..core.noise import make_noise_model
 from ..device import pin_fp32
-from ..kernels.bbm_matmul import bbm_dot_scaled, bbm_matmul_dynamic
+from ..kernels.bbm_matmul import bbm_dot_coded_batched, bbm_dot_scaled
 from ..kernels.ops import quant_matmul
 from ..kernels.ref import (AMM_BOOTH_KINDS, amm_approx_ref,
-                           amm_effective_vbl, amm_quantize, amm_scale)
+                           amm_effective_vbl, amm_quantize,
+                           amm_quantize_slices, amm_scale)
 
 __all__ = ["Spec", "init_params", "rmsnorm", "rope_freqs", "apply_rope",
            "amm_dense", "amm_dot", "AmmRuntime", "cross_entropy_loss"]
@@ -157,14 +159,15 @@ class AmmRuntime:
         return (self.cfg.wl, amm_effective_vbl(self.spec), kind)
 
     def precode(self, w):
-        """The per-weight cache entry of the bitexact datapath for one
-        (K, N) weight: ``{"codes", "s_w"}``, its int32 wl-bit codes and
-        dynamic scale, or None when nothing is cacheable.  The reference
-        caches the codes' digit planes; the port's kernel decodes the
-        digits itself, so it caches what the kernel takes."""
+        """The per-weight cache entry of the bitexact datapath for a (K, N)
+        weight, or a layer stack (L, K, N) of them: ``{"codes", "s_w"}``,
+        the int32 wl-bit codes and the dynamic scale of each (K, N) slice
+        (``amm_quantize``'s bits), or None when nothing is cacheable.  The
+        reference caches the codes' digit planes; the port's kernel
+        decodes the digits itself, so it caches what the kernel takes."""
         if not self.cacheable:
             return None
-        codes, s_w = amm_quantize(w, self.cfg.wl)
+        codes, s_w = amm_quantize_slices(w, self.cfg.wl)
         return {"codes": codes.contiguous(), "s_w": s_w}
 
 
@@ -192,7 +195,7 @@ def _amm_bitexact_approx(x, w, rt: AmmRuntime, planes=None):
 
 
 def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
-              seed: Optional[int] = None) -> torch.Tensor:
+              seed: Optional[int] = None, planes=None) -> torch.Tensor:
     """Matmul over the last axis of x with the paper's technique applied.
 
     x: (..., K), w: (K, N).  ``seed`` stands for the reference's ``key``:
@@ -205,7 +208,8 @@ def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
     ``quant_matmul`` kernel on the activation block flattened to
     (M, K), with the scales of ``amm_quantize`` (device scalars).
     Bitexact mode computes its forward value without a graph
-    (``_amm_bitexact_approx``).
+    (``_amm_bitexact_approx``); ``planes``: an optional
+    ``AmmRuntime.precode(w)`` entry, bit-identical to none.
     """
     pin_fp32()
     cfg = rt.cfg
@@ -237,7 +241,8 @@ def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
         return exact + (approx - exact).detach()
     if cfg.mode == "bitexact":
         with torch.no_grad():
-            approx = _amm_bitexact_approx(x.detach(), w.detach(), rt)
+            approx = _amm_bitexact_approx(x.detach(), w.detach(), rt,
+                                          planes=planes)
         return exact + (approx - exact).detach()
     raise ValueError(f"unknown amm mode {cfg.mode!r}")
 
@@ -246,7 +251,11 @@ def amm_dot(a, b, rt: AmmRuntime, *, oracle: bool = False, ste: bool = True):
     """Both-operands-dynamic approximate matmul, the attention-side
     ``amm_dense``: contracts a's last axis against b's second-to-last,
     batched over matching leading axes, every (M, K) x (K, N) slice
-    quantized with its own pair of scales (``bbm_matmul_dynamic``).
+    quantized with its own pair of scales (``bbm_matmul_dynamic`` of each
+    slice): the slices' scales in one batched pass
+    (``amm_quantize_slices``), every slice's product in one
+    ``bbm_dot_coded_batched`` launch with the descale ``yq * (s_a * s_b)``
+    in its epilogue.
 
     Straight-through: ``exact + (approx - exact).detach()``.  ``oracle``
     forms the products through the closed forms (``amm_dot_ref``);
@@ -263,12 +272,15 @@ def amm_dot(a, b, rt: AmmRuntime, *, oracle: bool = False, ste: bool = True):
             approx = amm_dot_ref(a.detach(), b.detach(), rt.spec)
         else:
             wl, vbl, kind = lowering
-            a2 = a.detach().reshape((-1,) + a.shape[-2:])
-            b2 = b.detach().reshape((-1,) + b.shape[-2:])
-            approx = torch.stack([
-                bbm_matmul_dynamic(a2[i], b2[i], wl=wl, vbl=vbl, kind=kind)
-                for i in range(a2.shape[0])]).reshape(
-                    a.shape[:-1] + b.shape[-1:])
+            m, n = a.shape[-2], b.shape[-1]
+            aq, s_a = amm_quantize_slices(
+                a.detach().reshape((-1, 1) + a.shape[-2:]), wl)
+            bq, s_b = amm_quantize_slices(
+                b.detach().reshape((-1, 1) + b.shape[-2:]), wl)
+            approx = bbm_dot_coded_batched(
+                aq.contiguous(), s_a, bq, s_b[..., None], wl=wl, vbl=vbl,
+                kind=kind, block=n, per="column")
+            approx = approx.reshape(a.shape[:-2] + (m, n)).to(a.dtype)
     if not ste:
         return approx
     exact = a @ b

@@ -24,17 +24,21 @@ def mlp_table(d_model: int, d_ff: int, prefix_axes=("embed", "mlp")) -> Dict:
     }
 
 
-def mlp_apply(p, x: torch.Tensor, amm=None,
-              seed: Optional[int] = None) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, amm=None, seed: Optional[int] = None,
+              planes=None) -> torch.Tensor:
     """Gated MLP, ``silu(x @ w_gate) * (x @ w_up) @ w_down``.
 
     With ``amm.mlp_active`` each of the three products goes through
     ``amm_dense`` with the layer's noise ``seed`` (the reference passes
     the same key to all three, so gate and up draw alike on equal tiles).
+    ``planes``: the optional per-weight precode cache ``{"w_gate", "w_up",
+    "w_down"}`` of ``AmmRuntime.precode`` entries (bitexact mode).
     """
     if amm is not None and amm.mlp_active:
-        g = amm_dense(x, p["w_gate"], amm, seed)
-        u = amm_dense(x, p["w_up"], amm, seed)
-        return amm_dense(F.silu(g) * u, p["w_down"], amm, seed)
+        pl = planes or {}
+        g = amm_dense(x, p["w_gate"], amm, seed, planes=pl.get("w_gate"))
+        u = amm_dense(x, p["w_up"], amm, seed, planes=pl.get("w_up"))
+        return amm_dense(F.silu(g) * u, p["w_down"], amm, seed,
+                         planes=pl.get("w_down"))
     h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
     return h @ p["w_down"]

@@ -7,6 +7,12 @@ its layers with ``jax.lax.scan``; here a Python loop walks the
 layer-stacked parameters.  The residual stream is bf16 and the float
 cache bf16, as in the reference.
 
+The bitexact datapath's weight side is precoded once for fixed weights
+(``lm_amm_planes``, ``ModelRuntime.build_planes``) and threaded through
+``lm_apply(amm_planes=)``; the caches are the float cache
+(``init_cache``) or the int-code cache (``serve.kv_cache``), which the
+attention layer tells apart by their leaves.
+
 The noise seeds follow the reference's key chain: ``lm_apply`` starts
 from ``jax.random.key(rng)`` (``rng`` defaults to 0, as the reference's
 serving path never passes one), splits it once per layer, and the
@@ -33,7 +39,7 @@ from .common import (AmmRuntime, Spec, cross_entropy_loss, init_params,
 from .moe import mlp_apply, mlp_table
 
 __all__ = ["ModelRuntime", "lm_table", "lm_init", "lm_apply", "lm_loss",
-           "init_cache"]
+           "lm_amm_planes", "init_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +58,11 @@ class ModelRuntime:
     @staticmethod
     def build(cfg: ArchConfig, use_pallas: bool = False) -> "ModelRuntime":
         return ModelRuntime(AmmRuntime.build(cfg.amm), use_pallas)
+
+    def build_planes(self, cfg: ArchConfig, params):
+        """``lm_amm_planes`` of these weights under this runtime's amm
+        (None when nothing is cached)."""
+        return lm_amm_planes(cfg, self.amm, params)
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -96,6 +107,21 @@ def lm_init(cfg: ArchConfig, seed: int = 0, *, device=None,
     return init_params(lm_table(cfg), gen, device=dev, dtype=dtype)
 
 
+def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):
+    """The precode cache of every weight ``amm_dense`` approximates: for
+    the dense family ``{"layers": {"mlp": {"w_gate", "w_up", "w_down"}}}``,
+    each an ``AmmRuntime.precode`` entry of the layer stack (codes (L, K,
+    N), one scale per layer), sliced per layer by ``lm_apply``.  None
+    when the mode caches nothing (not bitexact, or a non-Booth family) or
+    when no MLP product is approximated (``apply_to="attn"``)."""
+    if not (amm.cacheable and amm.mlp_active):
+        return None
+    _check_family(cfg)
+    mlp = params["layers"]["mlp"]
+    return {"layers": {"mlp": {k: amm.precode(mlp[k])
+                               for k in ("w_gate", "w_up", "w_down")}}}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
     """Layer-stacked float KV cache: k, v (L, B, max_len, KV, head_dim)."""
@@ -116,11 +142,12 @@ def _attn_block(p, h, cfg, rt, *, positions, cache=None, pos=None):
     return h + y.to(h.dtype), new_cache
 
 
-def _dense_block(p, h, cfg, rt, seed, *, positions, cache=None, pos=None):
+def _dense_block(p, h, cfg, rt, seed, *, positions, cache=None, pos=None,
+                 planes=None):
     h, new_cache = _attn_block(p, h, cfg, rt, positions=positions,
                                cache=cache, pos=pos)
     y = mlp_apply(p["mlp"], rmsnorm(h, p["mlp_norm"], cfg.norm_eps), rt.amm,
-                  seed)
+                  seed, planes=(planes or {}).get("mlp"))
     return h + y.to(h.dtype), new_cache
 
 
@@ -133,17 +160,19 @@ def _layer(tree, i: int):
 
 def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
              mode: str = "train", caches=None, pos=None,
-             rng=None):
+             rng=None, amm_planes=None):
     """Forward pass.
 
     tokens: (B, S) integer tokens (S == 1 to decode against caches).
-    caches: optional ``init_cache`` dict, updated in place at ``pos`` (a
+    caches: optional ``init_cache`` dict or int-code cache
+    (``serve.kv_cache.init_code_cache``), updated in place at ``pos`` (a
     scalar, or a (B,) per-slot vector under continuous batching) and
     returned; without caches the attention is the cacheless causal
     schedule (train and prefill), or the flash kernels with
     ``rt.use_pallas_attention``.  rng: the key the noise seeds derive
     from, as an int seed (``jax.random.key(rng)``; default 0) or a
-    ``core.prng`` key.
+    ``core.prng`` key.  amm_planes: an optional ``lm_amm_planes`` cache,
+    bit-identical to none.
     Returns (logits f32 (B, S, vocab), aux losses, caches).
     """
     if mode not in ("train", "prefill", "decode"):
@@ -163,12 +192,15 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
         off = off[:, None]
     positions = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
                  + off) * torch.ones((b, 1), dtype=torch.int32, device=dev)
+    planes = (amm_planes or {}).get("layers")
     for i in range(cfg.n_layers):
-        cache_l = None if caches is None else {"k": caches["k"][i],
-                                               "v": caches["v"][i]}
+        # the layer's leaves, float ({"k", "v"}) or code ({"k_codes",
+        # "k_scale", "v_codes", "v_scale"}): attention routes on the keys
+        cache_l = None if caches is None else _layer(caches, i)
         h, _ = _dense_block(_layer(params["layers"], i), h, cfg, rt,
                             seeds[i], positions=positions, cache=cache_l,
-                            pos=pos)
+                            pos=pos, planes=None if planes is None
+                            else _layer(planes, i))
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     head = embed.T if cfg.tie_embeddings else params["lm_head"]
     logits = (h @ head.to(h.dtype)).to(torch.float32)

@@ -3,10 +3,16 @@
 Counterpart of ``repro.serve.engine``.
 
 ``make_serve_fns`` gives the LM's two entry points as plain closures
-(PyTorch runs eagerly: there is no ``jit`` to carry over):
+(PyTorch runs eagerly: there is no ``jit`` to carry over), with the
+bitexact datapath's weight precode (``lm_amm_planes``) baked in:
 
   prefill(params, tokens, caches)        -> (logits_last, caches)
   decode(params, tokens_1, caches, pos)  -> (logits, caches)
+
+With ``kv_codes=True`` the caches are the int-code KV cache
+(``serve.kv_cache``): wl-bit codes frozen at write time plus per-block
+f32 scales, decoded straight from the codes, so every request's token
+stream and cache bits are those of its solo run under ``apply_to="attn"``.
 
 ``Scheduler`` serves LM requests from a fixed pool of batch slots, in the
 reference's flush mode (lockstep, one prompt token per step) or its
@@ -38,37 +44,52 @@ from ..core.multipliers import MulSpec
 from ..device import pin_fp32, resolve_device
 from ..dsp.fir import BBM_KINDS, PrecodedBank, fir_apply
 from ..kernels.booth_rows import resolve_form
-from ..models import AmmRuntime, ModelRuntime, init_cache, lm_apply
-from .kv_cache import batch_axis_tree, reset_slot, slot_put, slot_take
+from ..models import (AmmRuntime, ModelRuntime, init_cache, lm_amm_planes,
+                      lm_apply)
+from .kv_cache import (KV_BLOCK, batch_axis_tree, code_cache_logical_axes,
+                       init_code_cache, reset_slot, slot_put, slot_take)
 
 __all__ = ["cache_logical_axes", "make_serve_fns", "Request", "Scheduler",
            "FilterRequest", "FilterbankEngine"]
 
-_CODES = ("kv_codes (the int-code KV cache) is bitexact serving, ROADMAP "
-          "slice 5")
 
-
-def cache_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
+def cache_logical_axes(cfg: ArchConfig, *,
+                       kv_codes: bool = False) -> Dict[str, Any]:
     """Logical axes of every cache leaf of the dense family's
-    ``models.init_cache`` (the only family ported)."""
+    ``models.init_cache`` (the only family ported), or with
+    ``kv_codes=True`` of ``serve.kv_cache.init_code_cache``."""
+    if kv_codes:
+        return code_cache_logical_axes(cfg)
     kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
     return {"k": kvax, "v": kvax}
 
 
-def make_serve_fns(cfg: ArchConfig, rt: ModelRuntime):
+def make_serve_fns(cfg: ArchConfig, rt: ModelRuntime, *, amm_planes=None,
+                   kv_codes: bool = False):
     """(prefill_fn, decode_fn): ``lm_apply`` in decode mode against the
     caches, each returning the last position's logits.  Prefill writes
     the prompt at position 0; decode takes a scalar position or a (B,)
-    per-slot vector.  Both run on the device the parameters live on."""
+    per-slot vector.  Both run on the device the parameters live on.
+
+    amm_planes: an optional ``lm_amm_planes`` cache the closures carry
+    (serving weights are fixed: the bitexact weight precode happens once,
+    not in every step).  kv_codes: the functions serve the int-code cache
+    (checked here: it needs an active Booth-family bitexact attention
+    lowering on ``rt``; the cache itself is the caller's)."""
+    if kv_codes and rt.amm.attn_lowering is None:
+        raise ValueError("kv_codes serving requires an active Booth-family "
+                         "bitexact amm attention lowering")
+
     def prefill(params, tokens, caches):
         logits, _, new_caches = lm_apply(params, cfg, rt, tokens,
-                                         mode="decode", caches=caches, pos=0)
+                                         mode="decode", caches=caches, pos=0,
+                                         amm_planes=amm_planes)
         return logits[:, -1], new_caches
 
     def decode(params, tokens, caches, pos):
         logits, _, new_caches = lm_apply(params, cfg, rt, tokens,
                                          mode="decode", caches=caches,
-                                         pos=pos)
+                                         pos=pos, amm_planes=amm_planes)
         return logits[:, -1], new_caches
 
     return prefill, decode
@@ -283,6 +304,14 @@ class Scheduler:
     re-serves a tripped request from scratch on the exact datapath;
     ``Request.deadline`` bounds the steps a request may hold a slot.
 
+    ``kv_codes=True`` stores the KV cache as wl-bit int codes plus one f32
+    scale per ``kv_block`` positions and kv head (``serve.kv_cache``;
+    needs an active Booth-family bitexact attention lowering, and no
+    guard budget audit, whose exact replay cannot read codes): decode
+    feeds the frozen codes straight into the datapath.  Without a
+    ``decode_fn`` the scheduler precodes the bitexact weights once
+    (``self.amm_planes``) for its own step functions.
+
     ``device``: where the caches live and the steps run (the GPU unless
     told otherwise); ``params`` must already be there.  The default step
     functions update the caches in place; a retry rewrites the same
@@ -294,12 +323,23 @@ class Scheduler:
     def __init__(self, cfg: ArchConfig, rt: ModelRuntime, params,
                  batch_slots: int, max_len: int, decode_fn=None, *,
                  prefill_fn=None, continuous: bool = False,
-                 kv_codes: bool = False, max_prefills_per_step: int = 1,
+                 kv_codes: bool = False, kv_block: int = KV_BLOCK,
+                 max_prefills_per_step: int = 1,
                  guard: Optional[GuardConfig] = None, max_retries: int = 0,
                  backoff: float = 0.0, backoff_cap: float = 1.0,
                  device=None):
         if kv_codes:
-            raise NotImplementedError(_CODES)
+            if not rt.amm.attn_active or rt.amm.attn_lowering is None:
+                raise ValueError(
+                    "kv_codes stores the cache as Broken-Booth int codes; "
+                    "it requires an active Booth-family bitexact amm "
+                    "attention lowering (AmmConfig mode='bitexact', "
+                    "Booth-family mul, apply_to 'attn'/'all')")
+            if guard is not None and guard.budget_active:
+                raise ValueError(
+                    "the guard budget audit replays the step on the exact "
+                    "datapath, which cannot read an int-code cache — use "
+                    "finite-only guards or kv_codes=False")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"parameters on {params['embed'].device}, "
@@ -309,11 +349,18 @@ class Scheduler:
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.pos = np.zeros(batch_slots, np.int32)
         self.max_len = max_len
-        self.caches = init_cache(cfg, batch_slots, max_len,
-                                 device=self.device)
+        if kv_codes:
+            self.caches = init_code_cache(
+                cfg, batch_slots, max_len, wl=rt.amm.attn_lowering[0],
+                block=kv_block, device=self.device)
+        else:
+            self.caches = init_cache(cfg, batch_slots, max_len,
+                                     device=self.device)
         self.continuous = continuous
+        self.kv_codes = kv_codes
         self.max_prefills_per_step = max_prefills_per_step
-        self._bax = batch_axis_tree(cache_logical_axes(cfg))
+        self._bax = batch_axis_tree(cache_logical_axes(cfg,
+                                                       kv_codes=kv_codes))
         self.queue: List[Request] = []
         self.decode_fn = decode_fn
         self.prefill_fn = prefill_fn
@@ -325,7 +372,12 @@ class Scheduler:
                       "prefills": 0, "retries": 0, "probes": 0,
                       "failed": 0, "guard_trips": 0, "exact_reserves": 0,
                       "deadline_expired": 0}
-        self._prefill_default, self._default_fn = make_serve_fns(cfg, rt)
+        # a supplied decode_fn carries its own planes (launch.serve builds
+        # them once): only the default step functions need them here
+        self.amm_planes = (lm_amm_planes(cfg, rt.amm, params)
+                           if decode_fn is None else None)
+        self._prefill_default, self._default_fn = make_serve_fns(
+            cfg, rt, amm_planes=self.amm_planes, kv_codes=kv_codes)
 
     def submit(self, req: Request):
         """Queue one request; invalid specs raise here, not mid-serve.

@@ -245,7 +245,7 @@ def test_bound_counts_the_contracted_dot_form():
     reference's one-hot contraction takes 56 and 66), each the count of
     the byte operands ``bbm_mma_operands`` forms, at 2 operations each
     over 1,979 TOP/s: 0.307 and 0.189 ms at (2048, 896) x (896, 4864),
-    against 0.019 ms of bytes."""
+    against 0.016 ms of bytes (2-byte codes in, f32 out)."""
     assert chip_smoke.onehot_byte_products(16, 13, 0) == 56
     assert chip_smoke.onehot_byte_products(16, 13, 1) == 66
     assert chip_smoke.dot_byte_products(16, 13, 0) == 34
@@ -262,5 +262,31 @@ def test_bound_counts_the_contracted_dot_form():
         bound, by = chip_smoke.dot_scaled_bound_ms(2048, 896, 4864,
                                                    kind=kind)
         assert by == "operations" and round(bound, 3) == ms
-    bytes_ms = 4 * (2048 * 896 + 896 * 4864 + 2048 * 4864) / 3.35e12 * 1e3
-    assert round(bytes_ms, 3) == 0.019
+    bytes_ms = (2 * (2048 * 896 + 896 * 4864) + 4 * 2048 * 4864) \
+        / 3.35e12 * 1e3
+    assert round(bytes_ms, 3) == 0.016
+
+
+def test_decode_bounds_charge_codes_at_their_width():
+    """At decode the dot form and the batched coded entry are bound by
+    bytes, so a code is charged the bytes its width needs (2 at WL 16, 1
+    at WL 8), not the int32 it is held in: (8, 896) x (896, 4864) moves
+    2 (8 * 896 + 896 * 4864) + 4 * 8 * 4864 bytes, and the batched score
+    product over 8 full slots of 48 positions (2 kv heads, 7 query heads,
+    d 64) moves its q codes at 2 bytes, the int16 cache, the scales, the
+    lengths and the f32 scores."""
+    assert [chip_smoke.code_bytes(w) for w in (4, 8, 12, 16)] == [1, 1, 2, 2]
+    for k, n in ((896, 4864), (4864, 896)):
+        bound, by = chip_smoke.dot_scaled_bound_ms(8, k, n)
+        want = (2 * (8 * k + k * n) + 4 * 8 * n) / 3.35e12 * 1e3
+        assert by == "bytes" and bound == pytest.approx(want, rel=1e-12)
+    ops = chip_smoke.coded_operands(torch, np.random.default_rng(0), "cpu",
+                                    s=48, wl=16, kv_len=[48] * 8)
+    nbytes = {"column": 2 * 16 * 7 * 64 + 4 * 16 + 2 * 768 * 64 + 4 * 48
+              + 4 * 8 + 4 * 16 * 7 * 48,
+              "kblock": 2 * 7 * 768 + 4 * 16 + 2 * 768 * 64 + 4 * 48
+              + 4 * 8 + 4 * 16 * 7 * 64}
+    for per, want in nbytes.items():
+        bound, by = chip_smoke.coded_bound_ms(ops, per)
+        assert by == "bytes"
+        assert bound == pytest.approx(want / 3.35e12 * 1e3, rel=1e-12)

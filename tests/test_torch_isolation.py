@@ -287,8 +287,12 @@ def test_unported_parts_name_their_roadmap_item(tmp_path):
     from repro_torch.configs.base import AmmConfig
     with pytest.raises(NotImplementedError, match="A12"):
         get_arch("deepseek-v3-671b")
-    for flag in (["--amm", "bitexact"], ["--amm-attn"], ["--kv-codes"]):
-        with pytest.raises(NotImplementedError, match="slice 5"):
+    # --kv-codes takes the reference's parse-time rules (bitexact, a Booth
+    # family, --amm-attn): each missing piece is an argparse error
+    for flag in (["--kv-codes"], ["--kv-codes", "--amm", "bitexact"],
+                 ["--kv-codes", "--amm", "bitexact", "--amm-attn", "--mul",
+                  "kulkarni", "--vbl", "2"]):
+        with pytest.raises(SystemExit):
             t_launch.main(["--reduced", "--device", "cpu"] + flag)
     with pytest.raises(NotImplementedError, match="A13"):
         t_train.main(["--reduced", "--device", "cpu", "--mesh-data", "2",
@@ -299,10 +303,12 @@ def test_unported_parts_name_their_roadmap_item(tmp_path):
     amm = AmmRuntime.build(AmmConfig(mode="bitexact", apply_to="all"))
     shape = (1, 4, cfg.n_kv_heads, cfg.resolved_head_dim)
     cache = {"k": torch.zeros(shape), "v": torch.zeros(shape)}
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        attention(p, x, cfg, positions=torch.zeros((1, 1)), cache=cache,
-                  pos=0, amm=amm)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # amm attention against a float cache decodes (bitexact serving)
+    y, _ = attention(p, x, cfg, positions=torch.zeros((1, 1)), cache=cache,
+                     pos=0, amm=amm)
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    # the int-code cache needs an active Booth-family attention lowering
+    with pytest.raises(ValueError, match="int-code KV cache requires"):
         attention(p, x, cfg, positions=torch.zeros((1, 1)),
                   cache={"k_codes": None}, pos=0)
     assert ModelRuntime.build(cfg).amm.mlp_active
@@ -705,9 +711,9 @@ def test_flash_kernels_within_bound_of_plain_versions_on_the_card(causal):
 @pytest.mark.cuda
 def test_chunked_amm_attention_on_the_card_matches_the_cpu():
     """The chunked amm path (no flash) runs every block's products on the
-    ``bbm_dot_scaled`` kernel, one launch per (batch, kv-head) slice; the
-    card agrees with the CPU by ``flash_amm_compare`` (same codes, float
-    sums in another order)."""
+    batched ``bbm_dot_coded_batched`` kernel, one launch per product over
+    all (batch, kv-head) slices; the card agrees with the CPU by
+    ``flash_amm_compare`` (same codes, float sums in another order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import importlib
@@ -721,12 +727,16 @@ def test_chunked_amm_attention_on_the_card_matches_the_cpu():
     g = torch.Generator().manual_seed(1)
     q = torch.randn((1, 40, 4, 64), generator=g)
     k, v = (torch.randn((1, 40, 2, 64), generator=g) for _ in range(2))
-    before = t_bm.bbm_dot_scaled.launches
+    before = (t_bm.bbm_dot_scaled.launches,
+              t_bm.bbm_dot_coded_batched.launches)
     got = chunked_attention(q.cuda(), k.cuda(), v.cuda(), causal=True,
                             bq=16, bk=16, amm=rt)
     torch.cuda.synchronize()
-    # 3 x 3 block pairs, 2 products each, 2 (batch, kv-head) slices
-    assert t_bm.bbm_dot_scaled.launches == before + 36
+    # 3 x 3 block pairs, 2 products each, both (batch, kv-head) slices in
+    # one launch
+    assert (t_bm.bbm_dot_scaled.launches,
+            t_bm.bbm_dot_coded_batched.launches) == (before[0],
+                                                     before[1] + 18)
     from torch_amm_capture import chunked_residuals, port_amm_dot_records
     runs = []
     for dev in ("cuda", "cpu"):
@@ -1068,3 +1078,116 @@ def test_the_tensor_cores_refuse_what_they_cannot_compute_on_the_card():
     assert (tb.bbm_dot_scaled.launches, tb.bbm_matmul_dot.launches) == before
     assert tb.bbm_dot_route(16, 3, 0) == "tile"
     assert tb.bbm_dot_route(16, 13, 0, shift=15) == "tile"
+
+
+# ------------------------------------- the batched codes-in entry (slice 5)
+def _coded_operands(device, *, wl=16, b=4, kvh=2, g=7, d=64, s=96, seed=3):
+    """Decode attention's two coded products over a code cache of S
+    positions: ragged lengths (1 and S among them) over stale codes, and
+    never-written (0.0) blocks past the live ones of every other slot."""
+    from repro_torch.kernels.ref import amm_quantize_slices
+    rng = np.random.default_rng(seed)
+    lim = 2 ** (wl - 1) - 1
+    dt = torch.int16 if wl > 8 else torch.int8
+    kv_len = np.array([1, 37, 50, s][:b], np.int64)
+    codes = {side: torch.from_numpy(rng.integers(
+        -lim - 1, lim + 1, (b, s, kvh, d))).to(dt) for side in "kv"}
+    scales = {}
+    for side in "kv":
+        sc = rng.uniform(1e-3, 0.1, (b, s // 16, kvh)).astype(np.float32)
+        for i in range(1, b, 2):
+            sc[i, -(-int(kv_len[i]) // 16):] = 0.0
+        scales[side] = torch.from_numpy(sc)
+    q = torch.from_numpy(rng.standard_normal((b, kvh, g, d)).astype(
+        np.float32))
+    p = torch.from_numpy(rng.uniform(0, 1, (b, kvh, g, s)).astype(
+        np.float32))
+    aq, s_a = amm_quantize_slices(q, wl)
+    pq, s_p = amm_quantize_slices(p, wl)
+    calls = {"qk": (aq, s_a, codes["k"].permute(0, 2, 3, 1),
+                    scales["k"].permute(0, 2, 1), "column"),
+             "pv": (pq, s_p, codes["v"].permute(0, 2, 1, 3),
+                    scales["v"].permute(0, 2, 1), "kblock")}
+    live = torch.from_numpy(kv_len)
+    move = lambda t: t.to(device)  # noqa: E731
+    return ({k: tuple(move(t) if isinstance(t, torch.Tensor) else t
+                      for t in v) for k, v in calls.items()}, move(live))
+
+
+def test_coded_batched_runs_its_plain_version_on_cpu_without_counting():
+    import importlib
+    t_bm = importlib.import_module("repro_torch.kernels.bbm_matmul")
+    calls, live = _coded_operands("cpu", s=48)
+    before = t_bm.bbm_dot_coded_batched.launches
+    for a, s_a, b, s_b, per in calls.values():
+        kw = dict(wl=16, vbl=13, kind=1, block=16, per=per, live=live)
+        assert torch.equal(t_bm.bbm_dot_coded_batched(a, s_a, b, s_b, **kw),
+                           t_bm.bbm_dot_coded_batched_plain(a, s_a, b, s_b,
+                                                            **kw))
+    assert t_bm.bbm_dot_coded_batched.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wl,vbl,kind", [(16, 13, 0), (16, 13, 1),
+                                         (16, 3, 0), (8, 5, 1)])
+def test_coded_batched_equals_plain_version_on_the_card(wl, vbl, kind):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_bm = importlib.import_module("repro_torch.kernels.bbm_matmul")
+    calls, live = _coded_operands("cuda", wl=wl)
+    before = t_bm.bbm_dot_coded_batched.launches
+    for a, s_a, b, s_b, per in calls.values():
+        kw = dict(wl=wl, vbl=vbl, kind=kind, block=16, per=per)
+        got = t_bm.bbm_dot_coded_batched(a, s_a, b, s_b, live=live, **kw)
+        want = t_bm.bbm_dot_coded_batched_plain(
+            a.cpu(), s_a.cpu(), b.cpu(), s_b.cpu(), live=live.cpu(), **kw)
+        assert torch.equal(got.cpu(), want)
+        # unit scales leave yq: bbm_dot_scaled of each slice
+        unit = dict(wl=wl, vbl=vbl, kind=kind, block=1)
+        ones_a = torch.ones_like(s_a)
+        ones_b = torch.ones((*b.shape[:2], b.shape[3]), device=b.device)
+        yq = t_bm.bbm_dot_coded_batched(a, ones_a, b, ones_b, **unit)
+        assert torch.equal(yq.cpu(), t_bm.bbm_dot_coded_batched_plain(
+            a.cpu(), ones_a.cpu(), b.cpu(), ones_b.cpu(), **unit))
+        assert torch.equal(yq[1, 0].cpu(), t_bm.bbm_dot_scaled_plain(
+            a[1, 0].cpu(), b[1, 0].cpu().to(torch.int32).contiguous(),
+            wl=wl, vbl=vbl, kind=kind))
+    torch.cuda.synchronize()
+    assert t_bm.bbm_dot_coded_batched.launches == before + 4
+
+
+@pytest.mark.cuda
+def test_decode_attention_codes_on_the_card_equals_the_cpu():
+    """The whole code-domain decode (quantizers, softmax, both launches)
+    on the card against the CPU port.  The products are integer and
+    descale alike; only the softmax's last bits may differ, moving a P
+    code by one, which moves a value product by at most |v| + 2^(vbl +
+    2) (the step of p*v plus both truncations) times s_p and the largest
+    V block scale: at most S such moves a row, and 2^-20 more for the P
+    scale's rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.configs.base import AmmConfig
+    from repro_torch.models.attention import decode_attention_codes
+    from repro_torch.models.common import AmmRuntime
+    amm = AmmRuntime.build(AmmConfig(mode="bitexact", mul="bbm0", wl=16,
+                                     param=13, apply_to="attn"))
+    calls, live = _coded_operands("cpu")
+    cache = {"k_codes": calls["qk"][2].permute(0, 3, 1, 2),
+             "k_scale": calls["qk"][3].permute(0, 2, 1),
+             "v_codes": calls["pv"][2].permute(0, 2, 1, 3),
+             "v_scale": calls["pv"][3].permute(0, 2, 1)}
+    q = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4, 1, 14, 64)).astype(np.float32))
+    want = decode_attention_codes(q, cache, live, amm=amm)
+    got = decode_attention_codes(q.cuda(), {k: v.cuda() for k, v in
+                                            cache.items()}, live.cuda(),
+                                 amm=amm)
+    b, s = cache["v_codes"].shape[:2]
+    lim = 2 ** 15 - 1                     # s_p = max p / lim <= 1 / lim
+    v = cache["v_codes"].double().abs().amax(dim=(1, 3))        # (B, KV)
+    sv = cache["v_scale"].double().amax(dim=1)
+    bound = s * (v + 2.0 ** (13 + 2)) / lim * sv * (1 + 2.0 ** -20)
+    err = (got.cpu() - want).double().abs().reshape(b, 2, 7, 64)
+    assert (err.amax(dim=(2, 3)) <= bound).all()

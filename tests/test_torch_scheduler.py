@@ -18,7 +18,8 @@ twice that, and the two ``stats`` dicts must be equal.
 Policy: copies of ``tests/test_serve_continuous.py``'s FIFO,
 poison-recycle, deadline and near-cap tests, on the port alone, in noise
 mode (the reference runs them in bitexact attention mode with the
-int-code cache, which is bitexact serving, ROADMAP slice 5).
+int-code cache; ``tests/test_torch_serve_bitexact.py`` ports them in that
+mode).
 """
 from __future__ import annotations
 
@@ -273,7 +274,8 @@ def test_guard_reserves_on_the_exact_datapath(lm):
 
 
 def test_unported_options_raise(lm):
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # noise mode has no attention lowering for the int-code cache to feed
+    with pytest.raises(ValueError, match="attention lowering"):
         _sched(lm, kv_codes=True)
     with pytest.raises(ValueError, match="max_new"):
         _sched(lm).submit(t_engine.Request(rid=0, prompt=[1], max_new=0))
