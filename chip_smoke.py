@@ -148,11 +148,17 @@ of the JAX package.  Phases, each of which fails the run:
 
  19. slice 5, bitexact serving from the int-code KV cache: the batched
      codes-in entry ``bbm_dot_coded_batched`` bit-equal to its plain
-     version (CPU copies) on both products of decode attention (the score
-     product with per-column K scales, the value product with per-block V
-     scales and the ordered block add), both kinds, S 16-512, ragged
-     lengths over stale codes and never-written blocks, a chunk shorter
-     than a block, int8 codes, unit scales; then full-width
+     version (CPU copies) on both routes (``bbm_coded_route``: the int8
+     tensor cores of ``csrc/bbm_coded_mma.cuh``, and the CUDA-core
+     ``bbm_coded_kernel`` where the rule takes it and, through its C
+     entry, where it does not) on both products of decode attention (the
+     score product with per-column K scales, the value product with
+     per-block V scales and the ordered block add), both kinds, S 16-512,
+     ragged lengths over stale codes and never-written blocks, a chunk
+     shorter than a block, int8 codes, unit scales, and ``amm_dot``'s
+     prefill pair; the CUDA-core route's own path (decode attention on
+     the code cache at WL 16 / VBL 3, its counts zeroed before); then
+     full-width
      qwen2-0.5b bitexact (bbm0 WL 16 VBL 13, ``apply_to="all"``,
      ``kv_codes``) through the continuous ``Scheduler``: 8 slots,
      max_len 512, 32 requests of 32-256 prompt tokens and 64 new tokens
@@ -163,10 +169,12 @@ of the JAX package.  Phases, each of which fails the run:
      the code cache's bytes against bf16 (``memory_report``); a 2-layer
      cut at full width served on the card and teacher-forced on the CPU
      port (logits within ``LOGIT_RTOL``); each coded launch of a decode
-     step at the main path's lengths (device ms, plain ms, bound, an f32
+     step at the main path's lengths and of the prefill pair on both
+     routes (device ms, plain ms, bound, an empty kernel's launch, an f32
      ``torch.bmm`` yardstick) and ``bbm_dot_scaled`` at the decode
      shapes (8, 896) x (896, 4864) and (8, 4864) x (4864, 896); a
-     profiled decode window (idle share, device operations, host time).
+     profiled decode window (idle share, device operations, host time,
+     no CUDA-core coded launch).
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -930,13 +938,14 @@ def qm_host_us(torch, qm, dev, cfg, rt, params) -> str:
 
 
 def decode_window(torch, sched, name: str, kernels, prefills: int,
-                  steps: int = 5) -> tuple:
+                  steps: int = 5, forbid=()) -> tuple:
     """A profiled window of ``steps`` pure decode steps of ``sched``
     (device time only), then 2 more with the host's operations traced
     too; returns (printed lines, the window's idle share).  ``kernels``:
     the profiler names of the ``name`` wrapper's kernels, whose share is
     reported apart; ``prefills``: the scheduler's prefills so far, which
-    the window must not add to."""
+    the window must not add to; ``forbid``: kernel names that must not
+    run in the window."""
     from torch.profiler import ProfilerActivity, profile
     lines = []
     torch.cuda.synchronize()
@@ -958,6 +967,8 @@ def decode_window(torch, sched, name: str, kernels, prefills: int,
         if any(q in ev.key for q in kernels):
             k_us += t
             k_n += ev.count
+        if any(q in ev.key for q in forbid):
+            fail(f"{ev.key[:90]} ran in the decode window")
     idle = 1.0 - busy_us / 1e3 / wall_ms
     lines.append(
         f"decode window ({steps} steps, {sched.stats['steps']} so far, "
@@ -2312,9 +2323,17 @@ def b1_timing(torch, tb, full) -> tuple:
 
 
 # ------------------------------------------------ slice 5: bitexact serving
-CODED_SOURCE = "src/repro_torch/kernels/csrc/bbm_dot.cu"
-CODED_KERNEL = "bbm_coded_kernel"
+CODED_SOURCE = "src/repro_torch/kernels/csrc/bbm_coded_mma.cuh"
+CODED_KERNEL = "bbm_coded_mma_kernel"            # the tensor-core route
+CODED_TILE_SOURCE = "src/repro_torch/kernels/csrc/bbm_dot.cu"
+CODED_TILE_KERNEL = "bbm_coded_kernel"           # the CUDA-core route
 CODED_REPLACES = "src/repro/kernels/bbm_matmul.py:112"
+EMPTY_KERNEL = "bbm_empty_kernel"
+# the CUDA-core kernel's earlier record on the main path's decode launches
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6), which the tensor-core route
+# is held against
+CODED_BEFORE_MS = {"qk": 0.020090, "pv": 0.054154}
+PREFILL_G, PREFILL_LEN = 7 * 128, 512    # amm_dot's prefill pair
 KV_BLOCK = 16
 SERVE_SLOTS, SERVE_LEN, SERVE_KV, SERVE_G, SERVE_D = 8, 512, 2, 7, 64
 
@@ -2375,13 +2394,70 @@ def coded_calls(ops) -> dict:
                    ops["v_scale"].permute(0, 2, 1), "kblock")}
 
 
-def coded_sweep(torch, tb, dev) -> int:
+def prefill_operands(torch, rng, dev, *, wl=16, bt=SERVE_KV,
+                     m=PREFILL_G, skv=PREFILL_LEN, d=SERVE_D) -> dict:
+    """``amm_dot``'s prefill pair as ``chunked_attention`` hands it over
+    (one q block of 128 positions times the 7 query heads of a kv head,
+    the 512-position cache): the scores against a transposed view of the
+    keys, the probabilities against the values, each slice quantized
+    with its own scales, per column with block = N."""
+    from repro_torch.kernels.ref import amm_quantize_slices
+    f = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    p = torch.from_numpy(rng.uniform(0, 1, (bt, 1, m, skv)).astype(
+        np.float32)).to(dev)
+    out = {}
+    for name, x, y in (("qk prefill", f(bt, 1, m, d) / 8.0,
+                        f(bt, 1, skv, d).transpose(-1, -2)),
+                       ("pv prefill", p, f(bt, 1, skv, d))):
+        aq, s_a = amm_quantize_slices(x, wl)
+        bq, s_b = amm_quantize_slices(y, wl)
+        out[name] = (aq.contiguous(), s_a, bq, s_b[..., None], "column")
+    return out
+
+
+def coded_route_check(torch, tb, args, kw, what: str) -> str:
+    """One batched call through the public wrapper, its route read off
+    ``mma_launches`` and held to ``bbm_coded_route``; the output, and on
+    a tensor-core point the CUDA-core kernel's through its C entry, equal
+    to the plain version on CPU copies (``torch.equal``); at a CUDA-core
+    point a forced tensor-core launch refused.  Returns the rule's route."""
+    kw = dict({"per": "column", "live": None}, **kw)
+    rule = tb.bbm_coded_route(kw["wl"], kw["vbl"], kw["kind"], kw["per"],
+                              kw["block"])
+    before = tb.bbm_dot_coded_batched.mma_launches
+    got = tb.bbm_dot_coded_batched(*args, **kw)
+    if tb.bbm_dot_coded_batched.mma_launches - before != (rule == "mma"):
+        fail(f"bbm_dot_coded_batched ({what}) did not take the rule's "
+             f"route {rule}")
+    cpu = dict(kw, live=None if kw["live"] is None else kw["live"].cpu())
+    want = tb.bbm_dot_coded_batched_plain(*[t.cpu() for t in args], **cpu)
+    outs = {rule: got}
+    if rule == "mma":
+        outs["tile"] = tb._coded_launch("tile", *args, **kw)[0]
+    else:
+        try:
+            tb._coded_launch("mma", *args, **kw)
+            fail(f"the tensor-core route ran at a CUDA-core point ({what})")
+        except ValueError:
+            pass
+    for route, out in outs.items():
+        if not torch.equal(out.cpu(), want):
+            fail(f"bbm_dot_coded_batched ({what}, route {route}) differs "
+                 f"from its plain version by "
+                 f"{float((out.cpu() - want).abs().max())}")
+    return rule
+
+
+def coded_sweep(torch, tb, dev) -> tuple:
     """``bbm_dot_coded_batched`` bit-equal to its plain version (on CPU
-    copies) over both products, both kinds, S 16-512, the WL 16 points of
-    the main path and of a chunk shorter than a block, int8 codes at WL
-    8, and unit scales (the raw sums, ``bbm_dot_scaled`` of each slice)."""
+    copies) on both routes (``coded_route_check``) over both products,
+    both kinds, S 16-512, the WL 16 points of the main path and of a
+    chunk shorter than a block, int8 codes at WL 8, unit scales (the raw
+    sums, ``bbm_dot_scaled`` of each slice), and ``amm_dot``'s prefill
+    pair.  Returns (cases, {route: cases})."""
     rng = np.random.default_rng(11)
-    cases = 0
+    routes = {"mma": 0, "tile": 0}
     for wl, vbl, kind, sizes in ((16, 13, 0, (16, 48, 128, 512)),
                                  (16, 13, 1, (16, 48, 128, 512)),
                                  (16, 3, 0, (48, 128)), (8, 5, 1, (64,))):
@@ -2396,19 +2472,49 @@ def coded_sweep(torch, tb, dev) -> int:
                         else (a, ones[0], b, ones[1])
                     extra = dict(block=KV_BLOCK, per=per, live=ops["live"]) \
                         if descale else dict(block=1)
-                    got = tb.bbm_dot_coded_batched(*args, **kw, **extra)
-                    cpu = [t.cpu() for t in args]
-                    if descale:
-                        extra["live"] = extra["live"].cpu()
-                    want = tb.bbm_dot_coded_batched_plain(*cpu, **kw,
-                                                          **extra)
-                    if not torch.equal(got.cpu(), want):
-                        fail(f"bbm_dot_coded_batched ({name}, S={s}, wl={wl} "
-                             f"vbl={vbl} kind={kind}, descale={descale}) "
-                             f"differs from its plain version by "
-                             f"{float((got.cpu() - want).abs().max())}")
-                    cases += 1
-    return cases
+                    routes[coded_route_check(
+                        torch, tb, args, dict(kw, **extra),
+                        f"{name}, S={s}, wl={wl} vbl={vbl} kind={kind}, "
+                        f"descale={descale}")] += 1
+    for kind in (0, 1):
+        for name, (a, s_a, b, s_b, per) in prefill_operands(
+                torch, rng, dev).items():
+            routes[coded_route_check(
+                torch, tb, (a, s_a, b, s_b),
+                dict(wl=16, vbl=13, kind=kind, block=b.shape[-1], per=per),
+                f"{name}, kind={kind}")] += 1
+    return sum(routes.values()), routes
+
+
+def coded_tile_path(torch, tb, dev) -> dict:
+    """The CUDA-core route's own path: ``decode_attention_codes`` (the
+    code cache's decode step) at bbm0 WL 16 / VBL 3, whose chunks of 7
+    products the tensor cores do not take, at the main path's cache
+    shapes; the counts zeroed just before, read just after (2 launches,
+    none on the tensor cores), the output finite."""
+    from repro_torch.configs.base import AmmConfig
+    from repro_torch.models.attention import decode_attention_codes
+    from repro_torch.models.common import AmmRuntime
+    amm = AmmRuntime.build(AmmConfig(mode="bitexact", mul="bbm0", wl=16,
+                                     param=3, apply_to="attn"))
+    ops = coded_operands(torch, np.random.default_rng(14), dev,
+                         s=SERVE_LEN, wl=16)
+    cache = {"k_codes": ops["k"], "k_scale": ops["k_scale"],
+             "v_codes": ops["v"], "v_scale": ops["v_scale"]}
+    q = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (SERVE_SLOTS, 1, SERVE_KV * SERVE_G, SERVE_D)).astype(
+        np.float32)).to(dev)
+    fn = tb.bbm_dot_coded_batched
+    fn.launches = fn.mma_launches = 0
+    out = decode_attention_codes(q, cache, ops["live"], amm=amm)
+    torch.cuda.synchronize()
+    got = {"launches": fn.launches, "mma_launches": fn.mma_launches}
+    if got != {"launches": 2, "mma_launches": 0}:
+        fail(f"decode attention at WL 16 / VBL 3 launched {got}, expected "
+             f"2 launches of the CUDA-core route")
+    if not bool(torch.isfinite(out).all()):
+        fail("decode attention at WL 16 / VBL 3 gave non-finite values")
+    return got
 
 
 class LaunchRecorder(Recorder):
@@ -2526,7 +2632,22 @@ def coded_bound_ms(ops, per: str, wl=16, vbl=13, kind=0) -> tuple:
     nbytes = (code_bytes(wl) * a_elems + 4 * bt
               + ops["k"].element_size() * live * d
               + 4 * blocks + 4 * b + 4 * bt * m * n_out)
-    products = m * live * d
+    return _bound(nbytes, m * live * d, wl, vbl, kind)
+
+
+def dense_coded_bound_ms(bt: int, m: int, k: int, n: int, wl=16, vbl=13,
+                         kind=0) -> tuple:
+    """(bound ms, what bounds it) of a batched coded launch with nothing
+    past a live length (``amm_dot``'s calls): a's and b's codes at
+    ``code_bytes(wl)``, a scale each a slice, the f32 output, against
+    bt m k n products at the fewest int8 byte products."""
+    cb = code_bytes(wl)
+    nbytes = cb * bt * (m * k + k * n) + 8 * bt + 4 * bt * m * n
+    return _bound(nbytes, bt * m * k * n, wl, vbl, kind)
+
+
+def _bound(nbytes: int, products: int, wl: int, vbl: int,
+           kind: int) -> tuple:
     t_ops = 2 * dot_byte_products(wl, vbl, kind) * products / INT8_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -2535,41 +2656,71 @@ def coded_bound_ms(ops, per: str, wl=16, vbl=13, kind=0) -> tuple:
 
 def coded_timing(torch, tb, dev, lens) -> tuple:
     """The batched entry's two launches of a decode step at the main
-    path's shapes and its slots' lengths: device ms, plain ms (on the
+    path's shapes and its slots' lengths, and ``amm_dot``'s prefill pair:
+    device ms of the tensor-core kernel (the public wrapper) and of the
+    CUDA-core kernel on the same operands (its C entry), plain ms (on the
     card), bound, and one f32 ``torch.bmm`` of the same (Bt, M, K) x (Bt,
-    K, N) as a yardstick (exact products, not the same function)."""
+    K, N) as a yardstick (exact products, not the same function); then
+    an empty kernel's launch, the floor under every time here."""
     rng = np.random.default_rng(12)
     ops = coded_operands(torch, rng, dev, s=SERVE_LEN, wl=16, kv_len=lens)
+    calls = {name: (call, dict(block=KV_BLOCK, live=ops["live"]),
+                    coded_bound_ms(ops, call[4]))
+             for name, call in coded_calls(ops).items()}
+    for name, call in prefill_operands(torch, rng, dev).items():
+        bt, m, k = call[0].shape[0] * call[0].shape[1], *call[0].shape[2:]
+        calls[name] = (call, dict(block=call[2].shape[-1], live=None),
+                       dense_coded_bound_ms(bt, m, k, call[2].shape[-1]))
     rows, lines = {}, []
-    for name, (a, s_a, b, s_b, per) in coded_calls(ops).items():
-        kw = dict(wl=16, vbl=13, kind=0, block=KV_BLOCK, per=per,
-                  live=ops["live"])
+    for name, ((a, s_a, b, s_b, per), extra, (bound, by)) in calls.items():
+        kw = dict(wl=16, vbl=13, kind=0, per=per, **extra)
         run = lambda: tb.bbm_dot_coded_batched(  # noqa: E731
             a, s_a, b, s_b, **kw)
+        tile = lambda: tb._coded_launch(  # noqa: E731
+            "tile", a, s_a, b, s_b, **kw)[0]
         plain = lambda: tb.bbm_dot_coded_batched_plain(  # noqa: E731
             a, s_a, b, s_b, **kw)
         ms, how = launch_ms(torch, run, 50, CODED_KERNEL)
+        tile_ms, tile_how = launch_ms(torch, tile, 50, CODED_TILE_KERNEL)
         call_ms = cuda_ms(torch, run, 50)
         plain_ms = cuda_ms(torch, plain, 3)
-        err = float((run() - plain()).abs().max())
-        if err != 0:
+        want = plain()
+        err = float((run() - want).abs().max())
+        tile_err = float((tile() - want).abs().max())
+        if err != 0 or tile_err != 0:
             fail(f"bbm_dot_coded_batched ({name}) differs from its plain "
-                 f"version on the card by {err}")
+                 f"version on the card by {err} (tensor cores), "
+                 f"{tile_err} (CUDA cores)")
         af = a.reshape(-1, *a.shape[2:]).float()
         bf = b.reshape(-1, *b.shape[2:]).float().contiguous()
         bmm_ms = cuda_ms(torch, lambda: torch.bmm(af, bf), 50)
-        bound, by = coded_bound_ms(ops, per)
-        rows[name] = dict(ms=ms, how=how, plain_ms=plain_ms, bound=bound,
-                          by=by, bmm_ms=bmm_ms, err=err)
+        rows[name] = dict(ms=ms, how=how, tile_ms=tile_ms,
+                          tile_how=tile_how, plain_ms=plain_ms, bound=bound,
+                          by=by, bmm_ms=bmm_ms, err=err, tile_err=tile_err)
+        before = CODED_BEFORE_MS.get(name)
+        shown_lens = "" if extra["live"] is None \
+            else f", lengths {list(map(int, lens))}"
+        record = "" if before is None \
+            else f"; its earlier record {before:.6f} ms"
         lines.append(
-            f"bbm_dot_coded_batched {name} ({a.shape[0] * a.shape[1]} slices"
-            f" of ({a.shape[2]}, {a.shape[3]}) x ({b.shape[2]}, "
-            f"{b.shape[3]}), per={per}, lengths {list(map(int, lens))}): "
-            f"kernel {ms:.6f} ms ({how}), wrapper call {call_ms:.6f} ms "
-            f"(CUDA events), plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
-            f"({by}; bound / time {bound / ms:.4g}), f32 torch.bmm "
-            f"yardstick {bmm_ms:.6f} ms; bit-equal to the plain version")
-    return rows, lines
+            f"bbm_dot_coded_batched {name} ({a.shape[0] * a.shape[1]} "
+            f"slices of ({a.shape[2]}, {a.shape[3]}) x ({b.shape[2]}, "
+            f"{b.shape[3]}), per={per}{shown_lens}): tensor cores "
+            f"{ms:.6f} ms ({how}), CUDA-core kernel {tile_ms:.6f} ms "
+            f"({tile_how}; {tile_ms / ms:.3g}x the tensor cores' time"
+            f"{record}), wrapper call {call_ms:.6f} ms (CUDA events), plain "
+            f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; bound / time "
+            f"{bound / ms:.4g}), f32 torch.bmm yardstick {bmm_ms:.6f} ms; "
+            f"both routes bit-equal to the plain version")
+    from repro_torch.kernels._build import library
+    lib = library("bbm_dot")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    empty_ms, empty_how = launch_ms(
+        torch, lambda: lib.bbm_empty_launch(stream), 50, EMPTY_KERNEL)
+    lines.append(f"an empty kernel (1 block of 32 threads): {empty_ms:.6f} "
+                 f"ms a launch ({empty_how}), the floor beside every bound "
+                 f"above")
+    return rows, lines, empty_ms
 
 
 def b2_decode_timing(torch, tb, dev, planes, params) -> tuple:
@@ -3033,13 +3184,22 @@ def main() -> None:
     # --------------------------------- slice 5: bitexact kv-codes serving
     from repro_torch.serve.kv_cache import memory_report
     t0 = time.perf_counter()
-    coded_cases = coded_sweep(torch, tb, dev)
-    print(f"coded sweep: {coded_cases} cases, bbm_dot_coded_batched "
-          f"bit-equal to its plain version (CPU copies): the score and value "
-          f"products, bbm0 and bbm1 at WL 16 / VBL 13, S 16-512, bbm0 at VBL "
-          f"3 (chunks of 7 inside a block), int8 codes at WL 8, ragged "
-          f"lengths over stale codes and never-written blocks, and unit "
-          f"scales ({time.perf_counter() - t0:.1f} s)")
+    coded_cases, coded_routes = coded_sweep(torch, tb, dev)
+    print(f"coded sweep: {coded_cases} cases ({coded_routes['mma']} on the "
+          f"tensor cores, also bit-equal on the CUDA-core kernel through its "
+          f"C entry; {coded_routes['tile']} on the CUDA-core route, where "
+          f"the tensor cores refuse), bbm_dot_coded_batched bit-equal to "
+          f"its plain version (CPU copies): the score and value products, "
+          f"bbm0 and bbm1 at WL 16 / VBL 13, S 16-512, bbm0 at VBL 3 (chunks "
+          f"of 7 inside a block), int8 codes at WL 8, ragged lengths over "
+          f"stale codes and never-written blocks, unit scales, and amm_dot's "
+          f"prefill pair (2 slices of ({PREFILL_G}, 64) x (64, "
+          f"{PREFILL_LEN}) and ({PREFILL_G}, {PREFILL_LEN}) x "
+          f"({PREFILL_LEN}, 64)) ({time.perf_counter() - t0:.1f} s)")
+    tile_path = coded_tile_path(torch, tb, dev)
+    print(f"the CUDA-core coded route's path: decode attention on the code "
+          f"cache at bbm0 WL 16 / VBL 3 ({SERVE_SLOTS} slots x {SERVE_LEN} "
+          f"positions): {tile_path}, output finite")
     bx_cfg = bitexact_config()
     res = serve_bitexact(torch, dev, bx_cfg, params, tb)
     st, steps = res["stats"], res["step_ms"]
@@ -3070,7 +3230,7 @@ def main() -> None:
           f"{chk['worst']:.4g} (tolerance {LOGIT_RTOL}), greedy tokens "
           f"equal at all {chk['checked']} clear rows "
           f"({time.perf_counter() - t0:.1f} s)")
-    coded_rows, lines = coded_timing(torch, tb, dev, res["lens"])
+    coded_rows, lines, empty_ms = coded_timing(torch, tb, dev, res["lens"])
     b2_rows, b2_lines = b2_decode_timing(torch, tb, dev, res["planes"],
                                          params)
     for line in lines + b2_lines:
@@ -3085,25 +3245,37 @@ def main() -> None:
     for _ in range(10):
         sched.step()                 # admit all 8 and warm up
     win, idle = decode_window(torch, sched, "bbm_dot_coded_batched",
-                              (CODED_KERNEL,), prefills=SERVE_SLOTS)
+                              (CODED_KERNEL,), prefills=SERVE_SLOTS,
+                              forbid=(CODED_TILE_KERNEL,))
     for line in win:
         print("bitexact " + line.lstrip())
     mean = lambda key, rows: sum(r[key] for r in rows) / len(rows)  # noqa
+    decode = [coded_rows["qk"], coded_rows["pv"]]
+    per_launch = lambda key: {k: {"ms": r[key], "bound_ms": r["bound"]}  # noqa
+                              for k, r in coded_rows.items()}
     kernels.append({
         "name": "bbm_dot_coded_batched", "route": "cuda",
         "source": CODED_SOURCE, "replaces": CODED_REPLACES,
         "launches": res["launches"]["bbm_dot_coded_batched"],
         "max_abs_err": max(r["err"] for r in coded_rows.values()),
-        "ms": mean("ms", coded_rows.values()),
-        "plain_ms": mean("plain_ms", coded_rows.values()),
-        "bound_ms": mean("bound", coded_rows.values()),
+        "ms": mean("ms", decode), "plain_ms": mean("plain_ms", decode),
+        "bound_ms": mean("bound", decode),
         "bound_by": coded_rows["qk"]["by"], "library_ms": None,
-        "bmm_ms": mean("bmm_ms", coded_rows.values()),
-        "timed_by": ", ".join(sorted({r["how"]
-                                      for r in coded_rows.values()})),
-        "per_launch": {k: {"ms": r["ms"], "bound_ms": r["bound"]}
-                       for k, r in coded_rows.items()},
-        "idle_share": idle})
+        "bmm_ms": mean("bmm_ms", decode), "empty_kernel_ms": empty_ms,
+        "timed_by": ", ".join(sorted({r["how"] for r in decode})),
+        "per_launch": per_launch("ms"), "idle_share": idle})
+    kernels.append({
+        "name": "bbm_dot_coded_batched (CUDA-core route)", "route": "cuda",
+        "source": CODED_TILE_SOURCE, "replaces": CODED_REPLACES,
+        "launches": tile_path["launches"],
+        "launches_on": "decode attention on the code cache at WL 16 / VBL "
+                       "3 (the rule's CUDA-core points)",
+        "max_abs_err": max(r["tile_err"] for r in coded_rows.values()),
+        "ms": mean("tile_ms", decode), "plain_ms": mean("plain_ms", decode),
+        "bound_ms": mean("bound", decode),
+        "bound_by": coded_rows["qk"]["by"], "library_ms": None,
+        "timed_by": ", ".join(sorted({r["tile_how"] for r in decode})),
+        "per_launch": per_launch("tile_ms")})
     mix = lambda key: (2 * b2_rows[0][key] + b2_rows[1][key]) / 3  # noqa
     kernels.append({
         "name": "bbm_dot_scaled (bitexact decode)", "route": "cuda",

@@ -38,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of every exported function, per library
 _SIGNATURES = {
     "fir_bank": {
@@ -61,8 +62,13 @@ _SIGNATURES = {
         "bbm_dot_scaled_mma_launch": ([_P] * 3 + [_I] * 7 + [_P], _I),
         "bbm_dot_planes_mma_launch": ([_P] * 5 + [_F, _I, _P] + [_I] * 7
                                       + [_P], _I),
-        "bbm_dot_coded_batched_launch": ([_P] * 3 + [_I] + [_P] * 5
-                                         + [_I] * 12 + [_P], _I),
+        "bbm_dot_coded_batched_launch": ([_P] * 3 + [_I] + [_L] * 4 + [_P]
+                                         + [_L] * 3 + [_P] * 2 + [_I] * 12
+                                         + [_P], _I),
+        "bbm_dot_coded_mma_launch": ([_P] * 3 + [_I] + [_L] * 4 + [_P]
+                                     + [_L] * 3 + [_P] * 2 + [_I] * 11
+                                     + [_P], _I),
+        "bbm_empty_launch": ([_P], _I),
         "bbm_dot_error_string": ([_I], ctypes.c_char_p),
     },
     "bbm_matmul": {

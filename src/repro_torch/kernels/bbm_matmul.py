@@ -40,6 +40,13 @@ plain PyTorch version beside it:
       each output's flat index, a host-computed key per chunk: no mask
       tensor, which at exact Booth's chunk of 1 would be K*M*N).
 
+``bbm_dot_coded_batched`` (same file) is B2's batched codes-in entry
+(decode attention on the int-code KV cache, ``amm_dot``): two routes,
+chosen by ``bbm_coded_route`` from (wl, vbl, kind, per, block) alone,
+the int8 tensor cores (``csrc/bbm_coded_mma.cuh``, ``mma.sync`` steps 16
+deep, ``bbm_dot_coded_mma_emulated``) or the CUDA-core
+``bbm_coded_kernel``.
+
 ``bbm_dot_scaled``, ``bbm_dot_planes`` and ``bbm_matmul_dot`` each have
 two routes on the card, chosen by ``bbm_dot_route`` from (wl, vbl, kind,
 shift) alone: the int8 tensor-core route (``csrc/bbm_mma.cuh``) where
@@ -90,8 +97,9 @@ from .booth_rows import (amm_chunk_len, bbm_rows_product_precoded,
                          scaled_trunc_rows, signed_digit, split_signed)
 from .ref import amm_quantize
 
-__all__ = ["MMA_K_STEP", "bbm_dot_coded_batched",
-           "bbm_dot_coded_batched_plain", "bbm_dot_mma_emulated",
+__all__ = ["CODED_K_STEP", "MMA_K_STEP", "bbm_coded_route",
+           "bbm_dot_coded_batched", "bbm_dot_coded_batched_plain",
+           "bbm_dot_coded_mma_emulated", "bbm_dot_mma_emulated",
            "bbm_dot_planes", "bbm_dot_planes_plain", "bbm_dot_route",
            "bbm_dot_scaled", "bbm_dot_scaled_plain", "bbm_matmul",
            "bbm_matmul_coded", "bbm_matmul_coded_kblocks", "bbm_matmul_dot",
@@ -605,6 +613,99 @@ def _coded_args(a, s_a, b, s_b, block, per, live) -> None:
         raise ValueError(f"live: (B1,) positions, got {tuple(live.shape)}")
 
 
+def _live_codes(b, per: str, live):
+    """``b`` (B1, B2, K, N) as int32 codes, those at or past ``live`` along
+    the blocked axis (N for ``per="column"``, K for "kblock") zeroed."""
+    bc = b.to(torch.int32)
+    if live is None:
+        return bc
+    k, n = b.shape[2:]
+    at = torch.arange(n if per == "column" else k, device=b.device)
+    keep = at[None, :] < live.to(torch.int64)[:, None]
+    keep = keep[:, None, None, :] if per == "column" \
+        else keep[:, None, :, None]
+    return torch.where(keep, bc, 0)
+
+
+# products one int8 mma.sync.m16n8k16 step contracts per output: the
+# batched entry's tensor-core K step, the shortest chunk and K-block it
+# takes
+CODED_K_STEP = 16
+
+
+def bbm_coded_route(wl: int, vbl: int, kind: int, per: str,
+                    block: int) -> str:
+    """The route of a ``bbm_dot_coded_batched`` call: "mma" (the int8
+    tensor cores, ``csrc/bbm_coded_mma.cuh``) where the operand bytes need
+    at most two significances (``_mma_refusal``), every K-chunk of
+    ``amm_chunk_len(wl, vbl)`` products holds a ``CODED_K_STEP`` step and,
+    for ``per="kblock"``, so does every K-block of ``block`` rows; else
+    "tile" (the CUDA-core ``bbm_coded_kernel``: chunks of a few products,
+    as WL 16 / VBL 3's 7, short K-blocks, three-significance points).  A
+    pure function of its arguments; ``kind`` selects no route."""
+    if kind not in (0, 1):
+        raise ValueError(f"kind must be 0 or 1, got {kind}")
+    if per not in CODED_PER:
+        raise ValueError(f"per must be one of {CODED_PER}, got {per!r}")
+    if _mma_refusal(wl, vbl, None) is None \
+            and amm_chunk_len(wl, vbl) >= CODED_K_STEP \
+            and (per == "column" or block >= CODED_K_STEP):
+        return "mma"
+    return "tile"
+
+
+def bbm_dot_coded_mma_emulated(a, s_a, b, s_b, *, wl: int, vbl: int,
+                               kind: int, block: int, per="column",
+                               live=None):
+    """The tensor-core route of ``bbm_dot_coded_batched`` in plain PyTorch
+    (CPU): per slice, per K-chunk (per K-block's chunks, restarting at
+    each block, for ``per="kblock"``), the two int32 sums ``lo`` and
+    ``hi`` of ``bbm_mma_operands``' byte products on the live codes
+    (exact in int64 here, modulo 2^32 in the kernel), the partial ``lo +
+    256 hi`` modulo 2^32, its f32 adds in chunk order from 0, then the
+    kernel's descale ``(yq 2^vbl) (s_a s_b)`` per column, or per K-block
+    with the parts added in block order, the first as is.  Raises where
+    ``bbm_coded_route`` says "tile"."""
+    _coded_args(a, s_a, b, s_b, block, per, live)
+    if bbm_coded_route(wl, vbl, kind, per, block) != "mma":
+        raise ValueError(f"the tensor-core route does not take wl={wl} "
+                         f"vbl={vbl} per={per!r} block={block}")
+    b1, b2, m, k = a.shape
+    n = b.shape[3]
+    bc = _live_codes(b, per, live)
+    chunk = amm_chunk_len(wl, vbl)
+    scale = float(1 << vbl)
+    out = torch.empty((b1, b2, m, n), dtype=torch.float32)
+    for i in range(b1):
+        for j in range(b2):
+            ops = bbm_mma_operands(a[i, j], w=bc[i, j], wl=wl, vbl=vbl,
+                                   kind=kind)
+
+            def yq(lo, hi):      # f32 chunk sums of rows lo:hi
+                acc = torch.zeros((m, n), dtype=torch.float32)
+                for c0 in range(lo, hi, chunk):
+                    c1 = min(hi, c0 + chunk)
+                    part = [torch.zeros((m, n), dtype=torch.int64)
+                            for _ in range(2)]
+                    for x_b, w_b, sig in ops:
+                        part[sig] += x_b[:, c0:c1] @ w_b[c0:c1]
+                    p = _wrap_i32(_wrap_i32(part[0]).to(torch.int64)
+                                  + 256 * _wrap_i32(part[1]).to(torch.int64))
+                    acc = acc + p.to(torch.float32)
+                return acc
+            if per == "column":
+                cols = s_b[i, j].repeat_interleave(block)[:n]
+                out[i, j] = (yq(0, k) * scale) * (s_a[i, j] * cols)[None, :]
+                continue
+            acc = None
+            for jb, lo in enumerate(range(0, k, block)):
+                part = (yq(lo, lo + block) * scale) * (s_a[i, j]
+                                                       * s_b[i, j, jb])
+                acc = part if acc is None else acc + part
+            out[i, j] = acc
+    return out
+
+
 def bbm_dot_coded_batched_plain(a, s_a, b, s_b, *, wl: int, vbl: int,
                                 kind: int, block: int, per="column",
                                 live=None):
@@ -615,13 +716,7 @@ def bbm_dot_coded_batched_plain(a, s_a, b, s_b, *, wl: int, vbl: int,
     _coded_args(a, s_a, b, s_b, block, per, live)
     b1, b2, m, k = a.shape
     n = b.shape[3]
-    bc = b.to(torch.int32)
-    if live is not None:
-        at = torch.arange(n if per == "column" else k, device=a.device)
-        keep = at[None, :] < live.to(torch.int64)[:, None]
-        keep = keep[:, None, None, :] if per == "column" \
-            else keep[:, None, :, None]
-        bc = torch.where(keep, bc, 0)
+    bc = _live_codes(b, per, live)
 
     def yq(lo, hi):        # (B1, B2, M, N): the slices' rows lo:hi
         out = bbm_dot_scaled_plain(
@@ -657,52 +752,79 @@ def bbm_dot_coded_batched(a, s_a, b, s_b, *, wl: int, vbl: int, kind: int,
     J = K / block).  ``live`` (B1,): positions of the blocked axis at or
     past ``live[i]`` read as zero codes.  Returns (B1, B2, M, N) f32,
     bit-equal to ``bbm_matmul_coded`` / ``bbm_matmul_coded_kblocks`` of
-    each slice on its masked codes.  CUDA tensors launch the kernel
-    (``csrc/bbm_dot.cu``: ``bbm_coded_kernel``, the CUDA-core route),
-    counted in ``bbm_dot_coded_batched.launches``; CPU tensors run the
-    plain version.
+    each slice on its masked codes.  CUDA tensors launch
+    ``bbm_coded_route``'s kernel (``csrc/bbm_coded_mma.cuh`` on the int8
+    tensor cores, else ``bbm_coded_kernel`` of ``csrc/bbm_dot.cu``),
+    counted in ``bbm_dot_coded_batched.launches`` (the tensor-core share
+    also in ``.mma_launches``); CPU tensors run the plain version.
     """
     _coded_args(a, s_a, b, s_b, block, per, live)
     if not a.is_cuda:
         return bbm_dot_coded_batched_plain(a, s_a, b, s_b, wl=wl, vbl=vbl,
                                            kind=kind, block=block, per=per,
                                            live=live)
+    out, route = _coded_launch(None, a, s_a, b, s_b, wl=wl, vbl=vbl,
+                               kind=kind, block=block, per=per, live=live)
+    if out.numel():
+        bbm_dot_coded_batched.launches += 1
+        bbm_dot_coded_batched.mma_launches += route == "mma"
+    return out
+
+
+def _coded_launch(route, a, s_a, b, s_b, *, wl: int, vbl: int, kind: int,
+                  block: int, per: str, live=None):
+    """(out, route): one launch, uncounted, of ``route``'s kernel ("mma"
+    or "tile"; None: ``bbm_coded_route``'s) on CUDA operands.  The
+    wrapper's launch, and the hook through which ``chip_smoke.py`` and the
+    tests drive the CUDA-core kernel where the rule takes the tensor
+    cores; a route that cannot compute the call raises."""
+    _coded_args(a, s_a, b, s_b, block, per, live)
     if wl % 2 or not 2 <= wl <= 16 or not 0 <= vbl < wl \
             or kind not in (0, 1):
         raise ValueError(f"unsupported operating point wl={wl} vbl={vbl} "
                          f"kind={kind}")
+    rule = bbm_coded_route(wl, vbl, kind, per, block)
+    route = rule if route is None else route
+    if route not in ("mma", "tile"):
+        raise ValueError(f"unknown route {route!r}")
+    if route == "mma" and rule != "mma":
+        raise ValueError(f"route 'mma' cannot compute wl={wl} vbl={vbl} "
+                         f"per={per!r} block={block}")
+    if not a.is_cuda:
+        raise ValueError("the batched entry's kernels take CUDA tensors")
     b1, b2, m, k = a.shape
     n = b.shape[3]
     out = torch.empty((b1, b2, m, n), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
-        return out
+        return out, route
     if b1 * b2 >= 65536 or max(m * k, k * n, m * n) >= 2 ** 31:
         raise ValueError("bbm_dot_coded_batched dimensions exceed the "
                          "kernel's grid or int32 indexing")
-    mode = 1 if per == "column" else 2
-    b_strides = torch.tensor(b.stride(), dtype=torch.int64)
-    s_strides = torch.tensor(s_b.stride(), dtype=torch.int64)
     live32 = None if live is None else live.to(torch.int32).contiguous()
     s_a = s_a.contiguous()
     from ._build import library
     lib = library("bbm_dot")
+    args = (a.data_ptr(), s_a.data_ptr(), b.data_ptr(), b.element_size(),
+            *b.stride(), s_b.data_ptr(), *s_b.stride(),
+            None if live32 is None else live32.data_ptr(), out.data_ptr(),
+            b1, b2, m, k, n, wl, vbl, kind)
+    tail = (amm_chunk_len(wl, vbl), 1 if per == "column" else 2, block)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.bbm_dot_coded_batched_launch(
-            a.data_ptr(), s_a.data_ptr(), b.data_ptr(), b.element_size(),
-            b_strides.data_ptr(), s_b.data_ptr(), s_strides.data_ptr(),
-            None if live32 is None else live32.data_ptr(),
-            out.data_ptr(), b1, b2, m, k, n, wl, vbl, kind,
-            num_corr_rows(wl, vbl), amm_chunk_len(wl, vbl), mode, block,
-            stream)
+        if route == "mma":
+            err = lib.bbm_dot_coded_mma_launch(*args, *tail, stream)
+        else:
+            err = lib.bbm_dot_coded_batched_launch(
+                *args, num_corr_rows(wl, vbl), *tail, stream)
     if err != 0:
-        raise RuntimeError(f"bbm_dot_coded_batched failed: CUDA error {err} "
+        raise RuntimeError(f"bbm_dot_coded_batched ({route}) failed: CUDA "
+                           f"error {err} "
                            f"({lib.bbm_dot_error_string(err).decode()})")
-    bbm_dot_coded_batched.launches += 1
-    return out
+    return out, route
 
 
 bbm_dot_coded_batched.launches = 0
+bbm_dot_coded_batched.mma_launches = 0     # the tensor-core share
 
 
 # ------------------------------------------------ kernel B2, planes in

@@ -28,10 +28,14 @@
 // the int8 tensor cores (chip_smoke.py counts the fewest byte products of
 // the exact forms known, this kernel's 34 and 21, at 1,979 TOP/s).
 //
-// Batched, codes in (bbm_dot_coded_batched_launch): Bt independent (M, K) x
-// (K, N) products of the int-code KV cache's decode attention, the score
-// product Q K^T and the value product P V of every (slot, kv-head) slice,
-// in one launch; see bbm_coded_kernel below.
+// Batched, codes in: Bt independent (M, K) x (K, N) products of the
+// int-code KV cache's decode attention, the score product Q K^T and the
+// value product P V of every (slot, kv-head) slice, in one launch, on two
+// routes chosen by the Python rule (bbm_matmul.py: bbm_coded_route): the
+// int8 tensor cores (bbm_dot_coded_mma_launch, bbm_coded_mma.cuh) wherever
+// every chunk and, per K-block, every block holds a 16-deep mma.sync step
+// and the operand bytes need at most two significances; elsewhere the
+// CUDA-core bbm_coded_kernel below (bbm_dot_coded_batched_launch).
 //
 // CUDA cores (bbm_dot_scaled_launch, bbm_dot_planes_launch): the shared
 // tile of bbm_tile.cuh (64 x 64 outputs per block of 256 threads, K
@@ -45,6 +49,7 @@
 
 #include <climits>
 
+#include "bbm_coded_mma.cuh"
 #include "bbm_mma.cuh"
 #include "bbm_tile.cuh"
 
@@ -102,7 +107,8 @@ bbm_dot_planes_kernel(const int* __restrict__ x,
 // Tile: kCodedM = 8 rows x kCodedN = 32 columns per block of 256 threads,
 // one output a thread (decode attention has M = the query heads of one kv
 // head, 7 at qwen2-0.5b); K through shared memory kCodedK at a time, the
-// multiplier's digits decoded once per block.
+// multiplier's digits decoded once per block.  The CUDA-core route: chunks
+// or K-blocks shorter than a tensor-core step, x and bq both two bytes.
 constexpr int kCodedM = 8;
 constexpr int kCodedN = 32;
 constexpr int kCodedK = 32;
@@ -198,15 +204,15 @@ bbm_coded_kernel(const int* __restrict__ a, const float* __restrict__ s_a,
 
 template <int KIND, typename T>
 void launch_coded(dim3 grid, cudaStream_t st, int mode, const int* a,
-                  const float* s_a, const void* b, const long long* bs,
-                  const float* s_b, const long long* ts, const int* live,
-                  float* out, int B2, int M, int K, int N, int wl, int vbl,
-                  int R, int chunk, int block, float scale) {
+                  const float* s_a, const void* b, const bbm_coded::Strides& s,
+                  const float* s_b, const int* live, float* out, int B2,
+                  int M, int K, int N, int wl, int vbl, int R, int chunk,
+                  int block, float scale) {
   const T* bt = static_cast<const T*>(b);
 #define BBM_CODED(MODE)                                                     \
   bbm_coded_kernel<KIND, T, MODE><<<grid, kCodedThreads, 0, st>>>(          \
-      a, s_a, bt, bs[0], bs[1], bs[2], bs[3], s_b, ts[0], ts[1], ts[2],     \
-      live, out, B2, M, K, N, wl, vbl, R, chunk, block, scale)
+      a, s_a, bt, s.b1, s.b2, s.bk, s.bn, s_b, s.s1, s.s2, s.sj, live, out, \
+      B2, M, K, N, wl, vbl, R, chunk, block, scale)
   if (mode == 2) BBM_CODED(2);
   else BBM_CODED(1);
 #undef BBM_CODED
@@ -215,23 +221,24 @@ void launch_coded(dim3 grid, cudaStream_t st, int mode, const int* a,
 template <int KIND>
 void launch_coded_kind(dim3 grid, cudaStream_t st, int mode, int b_bytes,
                        const int* a, const float* s_a, const void* b,
-                       const long long* bs, const float* s_b,
-                       const long long* ts, const int* live, float* out,
-                       int B2, int M, int K, int N, int wl, int vbl, int R,
-                       int chunk, int block, float scale) {
+                       const bbm_coded::Strides& s, const float* s_b,
+                       const int* live, float* out, int B2, int M, int K,
+                       int N, int wl, int vbl, int R, int chunk, int block,
+                       float scale) {
   if (b_bytes == 1)
-    launch_coded<KIND, int8_t>(grid, st, mode, a, s_a, b, bs, s_b, ts, live,
-                               out, B2, M, K, N, wl, vbl, R, chunk, block,
-                               scale);
+    launch_coded<KIND, int8_t>(grid, st, mode, a, s_a, b, s, s_b, live, out,
+                               B2, M, K, N, wl, vbl, R, chunk, block, scale);
   else if (b_bytes == 2)
-    launch_coded<KIND, int16_t>(grid, st, mode, a, s_a, b, bs, s_b, ts,
-                                live, out, B2, M, K, N, wl, vbl, R, chunk,
-                                block, scale);
+    launch_coded<KIND, int16_t>(grid, st, mode, a, s_a, b, s, s_b, live, out,
+                                B2, M, K, N, wl, vbl, R, chunk, block, scale);
   else
-    launch_coded<KIND, int32_t>(grid, st, mode, a, s_a, b, bs, s_b, ts,
-                                live, out, B2, M, K, N, wl, vbl, R, chunk,
-                                block, scale);
+    launch_coded<KIND, int32_t>(grid, st, mode, a, s_a, b, s, s_b, live, out,
+                                B2, M, K, N, wl, vbl, R, chunk, block, scale);
 }
+
+// An empty kernel: a launch's own floor on the card, timed beside the
+// bounds (chip_smoke.py).
+__global__ void bbm_empty_kernel() {}
 
 }  // namespace
 
@@ -306,34 +313,66 @@ int bbm_dot_planes_mma_launch(const int* x, const int* wmag,
 }
 
 // The batched codes-in entry (bbm_coded_kernel): Bt = B1 * B2 slices.
-// a: (Bt, M, K) int32 codes; s_a: (Bt,) f32; b: codes of
-// b_bytes (1, 2 or 4) bytes at element strides b_strides[0..3] for (z1,
-// z2, k, n); s_b: f32 at element strides s_strides[0..2] for (z1, z2, j);
-// live: (B1,) int32 or null; out: (Bt, M, N) f32; mode 1 or 2.  M, K, N >=
-// 1, Bt < 65536, block >= 1 (MODE 2: block divides K),
+// a: (Bt, M, K) int32 codes; s_a: (Bt,) f32; b: codes of b_bytes (1, 2 or
+// 4) bytes at element strides (b_s1, b_s2, b_sk, b_sn) for (z1, z2, k, n);
+// s_b: f32 at element strides (t_s1, t_s2, t_sj) for (z1, z2, j); live:
+// (B1,) int32 or null; out: (Bt, M, N) f32; mode 1 or 2.  M, K, N >= 1,
+// Bt < 65536, block >= 1 (MODE 2: block divides K),
 // R = num_corr_rows(wl, vbl), chunk = amm_chunk_len(wl, vbl).
 int bbm_dot_coded_batched_launch(const int* a, const float* s_a,
-                                 const void* b, int b_bytes,
-                                 const long long* b_strides,
-                                 const float* s_b,
-                                 const long long* s_strides, const int* live,
-                                 float* out, int B1, int B2, int M, int K,
-                                 int N, int wl, int vbl, int kind, int R,
-                                 int chunk, int mode, int block,
-                                 void* stream) {
+                                 const void* b, int b_bytes, long long b_s1,
+                                 long long b_s2, long long b_sk,
+                                 long long b_sn, const float* s_b,
+                                 long long t_s1, long long t_s2,
+                                 long long t_sj, const int* live, float* out,
+                                 int B1, int B2, int M, int K, int N, int wl,
+                                 int vbl, int kind, int R, int chunk,
+                                 int mode, int block, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((N + kCodedN - 1) / kCodedN, (M + kCodedM - 1) / kCodedM,
             B1 * B2);
   const float scale = static_cast<float>(1u << vbl);
-  const long long* ts = s_strides;
+  const bbm_coded::Strides s{b_s1, b_s2, b_sk, b_sn, t_s1, t_s2, t_sj};
   if (kind)
-    launch_coded_kind<1>(grid, st, mode, b_bytes, a, s_a, b, b_strides, s_b,
-                         ts, live, out, B2, M, K, N, wl, vbl, R, chunk, block,
-                         scale);
+    launch_coded_kind<1>(grid, st, mode, b_bytes, a, s_a, b, s, s_b, live,
+                         out, B2, M, K, N, wl, vbl, R, chunk, block, scale);
   else
-    launch_coded_kind<0>(grid, st, mode, b_bytes, a, s_a, b, b_strides, s_b,
-                         ts, live, out, B2, M, K, N, wl, vbl, R, chunk, block,
-                         scale);
+    launch_coded_kind<0>(grid, st, mode, b_bytes, a, s_a, b, s, s_b, live,
+                         out, B2, M, K, N, wl, vbl, R, chunk, block, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route of bbm_dot_coded_batched_launch (bbm_coded_mma.cuh):
+// the same operands, less R; chunk >= 16, and in mode 2 block >= 16.
+int bbm_dot_coded_mma_launch(const int* a, const float* s_a, const void* b,
+                             int b_bytes, long long b_s1, long long b_s2,
+                             long long b_sk, long long b_sn,
+                             const float* s_b, long long t_s1,
+                             long long t_s2, long long t_sj, const int* live,
+                             float* out, int B1, int B2, int M, int K, int N,
+                             int wl, int vbl, int kind, int chunk, int mode,
+                             int block, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bbm_coded::Strides s{b_s1, b_s2, b_sk, b_sn, t_s1, t_s2, t_sj};
+  cudaError_t err;
+  if (b_bytes == 1)
+    err = bbm_coded::launch(a, s_a, static_cast<const int8_t*>(b), s_b, s,
+                            live, out, B1, B2, M, K, N, wl, vbl, kind, chunk,
+                            mode, block, st);
+  else if (b_bytes == 2)
+    err = bbm_coded::launch(a, s_a, static_cast<const int16_t*>(b), s_b, s,
+                            live, out, B1, B2, M, K, N, wl, vbl, kind, chunk,
+                            mode, block, st);
+  else
+    err = bbm_coded::launch(a, s_a, static_cast<const int32_t*>(b), s_b, s,
+                            live, out, B1, B2, M, K, N, wl, vbl, kind, chunk,
+                            mode, block, st);
+  return static_cast<int>(err);
+}
+
+// One launch of an empty kernel (1 block of 32 threads).
+int bbm_empty_launch(void* stream) {
+  bbm_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }
 

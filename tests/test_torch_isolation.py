@@ -30,6 +30,7 @@ from repro_torch.kernels import booth_rows as t_rows
 from repro_torch.kernels import fir_kernel as t_fk
 from repro_torch.kernels import ops as t_ops
 from repro_torch.serve import FilterbankEngine
+from torch_coded_card import CARD_CHECKS
 
 pytest_plugins = ["port_first"]
 
@@ -1155,6 +1156,17 @@ def test_coded_batched_equals_plain_version_on_the_card(wl, vbl, kind):
             wl=wl, vbl=vbl, kind=kind))
     torch.cuda.synchronize()
     assert t_bm.bbm_dot_coded_batched.launches == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("check", sorted(CARD_CHECKS))
+def test_coded_batched_routes_on_the_card(check):
+    """The tensor-core route at the main path's decode shapes and at
+    ``amm_dot``'s prefill pair, and the CUDA-core route where the rule
+    sends it (``tests/torch_coded_card.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    CARD_CHECKS[check]()
 
 
 @pytest.mark.cuda
