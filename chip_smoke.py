@@ -176,6 +176,31 @@ of the JAX package.  Phases, each of which fails the run:
      profiled decode window (idle share, device operations, host time,
      no CUDA-core coded launch).
 
+ 20. slice 6, the normal draw: ``normal_bits`` (the kernel's transform
+     from given bits) bit-equal to its plain version over all 2^23
+     uniforms, and ``normal_draw`` bit-equal at the plain noise branch's
+     shapes ((8, 1, 4864), (8, 1, 896), (1, 256, 4864), (1, 256, 896)) for
+     three keys, the draw and both epilogues; the kernel per launch at the
+     decode and a prefill shape against its bound, its plain version on
+     the card and ``torch.randn`` (not the same function);
+ 21. noise serving on the plain branch: full-width qwen2-0.5b in noise
+     mode (bbm0, WL 16, VBL 13) without the fused kernel through the
+     continuous ``Scheduler`` (8 slots, max_len 512, 24 requests of
+     32-256 prompt tokens and 64 new tokens); the counts zeroed just
+     before and read just after: 72 ``normal_draw`` launches per
+     ``lm_apply`` call and no ``quant_matmul``; nothing failed, every logit
+     finite; decode p50 / p90 and tokens/s beside the fused kernel's path
+     of phase 7; 10^7 draws' mean and std against N(0, 1); two requests
+     replayed on the CPU port (logits within ``LOGIT_RTOL``); a profiled
+     decode window (idle share; no ``quant_matmul`` kernel in it);
+ 22. the paper's tables: Table I at WL 12 over all 2^24 pairs on the
+     card, equal to the CPU port's floats, beside the paper's values; Fig.
+     2's histogram (equal to the CPU port's); Figs. 5/6's sampled MSEs and
+     the model's average PDPs for the five families; Tables II/III from
+     the hardware model; Fig. 8's SNR against VBL and Table IV through
+     ``fir_apply`` on the card (the filterbank kernels; phase 4 keeps the
+     0.4 +- 0.15 dB gate).
+
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
 Without a CUDA device, or without the rest of the repository beside it,
@@ -215,7 +240,8 @@ REPLACES = {"fir_bank_rows": "src/repro/kernels/fir_kernel.py:106",
             "bbm_dot_scaled": "src/repro/kernels/bbm_matmul.py:112",
             "flash_attention": "src/repro/kernels/flash_attention.py:65",
             "flash_attention_amm":
-                "src/repro/kernels/flash_attention.py:209"}
+                "src/repro/kernels/flash_attention.py:209",
+            "normal_draw": "src/repro/models/common.py:264"}
 MMA_SOURCE = "src/repro_torch/kernels/csrc/bbm_mma.cuh"
 TRAIN_SOURCES = {
     "bbm_dot_scaled": MMA_SOURCE,
@@ -2772,6 +2798,294 @@ def b2_decode_timing(torch, tb, dev, planes, params) -> tuple:
     return rows, lines
 
 
+# ------------------------------------- slice 6: noise mode's normal draw
+NORMAL_SOURCE = "src/repro_torch/kernels/csrc/normal.cu"
+# jax.random.normal, the XLA op the reference's plain noise branch draws
+# with (also at src/repro/core/noise.py:75 and src/repro/kernels/ref.py:389)
+NORMAL_REPLACES = REPLACES["normal_draw"]
+NORMAL_KERNEL = "normal_kernel"
+# the plain noise branch's draws: yq of the MLP products at a decode step
+# (8 slots) and at a prefill of 256 tokens (a batch-1 slot slice)
+NORMAL_SHAPES = ((8, 1, 4864), (8, 1, 896), (1, 256, 4864), (1, 256, 896))
+NORMAL_TIMED = (("decode", (8, 1, 4864), 896), ("prefill", (1, 256, 4864),
+                                                 896))
+NORMAL_MOMENT_N = 10_000_000
+# operations an element takes, counted from csrc/normal.cu: integer ops
+# (Threefry-2x32: 20 rounds of add, rotate, xor; 5 key injections of 2
+# adds, since ks[(g + 2) % 3] + g + 1 depends on the key alone and is
+# formed outside the element loop; the 2 counter words, 2 initial adds,
+# the xor of the words; the uniform's shift and or) and float32 ops (an
+# FMA counts 2, a division or square root 1) per path: the uniform and
+# -u*u; log1p's rational branch (|u*u| < sqrt(2) - 1) or log(1 + y);
+# ErfInv32 (the sqrt branch where w >= 5 adds one); the draw's
+# * sqrt(2) or the epilogue's add and FMA
+NORMAL_INT_OPS = 20 * 3 + 5 * 2 + 2 + 2 + 1 + 2
+NORMAL_F32_OPS = {"uniform": 5, "log1p_small": 31, "log1p_large": 37,
+                  "erfinv": 21, "sqrt": 1, "draw": 1, "epilogue": 3}
+
+
+def normal_bound_ms(prng, k, shape, epilogue: bool) -> tuple:
+    """(bound ms, what bounds it) of one draw over ``shape``: the bytes
+    (each output written once; the epilogue's accumulator read once more)
+    over the memory rate, against the operations: the integer ops at the
+    int32 rate or the float32 ops at the float32 rate, whichever takes
+    longer (the two pipes issue side by side), each element's path
+    counted from this run's data (its uniform)."""
+    import torch
+    n = int(np.prod(shape))
+    bits = prng.random_bits(k, shape, "cpu")
+    mant = (((bits & 0xFFFFFFFF) >> 9) | 0x3F800000).to(torch.int32)
+    u = mant.view(torch.float32) * 2.0 - 3.0             # 2 f - 1, near lo
+    y = (u * u).double()
+    small = int((y < 2 ** 0.5 - 1).sum())
+    w_ge5 = int((-torch.log1p(-y) >= 5).sum())
+    f32 = n * (NORMAL_F32_OPS["uniform"] + NORMAL_F32_OPS["erfinv"]) \
+        + small * NORMAL_F32_OPS["log1p_small"] \
+        + (n - small) * NORMAL_F32_OPS["log1p_large"] \
+        + w_ge5 * NORMAL_F32_OPS["sqrt"] \
+        + n * NORMAL_F32_OPS["epilogue" if epilogue else "draw"]
+    t_ops = max(n * NORMAL_INT_OPS / INT32_OPS_PER_S, f32 / F32_OPS_PER_S)
+    t_bytes = (8 if epilogue else 4) * n / HBM_BYTES_PER_S
+    t = max(t_ops, t_bytes)
+    return t * 1e3, ("bytes" if t == t_bytes else "operations")
+
+
+def normal_sweep(torch, nm, prng, dev, mu: float, sigma: float) -> dict:
+    """The normal-draw kernel against its plain version (on the CPU), bit
+    for bit: the transform from bits over all 2^23 uniforms; then the
+    draw and both epilogues at the main path's shapes for several keys."""
+    n = 1 << 23
+    bits = (torch.arange(n, dtype=torch.int64) << 9) | 0x1AB
+    got = nm.normal_bits(bits.to(dev)).cpu()
+    want = prng.normal_from_bits(bits)
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    if bad:
+        first = int(torch.nonzero(got.view(torch.int32)
+                                  != want.view(torch.int32))[0])
+        fail(f"normal_bits differs from its plain version on {bad} of the "
+             f"2^23 uniforms, first at bits {int(bits[first]):#x}")
+    keys = [prng.layer_keys(0, 24)[0], prng.split(prng.key(5))[1],
+            (0xFFFFFFFF, 0x12345678)]
+    gen = torch.Generator().manual_seed(21)
+    cases, err = 0, 0.0
+    for shape in NORMAL_SHAPES:
+        k_len = 4864 if shape[-1] == 896 else 896
+        c1, c2 = nm.noise_consts(mu, sigma, k_len)
+        acc = torch.randn(shape, generator=gen) * 1e9
+        for k in keys:
+            runs = [(None, nm.normal_draw(k, shape, device=dev),
+                     prng.normal_plain(k, shape))]
+            for order in ("acc", "noise"):
+                runs.append((order, nm.normal_draw(
+                    k, shape, acc=acc.to(dev, copy=True), c1=c1, c2=c2,
+                    order=order),
+                    prng.normal_plain(k, shape, acc=acc, c1=c1, c2=c2,
+                                      order=order)))
+            for order, g, w in runs:
+                g = g.cpu()
+                err = max(err, float((g.double() - w.double()).abs().max()))
+                if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                    fail(f"normal_draw differs from its plain version at "
+                         f"{shape}, key {k}, epilogue {order}")
+                cases += 1
+    return {"uniforms": n, "cases": cases, "max_abs_err": err}
+
+
+def normal_timing(torch, nm, prng, dev, mu: float, sigma: float) -> list:
+    """The kernel per launch at a decode and a prefill shape (the draw and
+    the epilogue), its bound, its plain version on the card and
+    ``torch.randn`` at the same shape (not the same function)."""
+    rows = []
+    k = prng.layer_keys(0, 24)[0]
+    for name, shape, k_len in NORMAL_TIMED:
+        c1, c2 = nm.noise_consts(mu, sigma, k_len)
+        acc = torch.randn(shape, device=dev)
+        ms, how = launch_ms(torch, lambda: nm.normal_draw(k, shape,
+                                                          device=dev),
+                            200, NORMAL_KERNEL)
+        epi_ms, epi_how = launch_ms(torch, lambda: nm.normal_draw(
+            k, shape, acc=acc, c1=c1, c2=c2), 200, NORMAL_KERNEL)
+        plain_ms = cuda_ms(torch, lambda: prng.normal_plain(
+            k, shape, acc=acc, c1=c1, c2=c2), 5)
+        lib_ms, lib_how = launch_ms(torch, lambda: torch.randn(
+            shape, device=dev), 200, ("distribution", "normal_kernel"))
+        bound, by = normal_bound_ms(prng, k, shape, False)
+        epi_bound, epi_by = normal_bound_ms(prng, k, shape, True)
+        rows.append(dict(name=name, shape=shape, ms=ms, how=how,
+                         epi_ms=epi_ms, epi_how=epi_how, plain_ms=plain_ms,
+                         lib_ms=lib_ms, lib_how=lib_how, bound=bound, by=by,
+                         epi_bound=epi_bound, epi_by=epi_by))
+    return rows
+
+
+def noise_plain_config():
+    """The main path's noise setting on the plain branch: no fused
+    kernel, the layer keys' jax.random.normal draws."""
+    import dataclasses
+    cfg = lm_config()
+    return dataclasses.replace(cfg, amm=dataclasses.replace(
+        cfg.amm, use_pallas=False))
+
+
+def noise_plain_path(torch, dev, cfg, rt, params, nm, qm) -> dict:
+    """Serve 24 requests through the continuous Scheduler in noise mode on
+    the plain branch; every lm_apply call must launch the normal-draw
+    kernel 72 times (3 MLP products x 24 layers) and quant_matmul never."""
+    from repro_torch.serve import Request, Scheduler, make_serve_fns
+    rng = np.random.default_rng(7)
+    rec = Recorder(torch, make_serve_fns(cfg, rt), keep=False)
+    sched = Scheduler(cfg, rt, params, 8, 512, decode_fn=rec.decode,
+                      prefill_fn=rec.prefill, continuous=True, device=dev)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, int(rng.integers(32, 257))).tolist(), max_new=64)
+        for i in range(24)]
+    for r in reqs:
+        sched.submit(r)
+    step_ms = []
+    nm.normal_draw.launches = 0
+    qm.quant_matmul.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while True:
+        pre = sched.stats["prefills"]
+        ts = time.perf_counter()
+        if not sched.step():
+            break
+        if sched.stats["prefills"] == pre:      # a pure decode step
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nm.normal_draw.launches
+    st = sched.stats
+    calls = st["steps"] + st["prefills"]
+    if rec.calls != calls:
+        fail(f"the Scheduler made {rec.calls} lm_apply calls, its stats "
+             f"say {calls}")
+    if launches != 3 * cfg.n_layers * calls or qm.quant_matmul.launches:
+        fail(f"normal_draw launched {launches} times for {calls} lm_apply "
+             f"calls (expected {3 * cfg.n_layers * calls}), quant_matmul "
+             f"{qm.quant_matmul.launches} (expected 0)")
+    if st["failed"] or st["deadline_expired"] or st["completed"] != len(reqs):
+        fail(f"the Scheduler did not serve every request: {st}")
+    if any(r.error or len(r.out) != 64 for r in reqs):
+        fail("a request ended early or failed")
+    if int(rec.bad) != 0:
+        fail(f"{int(rec.bad)} non-finite logits on the plain noise branch")
+    step_ms.sort()
+    return {"stats": st, "launches": launches, "calls": calls,
+            "tokens": sum(len(r.out) for r in reqs), "wall_s": wall,
+            "step_ms": step_ms,
+            "prompt_tokens": sum(len(r.prompt) for r in reqs)}
+
+
+def normal_moments(torch, nm, prng, dev) -> tuple:
+    """Mean and standard deviation of ``NORMAL_MOMENT_N`` draws of the
+    kernel, against N(0, 1): five standard errors each."""
+    z = nm.normal_draw(prng.key(2024), (NORMAL_MOMENT_N,),
+                       device=dev).double()
+    mean, std = float(z.mean()), float(z.std())
+    if abs(mean) > 5 / NORMAL_MOMENT_N ** 0.5 \
+            or abs(std - 1) > 5 / (2 * NORMAL_MOMENT_N) ** 0.5:
+        fail(f"{NORMAL_MOMENT_N} normal draws have mean {mean!r} and std "
+             f"{std!r}, off N(0, 1)")
+    return mean, std
+
+
+def paper_tables(torch, dev) -> list:
+    """The paper's claim set on the card: Table I exhaustive (equal to the
+    CPU port's floats), Fig. 2's histogram (equal to the CPU port's),
+    Figs. 5/6's sampled MSE and average PDP for the five families, Tables
+    II/III from the hardware model, Fig. 8's SNR against VBL and Table IV
+    through ``fir_apply`` on the card (the filterbank kernels)."""
+    from repro_torch.core import errstats as te
+    from repro_torch.core import hwmodel as hw
+    from repro_torch.core.multipliers import MulSpec
+    from repro_torch.dsp import make_signals, run_filter_case
+    lines = []
+    t0 = time.perf_counter()
+    worst = 0.0
+    for vbl, (pm, pmse, pprob, pmin) in te.PAPER_TABLE1.items():
+        spec = MulSpec("bbm0", 12, vbl)
+        st = te.characterize(spec, device=dev)
+        if st != te.characterize(spec, device="cpu") or st.n != 1 << 24:
+            fail(f"Table I at VBL {vbl}: the card's ErrorStats differ from "
+                 f"the CPU port's")
+        worst = max(worst, abs(st.mse - pmse) / pmse,
+                    abs(st.mean - pm) / abs(pm))
+        lines.append(f"Table I WL 12 VBL {vbl} (2^24 pairs on the card, "
+                     f"equal to the CPU port): mean {float(st.mean)!r} "
+                     f"(paper {pm}), MSE {float(st.mse)!r} ({pmse}), "
+                     f"P(err != 0) {float(st.prob)!r} ({pprob}), min "
+                     f"{float(st.min)!r} ({pmin}), max {float(st.max)!r}")
+    lines.append(f"Table I: largest relative delta of mean and MSE against "
+                 f"the paper {worst:.4g} ({time.perf_counter() - t0:.1f} s)")
+    spec = MulSpec("bbm0", 10, 9)
+    centers, pct = te.error_histogram(spec, bins=41, device=dev)
+    c_cpu, p_cpu = te.error_histogram(spec, bins=41, device="cpu")
+    if not (np.array_equal(centers, c_cpu) and np.array_equal(pct, p_cpu)):
+        fail("Fig. 2's histogram on the card differs from the CPU port's")
+    lines.append(f"Fig. 2 (bbm0 WL 10 VBL 9, 41 bins, equal to the CPU "
+                 f"port): negative mass {float(pct[centers < 0].sum())!r} "
+                 f"%, bins above 0.1 % {int((pct > 0.1).sum())}, peak "
+                 f"{float(pct.max())!r} % at {float(centers[pct.argmax()])!r}"
+                 f" x 2^19")
+    sweeps = {"bbm0": [MulSpec("bbm0", 12, v) for v in (1, 3, 5, 7, 9, 11)],
+              "bbm1": [MulSpec("bbm1", 12, v) for v in (1, 3, 5, 7, 9, 11)],
+              "bam": [MulSpec("bam", 12, v) for v in (3, 6, 9, 12, 15)],
+              "kulkarni": [MulSpec("kulkarni", 12, k)
+                           for k in (5, 9, 13, 17, 21)],
+              "etm": [MulSpec("etm", 12, sp) for sp in (3, 5, 7, 9)]}
+    for name, specs in sweeps.items():
+        pts = []
+        for sp in specs:
+            st = te.characterize(sp, exhaustive=False, sample=1 << 18,
+                                 device=dev)
+            pts.append(f"{sp.param}: MSE {st.mse:.6g} PDP "
+                       f"{hw.pdp_avg(sp):.6g}")
+        lines.append(f"Figs. 5/6 {name} WL 12 (2^18 sampled pairs on the "
+                     f"card; PDP from the hardware model): " + ", ".join(pts))
+    rows = []
+    for wl in (4, 8, 12, 16):
+        p0, p1 = (hw.power(MulSpec("bbm0", wl, v)) for v in (0, wl - 1))
+        a0, a1 = (hw.area(MulSpec("bbm0", wl, v)) for v in (0, wl - 1))
+        rows.append(f"WL {wl}: power -{100 * (1 - p1 / p0):.4g} % (paper "
+                    f"{hw.PAPER_POWER_REDUCTION[wl]}), area "
+                    f"-{100 * (1 - a1 / a0):.4g} % (paper "
+                    f"{hw.PAPER_AREA_REDUCTION[wl]})")
+    lines.append("Tables II/III (VBL = WL - 1, the hardware model): "
+                 + "; ".join(rows))
+    sig = make_signals()
+    dbl = run_filter_case(None, sig)
+    snrs = {v: run_filter_case(MulSpec("bbm0", 16, v), sig, backend="cuda",
+                               device=dev)
+            for v in (0, 3, 5, 7, 9, 11, 13, 15)}
+    op = max(v for v, snr in snrs.items() if snr >= dbl - 0.45)
+    lines.append(f"Fig. 8 (30-tap FIR, bbm0 WL 16, through the filterbank "
+                 f"kernels): double precision {dbl:.4f} dB (paper 25.7); "
+                 f"SNR by VBL " + ", ".join(f"{v}: {snr:.4f}" for v, snr
+                                            in snrs.items())
+                 + f"; operating VBL within 0.45 dB {op} (paper 13)")
+    cases = [("WL=16,VBL=0", 16, 0), ("WL=16,VBL=13", 16, 13),
+             ("WL=16,VBL=15", 16, 15), ("WL=14,VBL=0", 14, 0)]
+    t4 = []
+    for label, wl, vbl in cases:
+        spec = MulSpec("booth" if vbl == 0 else "bbm0", wl, vbl)
+        t4.append((label, run_filter_case(spec, sig, backend="cuda",
+                                          device=dev),
+                   hw.fir_power(wl, vbl), hw.fir_area(wl, vbl)))
+    base = t4[0]
+    parts = []
+    for label, snr, pw, ar in t4:
+        ps, asv = 100 * (1 - pw / base[2]), 100 * (1 - ar / base[3])
+        parts.append(f"{label}: SNR {snr:.4f} dB, {pw:.4g} mW, "
+                     f"{ar:.4g} um^2, power saving {ps:.4g} %, QUAP "
+                     f"{hw.quap(snr, max(asv, 0.0), max(ps, 0.0)):.4g}")
+    lines.append("Table IV (SNR through the filterbank kernels; power and "
+                 "area from the model; the paper: 17.1 % power at VBL 13, "
+                 "0.35 dB): " + "; ".join(parts))
+    return lines
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -3024,6 +3338,9 @@ def main() -> None:
     res = lm_main_path(torch, dev, cfg, rt, params, qm)
     st = res["stats"]
     steps = res["step_ms"]
+    pallas_p50, pallas_p90 = steps[len(steps) // 2], \
+        steps[int(len(steps) * 0.9)]
+    pallas_tps = res["tokens"] / res["wall_s"]
     print(f"lm main path: {len(steps)} pure decode steps of "
           f"{st['steps']}, {st['prefills']} prefills, {res['tokens']} "
           f"tokens generated ({res['prompt_tokens']} prompt tokens) in "
@@ -3286,6 +3603,84 @@ def main() -> None:
         "bound_ms": mix("bound"), "bound_by": b2_rows[0]["by"],
         "library_ms": None, "matmul_ms": mix("lib_ms"),
         "timed_by": ", ".join(sorted({r["how"] for r in b2_rows}))})
+
+    # ------------------- slice 6: noise mode's plain branch, the paper
+    nm = importlib.import_module("repro_torch.kernels.normal")
+    from repro_torch.core import prng
+    t0 = time.perf_counter()
+    sw = normal_sweep(torch, nm, prng, dev, rt.amm.mu, rt.amm.sigma)
+    print(f"normal draw: normal_bits bit-equal to its plain version over "
+          f"all {sw['uniforms']} uniforms; normal_draw bit-equal in "
+          f"{sw['cases']} cases (shapes {NORMAL_SHAPES}, three keys, the "
+          f"draw and both epilogues) ({time.perf_counter() - t0:.1f} s)")
+    n_rows = normal_timing(torch, nm, prng, dev, rt.amm.mu, rt.amm.sigma)
+    for r in n_rows:
+        print(f"normal_draw at {r['shape']} ({r['name']}): {r['ms']:.6f} ms "
+              f"({r['how']}), bound {r['bound']:.6f} ms ({r['by']}), bound "
+              f"/ time {r['bound'] / r['ms']:.4g}; with the epilogue "
+              f"{r['epi_ms']:.6f} ms ({r['epi_how']}), bound "
+              f"{r['epi_bound']:.6f} ms ({r['epi_by']}); plain version "
+              f"(with the epilogue) on the card {r['plain_ms']:.6f} ms; "
+              f"torch.randn at the same "
+              f"shape {r['lib_ms']:.6f} ms ({r['lib_how']}; not the same "
+              f"function)")
+    p_cfg = noise_plain_config()
+    p_rt = ModelRuntime.build(p_cfg)
+    res_p = noise_plain_path(torch, dev, p_cfg, p_rt, params, nm, qm)
+    mean, std = normal_moments(torch, nm, prng, dev)
+    steps = res_p["step_ms"]
+    p50, p90 = steps[len(steps) // 2], steps[int(len(steps) * 0.9)]
+    st = res_p["stats"]
+    print(f"noise serving, plain branch: {p_cfg.name} at full width, bbm0 "
+          f"WL 16 VBL 13 without the fused kernel, 8 slots: {len(steps)} "
+          f"pure decode steps of {st['steps']}, {st['prefills']} prefills, "
+          f"{res_p['tokens']} tokens generated ({res_p['prompt_tokens']} "
+          f"prompt tokens) in {res_p['wall_s']:.3f} s: "
+          f"{res_p['tokens'] / res_p['wall_s']:.6g} generated tokens/s; "
+          f"decode step ms p50 {p50:.3f}, p90 {p90:.3f} (the fused kernel's "
+          f"path above, this run: p50 {pallas_p50:.3f}, p90 "
+          f"{pallas_p90:.3f}, {pallas_tps:.6g} tokens/s); normal_draw "
+          f"launches {res_p['launches']} = 72 x {res_p['calls']} lm_apply "
+          f"calls, quant_matmul 0; nothing failed; all logits finite; "
+          f"{NORMAL_MOMENT_N} draws: mean {mean!r}, std {std!r}")
+    t0 = time.perf_counter()
+    chk = lm_cpu_check(torch, dev, p_cfg, p_rt, params)
+    print(f"noise plain branch card vs CPU: {chk['calls']} lm_apply calls "
+          f"of two requests replayed on the CPU port, teacher-forced: worst "
+          f"|logit error| / max|logit| {chk['worst']:.4g} (tolerance "
+          f"{LOGIT_RTOL}), greedy tokens equal at all {chk['checked']} "
+          f"clear rows ({time.perf_counter() - t0:.1f} s)")
+    sched = Scheduler(p_cfg, p_rt, params, SERVE_SLOTS, SERVE_LEN,
+                      continuous=True, device=dev)
+    rng = np.random.default_rng(8)
+    for i in range(SERVE_SLOTS):
+        sched.submit(Request(rid=i, prompt=rng.integers(
+            0, p_cfg.vocab, 64).tolist(), max_new=40))
+    for _ in range(10):
+        sched.step()                 # admit all 8 and warm up
+    win, n_idle = decode_window(torch, sched, "normal_draw",
+                                (NORMAL_KERNEL,), prefills=SERVE_SLOTS,
+                                forbid=QM_KERNELS)
+    for line in win:
+        print("noise plain " + line.lstrip())
+    t0 = time.perf_counter()
+    for line in paper_tables(torch, dev):
+        print(line)
+    print(f"paper tables: {time.perf_counter() - t0:.1f} s")
+    dec = n_rows[0]
+    kernels.append({
+        "name": "normal_draw", "route": "cuda", "source": NORMAL_SOURCE,
+        "replaces": NORMAL_REPLACES, "replaces_op": "jax.random.normal",
+        "launches": res_p["launches"], "max_abs_err": sw["max_abs_err"],
+        "ms": dec["epi_ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["epi_bound"], "bound_by": dec["epi_by"],
+        "library_ms": None, "randn_ms": dec["lib_ms"],
+        "timed_by": dec["epi_how"], "draw_ms": dec["ms"],
+        "draw_bound_ms": dec["bound"],
+        "prefill": {k: n_rows[1][k] for k in ("ms", "epi_ms", "plain_ms",
+                                              "lib_ms", "bound",
+                                              "epi_bound")},
+        "idle_share": n_idle})
 
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

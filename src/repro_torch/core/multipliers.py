@@ -1,20 +1,27 @@
 """Registry of approximate multipliers behind one uniform interface.
 
 Counterpart of ``repro.core.multipliers``.  ``MulSpec(name, wl, param,
-hbl)`` validates exactly as the reference does and accepts every
-registered family; ``mul(spec)(a, b)`` maps int32 tensors of wl-bit
-operands to int32 products.  This slice implements the Booth family
-(``booth``, ``bbm0``, ``bbm1``); the comparison multipliers ``bam``,
-``kulkarni`` and ``etm`` are ROADMAP item A14 and raise
-``NotImplementedError`` when called.
+hbl)`` validates exactly as the reference does; ``mul(spec)(a, b)`` maps
+int32 tensors of wl-bit operands to int32 products, on their device.
+The Booth family (``booth``, ``bbm0``, ``bbm1``) takes two's-complement
+operands natively; the unsigned comparison multipliers ``bam``,
+``kulkarni`` and ``etm`` are applied sign-magnitude, as the paper does
+("no difference between BAM and its signed counterpart, in terms of
+MSE"): ``p = sign(a) * sign(b) * m(|a|, |b|)``.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable
 
+import torch
+
+from .bam import bam_mul
 from .bbm import bbm_type0, bbm_type1
-from .booth import booth_mul_exact
+from .booth import booth_mul_exact, to_signed
+from .etm import etm_mul
+from .kulkarni import kulkarni_mul
 
 __all__ = ["MulSpec", "mul", "MULTIPLIERS", "EXACT"]
 
@@ -46,20 +53,23 @@ class MulSpec:
         return self.param == 0
 
 
-def _not_ported(name: str) -> Callable:
-    def fn(a, b, wl, param, hbl):
-        raise NotImplementedError(
-            f"multiplier {name!r} is not ported yet (ROADMAP item A14)")
-    return fn
+def _signed_wrap(unsigned_fn: Callable, a, b, wl: int, **kw):
+    a_s = to_signed(a, wl)
+    b_s = to_signed(b, wl)
+    sign = torch.sign(a_s) * torch.sign(b_s)
+    return sign * unsigned_fn(torch.abs(a_s), torch.abs(b_s), wl=wl, **kw)
 
 
 MULTIPLIERS = {
     "booth": lambda a, b, wl, param, hbl: booth_mul_exact(a, b, wl),
     "bbm0": lambda a, b, wl, param, hbl: bbm_type0(a, b, wl, param),
     "bbm1": lambda a, b, wl, param, hbl: bbm_type1(a, b, wl, param),
-    "bam": _not_ported("bam"),
-    "kulkarni": _not_ported("kulkarni"),
-    "etm": _not_ported("etm"),
+    "bam": lambda a, b, wl, param, hbl: _signed_wrap(
+        partial(bam_mul, hbl=hbl), a, b, wl, vbl=param),
+    "kulkarni": lambda a, b, wl, param, hbl: _signed_wrap(
+        kulkarni_mul, a, b, wl, k=param),
+    "etm": lambda a, b, wl, param, hbl: _signed_wrap(
+        etm_mul, a, b, wl, split=param),
 }
 
 EXACT = MulSpec("booth", 16, 0)

@@ -32,7 +32,8 @@ SOURCES = {"fir_bank": CSRC / "fir_bank.cu",
            "quant_matmul": CSRC / "quant_matmul.cu",
            "bbm_dot": CSRC / "bbm_dot.cu",
            "bbm_matmul": CSRC / "bbm_matmul.cu",
-           "flash_attention": CSRC / "flash_attention.cu"}
+           "flash_attention": CSRC / "flash_attention.cu",
+           "normal": CSRC / "normal.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -82,6 +83,11 @@ _SIGNATURES = {
         "flash_attention_amm_launch": ([_P] * 14 + [_I] * 13 + [_F, _P],
                                        _I),
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
+    },
+    "normal": {
+        "normal_launch": ([_P, _L, _U, _U, _I, _F, _F, _P], _I),
+        "normal_bits_launch": ([_P, _P, _L, _P], _I),
+        "normal_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

@@ -11,6 +11,7 @@ from ..core.multipliers import mul as core_mul
 from ..device import pin_fp32
 from .booth_rows import (amm_chunk_len, bbm_rows_product_precoded,
                          booth_precode_faulty, split_signed)
+from .normal import noise_consts, normal_draw
 
 __all__ = ["AMM_BOOTH_KINDS", "amm_approx_ref", "amm_attention_ref",
            "amm_coded_kblocks_ref", "amm_coded_ref",
@@ -74,12 +75,17 @@ def amm_quantize_slices(v, wl: int):
     return codes.to(torch.int32), s
 
 
-def quant_matmul_ref(x, w, s_x, s_w, *, wl: int = 16) -> torch.Tensor:
-    """Quantize -> one exact f32 matmul -> descale (no noise).
+def quant_matmul_ref(x, w, s_x, s_w, mu, sigma, *, wl: int = 16,
+                     key=None) -> torch.Tensor:
+    """Quantize -> one exact f32 matmul -> noise -> descale.
 
-    The reference's oracle at mu = sigma = 0 (its keyed-noise branch
-    draws with ``jax.random.normal``, whose bits are not ported).  The
-    scales are cast to f32 first, as the kernel receives them.
+    With a ``core.prng`` key and non-zero moments the noise is
+    ``jax.random.normal(key, acc.shape)``'s, drawn by ``normal_draw``
+    (the kernel on the card) and folded into the accumulator as the
+    reference's ``acc + mu*K + sigma*sqrt(K)*z`` compiles:
+    ``fma(f32(f32(sigma*sqrt(K)) * f32(sqrt 2)), erf_inv(u), acc +
+    f32(mu*K))``.  The scales are cast to f32 first, as the kernel
+    receives them.
     """
     pin_fp32()
     lim = float(2 ** (wl - 1))
@@ -87,7 +93,11 @@ def quant_matmul_ref(x, w, s_x, s_w, *, wl: int = 16) -> torch.Tensor:
     s_w = torch.as_tensor(s_w, dtype=torch.float32, device=x.device)
     xq = torch.clamp(torch.round(x / s_x), -lim, lim - 1)
     wq = torch.clamp(torch.round(w / s_w), -lim, lim - 1)
-    return (xq @ wq) * (s_x * s_w)
+    acc = xq @ wq
+    if key is not None and (mu != 0.0 or sigma != 0.0):
+        c1, c2 = noise_consts(mu, sigma, x.shape[-1])
+        normal_draw(key, acc.shape, acc=acc, c1=c1, c2=c2)
+    return acc * (s_x * s_w)
 
 
 def bbm_matmul_ref(x, w, *, wl: int, vbl: int, kind: int = 0,
@@ -142,18 +152,21 @@ def amm_approx_ref(x, w, spec: MulSpec):
     Quantizes both operands (``amm_quantize``), forms every scalar product
     through the closed forms of ``core.multipliers`` over the whole
     (..., K, N) grid (which is why this is the oracle and not the
-    datapath), divides by 2^vbl, sums int32 per K-chunk and combines the
-    chunks in f32 in order, then descales.  Booth-family specs only: the
-    other families are ROADMAP item A14.  x: (..., K), w: (K, N).
+    datapath), reduces, then descales.  Booth-family products are divided
+    by 2^vbl, summed int32 per K-chunk and the chunks combined in f32 in
+    order (the dot form's reduction); the other families (bam, kulkarni,
+    etm), which have no dot lowering and take this path in bitexact mode,
+    keep the reference's float32 sum of the products.  x: (..., K), w:
+    (K, N).
     """
-    if spec.name not in AMM_BOOTH_KINDS:
-        raise NotImplementedError(
-            f"multiplier {spec.name!r} is not ported yet (ROADMAP item A14)")
     wl = spec.wl
     xq, s_x = amm_quantize(x, wl)
     wq, s_w = amm_quantize(w, wl)
     prod = core_mul(spec)(xq[..., :, None], wq[None, :, :])  # (..., K, N)
-    yq = _chunked_yq(prod, wl, amm_effective_vbl(spec))
+    if spec.name in AMM_BOOTH_KINDS:
+        yq = _chunked_yq(prod, wl, amm_effective_vbl(spec))
+    else:
+        yq = torch.sum(prod.to(torch.float32), dim=-2)
     return (yq * (s_x * s_w)).to(x.dtype)
 
 

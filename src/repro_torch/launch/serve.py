@@ -1,7 +1,7 @@
 """Serving launcher: batched greedy decoding with the slot scheduler.
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
-        --requests 6 --max-new 16 --amm noise --amm-pallas
+        --requests 6 --max-new 16 --amm noise [--amm-pallas]
 
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
         --amm bitexact --amm-attn --kv-codes --continuous
@@ -10,10 +10,13 @@ Counterpart of ``repro.launch.serve`` with the same flags.  It runs on
 the GPU (``--device cpu`` runs the kernels' plain versions).  The
 parameters are random, from a seeded generator.
 
-``--amm noise --amm-pallas`` serves through the hand-written
-``quant_matmul`` kernel: every MLP product is quantized to WL-bit codes
-and carries the calibrated noise of the multiplier ``--mul`` at
-``--vbl``.  ``--amm bitexact`` serves through the Broken-Booth datapath
+``--amm noise`` quantizes every MLP product to WL-bit codes and adds the
+calibrated noise of the multiplier ``--mul`` at ``--vbl`` (characterized
+on the device at start-up): bare, as the reference's default noise path,
+an f32 matmul of the codes and ``jax.random.normal``'s draws from each
+layer's key (the ``normal_draw`` kernel); with ``--amm-pallas``, the
+fused ``quant_matmul`` kernel and its counter-hash noise.
+``--amm bitexact`` serves through the Broken-Booth datapath
 (the ``bbm_dot_scaled`` kernel), its weight codes precoded once here and
 carried by the step functions; ``--amm-attn`` widens it to the attention
 score and value products (bare: MLPs and attention; ``attn``: attention
@@ -86,7 +89,7 @@ def main(argv=None):
         cfg, amm=AmmConfig(mode=args.amm, mul=args.mul, wl=args.wl,
                            param=args.vbl, use_pallas=args.amm_pallas,
                            apply_to=apply_to))
-    rt = ModelRuntime.build(cfg)
+    rt = ModelRuntime.build(cfg, device=dev)
     params = lm_init(cfg, 0, device=dev)
     # the bitexact weight precode happens once, here; the step functions
     # carry it, so every token after pays the contractions only

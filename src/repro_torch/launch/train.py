@@ -9,7 +9,11 @@ bitexact`` puts every MLP product on the Broken-Booth dot form (the
 ``bbm_dot_scaled`` kernel); ``--amm-attn`` adds the attention products,
 which with ``--flash-attn`` run in the ``flash_attention_amm`` kernel;
 ``--flash-attn`` alone runs the exact ``flash_attention`` kernel;
-``--amm noise --amm-pallas`` the ``quant_matmul`` kernel.  The
+``--amm noise`` quantizes every MLP product and adds the multiplier's
+calibrated noise: bare, an f32 matmul of the codes and
+``jax.random.normal``'s draws from each step's and layer's key (the
+``normal_draw`` kernel), with ``--amm-pallas`` the fused
+``quant_matmul`` kernel.  The
 parameters are random, from a seeded generator.  Data and checkpoints as
 in the reference: the deterministic synthetic pipeline, a checkpoint
 directory that the loop resumes from (pass a fresh ``--ckpt-dir`` to
@@ -88,7 +92,7 @@ def main(argv=None):
         cfg, amm=AmmConfig(mode=args.amm, mul=args.mul, wl=args.wl,
                            param=args.vbl, use_pallas=args.amm_pallas,
                            apply_to=apply_to))
-    rt = ModelRuntime.build(cfg, use_pallas=args.flash_attn)
+    rt = ModelRuntime.build(cfg, use_pallas=args.flash_attn, device=dev)
     tc = TrainConfig(microbatches=args.microbatches,
                      opt=OptConfig(lr=args.lr, total_steps=args.steps))
     step_fn = make_train_step(cfg, rt, tc)

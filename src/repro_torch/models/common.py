@@ -7,13 +7,14 @@ Counterpart of ``repro.models.common``.  Parameters are declared once as
 reproduce ``jax.random``'s normals, so weights that must equal the
 reference's come across through numpy instead (``convert``).
 
-The amm layer has its three modes: "off", "noise" (through the
-``quant_matmul`` kernel) and "bitexact" (the Broken-Booth dot form, the
+The amm layer has its three modes: "off", "noise" (the fused
+``quant_matmul`` kernel with ``use_pallas``; else an f32 matmul of the
+codes and ``jax.random.normal``'s draws from the layer key, added in the
+``normal_draw`` kernel), "bitexact" (the Broken-Booth dot form, the
 ``bbm_dot_scaled`` kernel on the card, optionally on weight codes
-precoded once by ``AmmRuntime.precode``), and the attention-side
-``amm_dot`` (every slice in one ``bbm_dot_coded_batched`` launch).  The plain noise branch with a key and non-zero moments
-(it draws with ``jax.random.normal``) raises ``NotImplementedError``
-naming ROADMAP item A10.
+precoded once by ``AmmRuntime.precode``; the non-Booth families take the
+scalar oracle), and the attention-side ``amm_dot`` (every slice in one
+``bbm_dot_coded_batched`` launch).
 """
 from __future__ import annotations
 
@@ -26,8 +27,10 @@ import torch
 from ..configs.base import AmmConfig
 from ..core.multipliers import MulSpec
 from ..core.noise import make_noise_model
+from ..core.prng import key_seed
 from ..device import pin_fp32
 from ..kernels.bbm_matmul import bbm_dot_coded_batched, bbm_dot_scaled
+from ..kernels.normal import noise_consts, normal_draw
 from ..kernels.ops import quant_matmul
 from ..kernels.ref import (AMM_BOOTH_KINDS, amm_approx_ref,
                            amm_effective_vbl, amm_quantize,
@@ -114,11 +117,13 @@ class AmmRuntime:
     sigma: float = 0.0
 
     @staticmethod
-    def build(cfg: AmmConfig) -> "AmmRuntime":
+    def build(cfg: AmmConfig, device=None) -> "AmmRuntime":
+        """Noise mode characterizes the multiplier on ``device`` (None:
+        the GPU, raising without one; "cpu"), once per process."""
         if cfg.mode != "noise":
             return AmmRuntime(cfg)
         spec = MulSpec(cfg.mul, cfg.wl, cfg.param)
-        nm = make_noise_model(spec, sample=1 << 18)
+        nm = make_noise_model(spec, sample=1 << 18, device=device)
         return AmmRuntime(cfg, mu=float(nm.mean), sigma=float(np.sqrt(nm.var)))
 
     @property
@@ -194,19 +199,23 @@ def _amm_bitexact_approx(x, w, rt: AmmRuntime, planes=None):
     return (yq * (s_x * planes["s_w"])).to(x.dtype)
 
 
-def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
-              seed: Optional[int] = None, planes=None) -> torch.Tensor:
+def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime, key=None,
+              planes=None) -> torch.Tensor:
     """Matmul over the last axis of x with the paper's technique applied.
 
-    x: (..., K), w: (K, N).  ``seed`` stands for the reference's ``key``:
-    the int32 noise seed the reference draws from it (``core.prng``), or
-    None for no key (then no noise: mu = sigma = 0, seed 0).
+    x: (..., K), w: (K, N).  ``key``: the reference's key (a
+    ``core.prng`` key), or None for no noise (mu = sigma = 0, seed 0).
+    The fused kernel takes the int32 seed the reference draws from it
+    (``prng.key_seed``); the plain noise branch draws from the key.
 
     Straight-through as in the reference: ``exact + (approx -
     exact).detach()``, which is not bitwise ``approx`` in f32, so it is
     kept as written.  Noise mode with ``use_pallas`` runs the fused
     ``quant_matmul`` kernel on the activation block flattened to
-    (M, K), with the scales of ``amm_quantize`` (device scalars).
+    (M, K), with the scales of ``amm_quantize`` (device scalars); without
+    it, the codes' product ``yq`` in f32 (a plain matmul), then
+    ``jax.random.normal(key, yq.shape)``'s draws folded in by one
+    ``normal_draw`` launch as ``yq + mu*K + sigma*sqrt(K)*z`` compiles.
     Bitexact mode computes its forward value without a graph
     (``_amm_bitexact_approx``); ``planes``: an optional
     ``AmmRuntime.precode(w)`` entry, bit-identical to none.
@@ -217,8 +226,9 @@ def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
     if cfg.mode == "off":
         return exact
     if cfg.mode == "noise":
-        noisy = seed is not None
         if cfg.use_pallas:
+            noisy = key is not None
+            seed = key_seed((int(key[0]), int(key[1]))) if noisy else 0
             s_x = amm_scale(x, cfg.wl)
             s_w = amm_scale(w, cfg.wl)
             yq = quant_matmul(
@@ -226,18 +236,17 @@ def amm_dense(x: torch.Tensor, w: torch.Tensor, rt: AmmRuntime,
                 .contiguous(),
                 w.detach().to(torch.float32).contiguous(), s_x, s_w,
                 rt.mu if noisy else 0.0, rt.sigma if noisy else 0.0,
-                wl=cfg.wl, seed=seed if noisy else 0)
+                wl=cfg.wl, seed=seed)
             approx = yq.reshape(x.shape[:-1] + (w.shape[-1],)).to(x.dtype)
             return exact + (approx - exact).detach()
-        if noisy and (rt.mu != 0.0 or rt.sigma != 0.0):
-            raise NotImplementedError(
-                "noise mode without use_pallas draws its keyed noise with "
-                "jax.random.normal, whose bits are not ported "
-                "(ROADMAP A10); use use_pallas=True")
-        xq, s_x = amm_quantize(x, cfg.wl)
-        wq, s_w = amm_quantize(w, cfg.wl)
-        yq = xq.to(torch.float32) @ wq.to(torch.float32)
-        approx = (yq * (s_x * s_w)).to(x.dtype)
+        with torch.no_grad():
+            xq, s_x = amm_quantize(x.detach(), cfg.wl)
+            wq, s_w = amm_quantize(w.detach(), cfg.wl)
+            yq = xq.to(torch.float32) @ wq.to(torch.float32)
+            if key is not None and (rt.mu != 0.0 or rt.sigma != 0.0):
+                c1, c2 = noise_consts(rt.mu, rt.sigma, x.shape[-1])
+                normal_draw(key, yq.shape, acc=yq, c1=c1, c2=c2)
+            approx = (yq * (s_x * s_w)).to(x.dtype)
         return exact + (approx - exact).detach()
     if cfg.mode == "bitexact":
         with torch.no_grad():

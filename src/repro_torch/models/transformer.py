@@ -13,11 +13,12 @@ The bitexact datapath's weight side is precoded once for fixed weights
 (``init_cache``) or the int-code cache (``serve.kv_cache``), which the
 attention layer tells apart by their leaves.
 
-The noise seeds follow the reference's key chain: ``lm_apply`` starts
-from ``jax.random.key(rng)`` (``rng`` defaults to 0, as the reference's
+The noise follows the reference's key chain: ``lm_apply`` starts from
+``jax.random.key(rng)`` (``rng`` defaults to 0, as the reference's
 serving path never passes one), splits it once per layer, and the
-layer's ``amm_dense`` calls share ``randint(layer key)``.  ``core.prng``
-computes those integers on the host once per (rng, depth).
+layer's ``amm_dense`` calls share the layer key (the plain noise branch
+draws from it; the fused kernel takes ``randint(layer key)`` as its
+seed).  ``core.prng`` computes both on the host, cached.
 
 The other families (MoE, SSM, hybrid, encoder-decoder, VLM) are ROADMAP
 item A12 and raise ``NotImplementedError``.  ``lm_loss`` is the training
@@ -31,7 +32,7 @@ from typing import Any, Dict
 import torch
 
 from ..configs.base import ArchConfig
-from ..core.prng import layer_seeds
+from ..core.prng import layer_keys
 from ..device import pin_fp32, resolve_device
 from .attention import attention, attn_table
 from .common import (AmmRuntime, Spec, cross_entropy_loss, init_params,
@@ -56,8 +57,11 @@ class ModelRuntime:
     use_pallas_attention: bool = False
 
     @staticmethod
-    def build(cfg: ArchConfig, use_pallas: bool = False) -> "ModelRuntime":
-        return ModelRuntime(AmmRuntime.build(cfg.amm), use_pallas)
+    def build(cfg: ArchConfig, use_pallas: bool = False,
+              device=None) -> "ModelRuntime":
+        """``device``: where noise mode characterizes its multiplier
+        (None: the GPU, raising without one; "cpu")."""
+        return ModelRuntime(AmmRuntime.build(cfg.amm, device), use_pallas)
 
     def build_planes(self, cfg: ArchConfig, params):
         """``lm_amm_planes`` of these weights under this runtime's amm
@@ -142,12 +146,12 @@ def _attn_block(p, h, cfg, rt, *, positions, cache=None, pos=None):
     return h + y.to(h.dtype), new_cache
 
 
-def _dense_block(p, h, cfg, rt, seed, *, positions, cache=None, pos=None,
+def _dense_block(p, h, cfg, rt, key, *, positions, cache=None, pos=None,
                  planes=None):
     h, new_cache = _attn_block(p, h, cfg, rt, positions=positions,
                                cache=cache, pos=pos)
     y = mlp_apply(p["mlp"], rmsnorm(h, p["mlp_norm"], cfg.norm_eps), rt.amm,
-                  seed, planes=(planes or {}).get("mlp"))
+                  key, planes=(planes or {}).get("mlp"))
     return h + y.to(h.dtype), new_cache
 
 
@@ -182,8 +186,8 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     embed = params["embed"]
     dev = embed.device
     tokens = torch.as_tensor(tokens, device=dev).to(torch.int64)
-    seeds = layer_seeds(rng if isinstance(rng, tuple)
-                        else (0 if rng is None else int(rng)), cfg.n_layers)
+    root = rng if isinstance(rng, tuple) else (0 if rng is None else int(rng))
+    keys = layer_keys(root, cfg.n_layers)
     h = embed[tokens].to(torch.bfloat16)
     b, s = tokens.shape
     off = torch.as_tensor(0 if pos is None else pos, device=dev).to(
@@ -198,7 +202,7 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
         # "k_scale", "v_codes", "v_scale"}): attention routes on the keys
         cache_l = None if caches is None else _layer(caches, i)
         h, _ = _dense_block(_layer(params["layers"], i), h, cfg, rt,
-                            seeds[i], positions=positions, cache=cache_l,
+                            keys[i], positions=positions, cache=cache_l,
                             pos=pos, planes=None if planes is None
                             else _layer(planes, i))
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)

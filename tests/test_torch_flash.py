@@ -489,7 +489,7 @@ def _attn_setup(amm_mode="bitexact", seq=24):
         np.float32))
     pos = torch.arange(seq)[None]
     amm = TRuntime.build(TAmm(mode=amm_mode, mul="bbm0", wl=16, param=13,
-                              apply_to="all"))
+                              apply_to="all"), device="cpu")
     return dataclasses.replace(cfg), p, x, pos, amm
 
 
@@ -538,7 +538,8 @@ def test_fallback_warning_deduplicated_per_site(monkeypatch):
 def test_no_lowering_fallback_warns():
     cfg, p, x, pos, _ = _attn_setup()
     noise = TRuntime.build(TAmm(mode="noise", mul="bbm0", wl=16, param=13,
-                                apply_to="all", use_pallas=True))
+                                apply_to="all", use_pallas=True),
+                           device="cpu")
     assert noise.attn_lowering is None
     with pytest.warns(t_attn.FlashFallbackWarning, match="no flash lowering"):
         t_attn.attention(p, x, cfg, positions=pos, use_pallas=True,

@@ -66,8 +66,14 @@ def test_no_port_file_imports_jax_or_the_reference():
     for part in ("train/optimizer.py", "train/trainstep.py",
                  "train/checkpoint.py", "train/loop.py", "data/pipeline.py",
                  "launch/train.py", "kernels/bbm_matmul.py",
-                 "kernels/flash_attention.py", "core/faults.py"):
+                 "kernels/flash_attention.py", "core/faults.py",
+                 "core/noise.py", "core/errstats.py", "core/bam.py",
+                 "core/kulkarni.py", "core/etm.py", "core/ref_sim.py",
+                 "core/hwmodel.py"):
         assert f"src/repro_torch/{part}" in rel, part
+    for path in ("src/repro_torch/kernels/normal.py",
+                 "src/repro_torch/core/prng.py"):
+        assert path in rel, path
     bad = [(p.relative_to(ROOT).as_posix(), root) for p in files
            for root in _imported_roots(p) if root in FORBIDDEN]
     assert bad == []
@@ -126,15 +132,19 @@ def _no_gpu():
                                    "fir_filterbank_precoded",
                                    "run_filter_case", "bbm_matmul",
                                    "bbm_matmul_precoded", "plane_fault_mask",
-                                   "random_bits", "uniform", "bernoulli"])
+                                   "random_bits", "uniform", "bernoulli",
+                                   "normal", "normal_draw", "characterize",
+                                   "error_histogram"])
 def test_entry_points_default_to_the_gpu(entry):
     h = t_fir.design_lowpass()
     x = np.ones((2, 64))
     codes = np.ones((2, 64), np.int32)
     planes = np.zeros((8, 2, 31), np.int32)
     from repro_torch.core import prng
+    from repro_torch.core.errstats import characterize, error_histogram
     from repro_torch.core.faults import FaultSpec, plane_fault_mask
     from repro_torch.dsp.testbed import run_filter_case
+    from repro_torch.kernels.normal import normal_draw
     calls = {
         "fir_apply": lambda **kw: t_fir.fir_apply(x, h, SPEC, **kw),
         "PrecodedBank": lambda **kw: t_fir.PrecodedBank(h, SPEC, **kw),
@@ -155,6 +165,12 @@ def test_entry_points_default_to_the_gpu(entry):
         "uniform": lambda **kw: prng.uniform(prng.key(1), (5,), **kw),
         "bernoulli": lambda **kw: prng.bernoulli(prng.key(1), 0.5, (5,),
                                                  **kw),
+        "normal": lambda **kw: prng.normal(prng.key(1), (5,), **kw),
+        "normal_draw": lambda **kw: normal_draw(prng.key(1), (2, 3), **kw),
+        "characterize": lambda **kw: characterize(MulSpec("bam", 4, 2),
+                                                  **kw),
+        "error_histogram": lambda **kw: error_histogram(
+            MulSpec("etm", 4, 1), bins=9, **kw),
     }
     with _no_gpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -187,7 +203,8 @@ def test_lm_entry_points_default_to_the_gpu(entry, tmp_path):
     def sched(**kw):
         dev = kw.get("device", "cuda")
         params = lm_init(cfg, device="cpu" if dev == "cpu" else None)
-        return Scheduler(cfg, ModelRuntime.build(cfg), params, 2, 8, **kw)
+        rt = ModelRuntime.build(cfg, device="cpu" if dev == "cpu" else None)
+        return Scheduler(cfg, rt, params, 2, 8, **kw)
 
     def launch(**kw):
         argv = ["--reduced", "--requests", "1", "--max-new", "1",
@@ -228,6 +245,7 @@ def test_tf32_is_off_on_the_f32_paths():
     caller set: the entry points call ``device.pin_fp32``."""
     import dataclasses
     from repro_torch.configs.base import AmmConfig
+    from repro_torch.core import prng
     from repro_torch.kernels import quant_matmul
     from repro_torch.kernels.bbm_matmul import bbm_dot_scaled
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -237,7 +255,7 @@ def test_tf32_is_off_on_the_f32_paths():
                                     lm_apply, lm_init, lm_loss)
     from repro_torch.serve import Scheduler
     cfg = _tiny_lm()
-    rt = ModelRuntime.build(cfg)
+    rt = ModelRuntime.build(cfg, device="cpu")
     params = lm_init(cfg, device="cpu")
     x, w = torch.ones((2, 16)), torch.ones((16, 4))
     bcfg = dataclasses.replace(cfg, amm=AmmConfig(
@@ -250,9 +268,10 @@ def test_tf32_is_off_on_the_f32_paths():
         "lm_apply": lambda: lm_apply(params, cfg, rt, torch.ones(
             (1, 3), dtype=torch.int64), mode="decode",
             caches=init_cache(cfg, 1, 8, device="cpu"), pos=0),
-        "amm_dense": lambda: amm_dense(x, w, rt.amm, 5),
+        "amm_dense": lambda: amm_dense(x, w, rt.amm, prng.key(5)),
         "quant_matmul": lambda: quant_matmul(x, w, 0.1, 0.1),
-        "quant_matmul_ref": lambda: quant_matmul_ref(x, w, 0.1, 0.1),
+        "quant_matmul_ref": lambda: quant_matmul_ref(x, w, 0.1, 0.1, 0.0,
+                                                     0.0),
         "Scheduler": lambda: Scheduler(cfg, rt, params, 1, 8,
                                        device="cpu"),
         "lm_loss": lambda: lm_loss(params, bcfg, brt, toks, toks),
@@ -312,7 +331,7 @@ def test_unported_parts_name_their_roadmap_item(tmp_path):
     with pytest.raises(ValueError, match="int-code KV cache requires"):
         attention(p, x, cfg, positions=torch.zeros((1, 1)),
                   cache={"k_codes": None}, pos=0)
-    assert ModelRuntime.build(cfg).amm.mlp_active
+    assert ModelRuntime.build(cfg, device="cpu").amm.mlp_active
 
 
 def test_bank_and_call_must_share_a_device():
@@ -1203,3 +1222,63 @@ def test_decode_attention_codes_on_the_card_equals_the_cpu():
     bound = s * (v + 2.0 ** (13 + 2)) / lim * sv * (1 + 2.0 ** -20)
     err = (got.cpu() - want).double().abs().reshape(b, 2, 7, 64)
     assert (err.amax(dim=(2, 3)) <= bound).all()
+
+
+# ------------------------------------------------- the normal-draw kernel
+NORMAL_SHAPES = [(7,), (3, 5, 11), (8, 1, 4864), (2, 300, 1000)]
+
+
+def test_normal_draw_runs_its_plain_version_on_cpu_without_counting():
+    from repro_torch.core import prng
+    from repro_torch.kernels.normal import normal_draw
+    before = normal_draw.launches
+    z = normal_draw(prng.key(4), (3, 5), device="cpu")
+    assert torch.equal(z, prng.normal_plain(prng.key(4), (3, 5)))
+    acc = torch.ones((3, 5))
+    normal_draw(prng.key(4), (3, 5), acc=acc, c1=2.0, c2=3.0)
+    assert normal_draw.launches == before
+    with pytest.raises(ValueError, match="contiguous float32"):
+        normal_draw(prng.key(4), (3, 5), acc=torch.ones((5, 3)).T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", NORMAL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_normal_kernel_equals_plain_version_on_the_card(shape):
+    """Every bit, the draw and both epilogues, one counted launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import prng
+    from repro_torch.kernels.normal import normal_draw
+    gen = torch.Generator().manual_seed(len(shape))
+    acc = torch.randn(shape, generator=gen) * 1e5
+    for k in (prng.key(0), prng.split(prng.key(7))[1], (0xFFFFFFFF, 3)):
+        before = normal_draw.launches
+        got = normal_draw(k, shape)
+        assert got.is_cuda and normal_draw.launches == before + 1
+        want = prng.normal_plain(k, shape)
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+        for order in ("acc", "noise"):
+            dev_acc = acc.cuda()
+            out = normal_draw(k, shape, acc=dev_acc, c1=-3.7e3, c2=1.2e4,
+                              order=order)
+            assert out.data_ptr() == dev_acc.data_ptr()
+            want = prng.normal_plain(k, shape, acc=acc, c1=-3.7e3,
+                                     c2=1.2e4, order=order)
+            assert torch.equal(out.cpu().view(torch.int32),
+                               want.view(torch.int32)), order
+    assert normal_draw(prng.key(1), (0, 3)).numel() == 0
+
+
+@pytest.mark.cuda
+def test_normal_transform_on_the_card_all_2_23():
+    """The kernel's arithmetic from given bits, over every uniform."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from repro_torch.core import prng
+    from repro_torch.kernels.normal import normal_bits
+    bits = torch.arange(1 << 23, dtype=torch.int64) << 9 | 0x155
+    got = normal_bits(bits.cuda()).cpu()
+    want = prng.normal_from_bits(bits)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

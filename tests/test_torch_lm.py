@@ -141,7 +141,7 @@ def test_lm_apply_train_prefill_decode(params, forwards, mode):
     _, tp = params
     toks, nxt, want = forwards
     _, t_cfg = _cfgs(**AMMS[mode])
-    rt = TRT.build(t_cfg)
+    rt = TRT.build(t_cfg, device="cpu")
     got = {"train": t_apply(tp, t_cfg, rt, torch.from_numpy(toks))[0]}
     c = t_cache(t_cfg, 2, 32, device="cpu")
     got["prefill"], _, c = t_apply(tp, t_cfg, rt, torch.from_numpy(toks),
@@ -176,7 +176,7 @@ def test_mlp_seam_on_captured_activations(params, keyed, monkeypatch):
     jp, tp = params
     amm = dict(NOISE, wl=8, param=5)
     j_cfg, t_cfg = _cfgs(**amm)
-    jrt, trt = JRT.build(j_cfg).amm, TRT.build(t_cfg).amm
+    jrt, trt = JRT.build(j_cfg).amm, TRT.build(t_cfg, device="cpu").amm
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 5, j_cfg.d_model)).astype(np.float32)
     calls = []
@@ -190,6 +190,7 @@ def test_mlp_seam_on_captured_activations(params, keyed, monkeypatch):
     p0j = jax.tree.map(lambda a: a[0], jp["layers"]["mlp"])
     p0t = {k: v[0] for k, v in tp["layers"]["mlp"].items()}
     key = jax.random.split(jax.random.key(0))[1] if keyed else None
+    tkey = prng.layer_keys(0, 1)[0] if keyed else None
     seed = prng.layer_seeds(0, 1)[0] if keyed else None
     want = np.asarray(j_moe.mlp_apply(p0j, jnp.asarray(x), jrt, key))
     assert len(calls) == 3
@@ -206,5 +207,5 @@ def test_mlp_seam_on_captured_activations(params, keyed, monkeypatch):
                     <= tol.numpy()).all()
         else:
             assert_array_equal(got, out)
-    got = t_moe.mlp_apply(p0t, torch.from_numpy(x), trt, seed).numpy()
+    got = t_moe.mlp_apply(p0t, torch.from_numpy(x), trt, tkey).numpy()
     _close(got, want, ATTN_RTOL)

@@ -11,7 +11,9 @@
   bit for bit at wl = 8 on operands whose exact f32 product has no
   rounding (both sides then hold the same ``exact`` for the
   straight-through sum), and within ``quant_matmul_tolerance`` plus one
-  rounding of the straight-through sum at wl = 16 with a key.
+  rounding of the straight-through sum at wl = 16 with a key; on the
+  plain branch (no ``use_pallas``) with the layer key, whose draws are
+  ``jax.random.normal``'s, within the same derivation.
 """
 from __future__ import annotations
 
@@ -85,13 +87,14 @@ def test_layer_seed_chain_of_lm_apply():
 def test_characterize_and_noise_model_equal_jax(wl, vbl):
     """wl = 16: 2^18 sampled pairs; wl = 12: all 2^24 pairs."""
     j = j_err.characterize(j_mult.MulSpec("bbm0", wl, vbl), sample=1 << 18)
-    t = t_err.characterize(t_mult.MulSpec("bbm0", wl, vbl), sample=1 << 18)
+    t = t_err.characterize(t_mult.MulSpec("bbm0", wl, vbl), sample=1 << 18,
+                           device="cpu")
     for f in ("mean", "mse", "prob", "min", "max", "var", "n"):
         assert getattr(t, f) == getattr(j, f), f
     jm = j_noise.make_noise_model(j_mult.MulSpec("bbm0", wl, vbl),
                                   sample=1 << 18)
     tm = t_noise.make_noise_model(t_mult.MulSpec("bbm0", wl, vbl),
-                                  sample=1 << 18)
+                                  sample=1 << 18, device="cpu")
     assert (tm.mean, tm.var) == (jm.mean, jm.var)
     assert tm.dot_moments(896) == jm.dot_moments(896)
     assert t_noise.make_noise_model(t_mult.MulSpec("bbm0", wl, vbl),
@@ -101,7 +104,7 @@ def test_characterize_and_noise_model_equal_jax(wl, vbl):
 def test_amm_runtime_moments_equal_jax():
     cfg = dict(mode="noise", mul="bbm0", wl=16, param=13, use_pallas=True)
     j = j_common.AmmRuntime.build(JAmm(**cfg))
-    t = t_common.AmmRuntime.build(TAmm(**cfg))
+    t = t_common.AmmRuntime.build(TAmm(**cfg), device="cpu")
     assert (t.mu, t.sigma) == (float(j.mu), float(j.sigma))
     assert t.mlp_active and not t.attn_active
 
@@ -132,10 +135,11 @@ def test_amm_quantize_bf16_full_scale_does_not_wrap():
 
 
 # ------------------------------------------------------------- amm_dense
-def _rts(wl, vbl, mul="bbm0"):
-    cfg = dict(mode="noise", mul=mul, wl=wl, param=vbl, use_pallas=True)
+def _rts(wl, vbl, mul="bbm0", use_pallas=True):
+    cfg = dict(mode="noise", mul=mul, wl=wl, param=vbl,
+               use_pallas=use_pallas)
     return j_common.AmmRuntime.build(JAmm(**cfg)), \
-        t_common.AmmRuntime.build(TAmm(**cfg))
+        t_common.AmmRuntime.build(TAmm(**cfg), device="cpu")
 
 
 def test_amm_dense_wl8_bitwise():
@@ -159,11 +163,11 @@ def test_amm_dense_wl16_keyed_within_tolerance():
     w = (0.05 * rng.standard_normal((64, 40))).astype(np.float32)
     jrt, trt = _rts(16, 13)
     key = jax.random.split(jax.random.key(0))[1]
-    seed = prng.randint(prng.split(prng.key(0))[1])
+    tkey = prng.split(prng.key(0))[1]
     want = np.asarray(j_common.amm_dense(jnp.asarray(x), jnp.asarray(w), jrt,
                                          key=key), np.float64)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-    got = t_common.amm_dense(xt, wt, trt, seed).numpy()
+    got = t_common.amm_dense(xt, wt, trt, tkey).numpy()
     tol = t_qm.quant_matmul_tolerance(xt, wt, amm_scale(xt, 16),
                                       amm_scale(wt, 16), trt.mu, trt.sigma,
                                       wl=16).numpy()
@@ -178,13 +182,32 @@ def test_amm_dense_wl16_keyed_within_tolerance():
 
 
 def test_amm_dense_raises_where_a_later_slice_ports():
-    x, w = torch.ones((2, 8)), torch.ones((8, 4))
-    cfg = dict(mode="noise", mul="bbm0", wl=16, param=13)
-    rt = t_common.AmmRuntime.build(TAmm(**cfg))
-    with pytest.raises(NotImplementedError, match="A10"):
-        t_common.amm_dense(x, w, rt, seed=1)
-    off = t_common.amm_dense(x, w, rt)             # no key: no noise
-    assert off.shape == (2, 4)
+    """The plain noise branch (no ``use_pallas``), once a later slice's
+    (the name is kept), against the reference inside ``jax.jit`` with
+    the same key: the draws are equal, the f32 matmul of the codes sums
+    in another order (``quant_matmul_tolerance`` with one K chunk), and
+    the straight-through sum rounds as in the keyed test above."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 3, 64)).astype(np.float32)
+    w = (0.05 * rng.standard_normal((64, 40))).astype(np.float32)
+    jrt, trt = _rts(16, 13, use_pallas=False)
+    jkey = jax.random.split(jax.random.key(0))[1]
+    tkey = prng.split(prng.key(0))[1]
+    fn = jax.jit(lambda x, w, k: j_common.amm_dense(x, w, jrt, key=k))
+    want = np.asarray(fn(jnp.asarray(x), jnp.asarray(w), jkey), np.float64)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    got = t_common.amm_dense(xt, wt, trt, tkey).numpy()
+    x2 = xt.reshape(-1, 64)
+    tol = t_qm.quant_matmul_tolerance(x2, wt, amm_scale(xt, 16),
+                                      amm_scale(wt, 16), trt.mu, trt.sigma,
+                                      wl=16, bk=64).numpy().reshape(got.shape)
+    u = 2.0 ** -24
+    tol = tol + 4 * u * np.abs(want) + 2 * 64 * u * (np.abs(x) @ np.abs(w))
+    assert got.shape == (2, 3, 40)
+    assert (np.abs(got - want) <= tol).all()
+    # the noise is on, and it is the key's: without one the output moves
+    off = t_common.amm_dense(xt, wt, trt).numpy()
+    assert np.abs(off - got).max() > 5 * tol.max()
     # bitexact mode, a later slice when this test was written, is ported
     bitexact = t_common.AmmRuntime.build(TAmm(mode="bitexact"))
     assert bitexact.cacheable and bitexact.attn_lowering == (16, 13, 0)

@@ -126,8 +126,8 @@ def test_ragged_k_is_quant_matmul_ref(k):
         if wl == 8:        # exact chunk sums: the oracles agree bitwise
             assert_array_equal(got, want)
             assert_array_equal(got, t_ref(torch.from_numpy(x),
-                                          torch.from_numpy(w), sx, sw,
-                                          wl=wl).numpy())
+                                          torch.from_numpy(w), sx, sw, 0.0,
+                                          0.0, wl=wl).numpy())
 
 
 def _jax_words(shape, seed, salt):

@@ -131,7 +131,7 @@ def test_teacher_forced_against_the_reference(lm, reference_runs,
                                               continuous):
     _, _, t_cfg, tp = lm
     log, j_reqs, j_stats = reference_runs[continuous]
-    rt = TRT.build(t_cfg)
+    rt = TRT.build(t_cfg, device="cpu")
     prefill_t, decode_t = t_engine.make_serve_fns(t_cfg, rt)
     state = {"i": 0, "clear": 0}
 
@@ -170,7 +170,8 @@ def test_teacher_forced_against_the_reference(lm, reference_runs,
 # ------------------------------------------------- the port's own policy
 def _sched(lm, slots=SLOTS, **kw):
     _, _, t_cfg, tp = lm
-    return t_engine.Scheduler(t_cfg, TRT.build(t_cfg), tp, slots, MAX_LEN,
+    return t_engine.Scheduler(t_cfg, TRT.build(t_cfg, device="cpu"), tp,
+                              slots, MAX_LEN,
                               continuous=True, device="cpu", **kw)
 
 
