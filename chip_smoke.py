@@ -200,6 +200,33 @@ of the JAX package.  Phases, each of which fails the run:
      the hardware model; Fig. 8's SNR against VBL and Table IV through
      ``fir_apply`` on the card (the filterbank kernels; phase 4 keeps the
      0.4 +- 0.15 dB gate).
+ 23. slice 7, the MoE family and multi-head latent attention:
+     deepseek-v3 at full width (d_model 7168, 128 heads, q_lora 1536,
+     kv_lora 512, rope 64, nope 128, v 128, vocab 129,280, dense d_ff
+     18,432, 256 routed experts of width 2,048, top-8, one shared), cut
+     to 2 layers (the dense prefix layer and one MoE layer) without the
+     MTP head, 13.94 G parameters (55.8 GB in f32) built once and served
+     twice through the continuous ``Scheduler`` (8 slots, max_len 512,
+     16 requests of 32-128 prompt tokens and 32 new ones): (a) noise
+     mode (bbm0 WL 16 VBL 13) on the fused kernel from the float latent
+     cache, every ``lm_apply`` call exactly 6 ``quant_matmul`` launches
+     (the prefix MLP and the shared expert); (b) bitexact
+     (``apply_to="all"``) from the latent code cache, every call 6
+     ``bbm_dot_scaled`` and 4 ``bbm_dot_coded_batched`` launches a
+     decode (the prefill counts predicted from the lengths); the counts
+     zeroed before each run; nothing failed, every logit finite; the
+     first step's kernel calls held against their plain versions on their
+     own inputs; the peak allocated bytes; the card against the CPU port
+     with the routed experts cut to 16 (two requests, a prefill and two
+     decode steps each): the MoE layer from the card's input (router
+     logits, ``_dispatch``, the output from the card's routing; near-ties
+     counted) and the teacher-forced logits; the routed experts' products
+     at a decode step against the bytes of every expert's weights; a
+     profiled decode window of each mode; and each kernel at the new
+     shapes (``quant_matmul`` and ``bbm_dot_scaled`` at (8, 7168) x
+     (7168, 18432) and (8, 18432) x (18432, 7168), the batched coded
+     entry at MLA's decode shapes) against its bound, its plain version
+     and an f32 PyTorch product.
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -262,8 +289,8 @@ QM_KERNELS = ("qm_decode_kernel", "qm_tiled_kernel")
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    if isinstance(tree, (dict, list)):
+        for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from _leaves(v)
     else:
         yield tree
@@ -728,6 +755,74 @@ class Recorder:
         return logits, c
 
 
+class KernelCapture:
+    """While ``calls`` is a list, every call the model makes through
+    ``models.common``'s names of the kernel wrappers is appended to it as
+    (wrapper name, args, kwargs, output); ``close()`` (or leaving a
+    ``with`` block) restores the names."""
+
+    NAMES = ("quant_matmul", "bbm_dot_scaled", "bbm_dot_coded_batched")
+
+    def __init__(self, common):
+        self.common, self.calls = common, None
+        self.orig = {n: getattr(common, n) for n in self.NAMES}
+        for n, f in self.orig.items():
+            setattr(common, n, self._wrap(n, f))
+
+    def _wrap(self, name, f):
+        def call(*args, **kw):
+            out = f(*args, **kw)
+            if self.calls is not None:
+                self.calls.append((name, args, kw, out))
+            return out
+        return call
+
+    def take(self) -> list:
+        """The calls recorded so far; recording stops."""
+        calls, self.calls = self.calls, None
+        return calls
+
+    def close(self):
+        for n, f in self.orig.items():
+            setattr(self.common, n, f)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def qm_capture_check(torch, qm, calls) -> tuple:
+    """The recorded ``quant_matmul`` calls (``KernelCapture``) against the
+    plain version on their own inputs, within ``quant_matmul_tolerance``;
+    returns (calls, worst error / bound, max abs error)."""
+    import inspect
+    sig = inspect.signature(qm.quant_matmul)
+    worst, max_err, n = 0.0, 0.0, 0
+    for name, args, kw, out in calls:
+        if name != "quant_matmul":
+            continue
+        a = sig.bind(*args, **kw)
+        a.apply_defaults()
+        c = a.arguments
+        want = qm.quant_matmul_plain(
+            c["x"], c["w"], c["s_x"], c["s_w"], c["mu"], c["sigma"],
+            **{k: c[k] for k in ("wl", "seed", "bm", "bk", "bn")})
+        tol = qm.quant_matmul_tolerance(c["x"], c["w"], c["s_x"], c["s_w"],
+                                        c["mu"], c["sigma"], wl=c["wl"],
+                                        bk=c["bk"])
+        err = (out.double() - want.double()).abs()
+        if bool((err > tol).any()):
+            fail(f"a main-path quant_matmul call at {tuple(c['x'].shape)} x "
+                 f"{tuple(c['w'].shape)} is off its plain version by "
+                 f"{float(err.max())}")
+        worst = max(worst, float((err / tol.clamp_min(1e-300)).max()))
+        max_err = max(max_err, float(err.max()))
+        n += 1
+    return n, worst, max_err
+
+
 def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
     """Serve the workload through the continuous Scheduler; check it."""
     from repro_torch.serve import Request, Scheduler, make_serve_fns
@@ -741,21 +836,23 @@ def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
     for r in reqs:
         sched.submit(r)
     step_ms = []
-    qm.quant_matmul.launches = 0
-    qm.quant_matmul.capture = []
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    while True:
-        pre = sched.stats["prefills"]
-        ts = time.perf_counter()
-        n = sched.step()
-        if qm.quant_matmul.capture is not None:
-            captured, qm.quant_matmul.capture = qm.quant_matmul.capture, None
-        if not n:
-            break
-        if sched.stats["prefills"] == pre:      # a pure decode step
-            step_ms.append((time.perf_counter() - ts) * 1e3)
-    torch.cuda.synchronize()
+    import repro_torch.models.common as common
+    with KernelCapture(common) as cap:
+        qm.quant_matmul.launches = 0
+        cap.calls = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            pre = sched.stats["prefills"]
+            ts = time.perf_counter()
+            n = sched.step()
+            if cap.calls is not None:
+                captured = cap.take()
+            if not n:
+                break
+            if sched.stats["prefills"] == pre:      # a pure decode step
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = qm.quant_matmul.launches
     st = sched.stats
@@ -775,26 +872,14 @@ def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
     if int(rec.bad) != 0:
         fail(f"{int(rec.bad)} non-finite logits on the main path")
     # the first step's kernel calls against the plain version
-    ms = sorted({c["x"].shape[0] for c in captured})
-    if len(captured) != 2 * per_call or ms[0] != 8 or len(ms) != 2:
-        fail(f"the first step captured {len(captured)} calls at M={ms}, "
-             f"expected {per_call} of a prefill and {per_call} at M=8")
-    worst, max_err = 0.0, 0.0
-    for c in captured:
-        kw = {k: c[k] for k in ("mu", "sigma", "wl", "seed", "bm", "bk",
-                                "bn")}
-        want = qm.quant_matmul_plain(c["x"], c["w"], c["s_x"], c["s_w"],
-                                     **kw)
-        tol = qm.quant_matmul_tolerance(c["x"], c["w"], c["s_x"], c["s_w"],
-                                        c["mu"], c["sigma"], wl=c["wl"],
-                                        bk=c["bk"])
-        err = (c["out"].double() - want.double()).abs()
-        if bool((err > tol).any()):
-            fail(f"a main-path quant_matmul call at {tuple(c['x'].shape)} x "
-                 f"{tuple(c['w'].shape)} is off its plain version by "
-                 f"{float(err.max())}")
-        worst = max(worst, float((err / tol.clamp_min(1e-300)).max()))
-        max_err = max(max_err, float(err.max()))
+    ms = sorted({args[0].shape[0] for name, args, _, _ in captured
+                 if name == "quant_matmul"})
+    n_qm, worst, max_err = qm_capture_check(torch, qm, captured)
+    if n_qm != len(captured) or n_qm != 2 * per_call or ms[0] != 8 \
+            or len(ms) != 2:
+        fail(f"the first step captured {len(captured)} calls ({n_qm} "
+             f"quant_matmul) at M={ms}, expected {per_call} quant_matmul "
+             f"of a prefill and {per_call} at M=8")
     tokens = sum(len(r.out) for r in reqs)
     step_ms.sort()
     return {"stats": st, "launches": launches, "calls": calls,
@@ -829,10 +914,7 @@ def lm_cpu_check(torch, dev, cfg, rt, params, kv_codes=False) -> dict:
         card.submit(Request(rid=i, prompt=p, max_new=8))
     while card.step():
         pass
-    def to_cpu(tree):
-        return {k: to_cpu(v) for k, v in tree.items()} \
-            if isinstance(tree, dict) else tree.cpu()
-    cpu_params = to_cpu(params)
+    cpu_params = _to_cpu(params)
     fns = make_serve_fns(cfg, rt, amm_planes=rt.build_planes(cfg, cpu_params),
                          kv_codes=kv_codes)
     state = {"i": 0, "worst": 0.0, "flips": 0, "checked": 0}
@@ -1547,10 +1629,7 @@ def train_cpu_check(torch, dev) -> dict:
         card = float(card)
     finally:
         common._amm_bitexact_approx = approx
-    def to_cpu(tree):
-        return {k: to_cpu(v) for k, v in tree.items()} \
-            if isinstance(tree, dict) else tree.cpu()
-    cpu_params = to_cpu(params)
+    cpu_params = _to_cpu(params)
     t0 = time.perf_counter()
     cpu, cpu_g, _ = loss_and_grads(cpu_params, cfg, rt,
                                    torch.from_numpy(toks),
@@ -2545,7 +2624,8 @@ def coded_tile_path(torch, tb, dev) -> dict:
 
 class LaunchRecorder(Recorder):
     """A ``Recorder`` that also holds every ``lm_apply`` call's launches of
-    each counted wrapper to ``want``; ``start()`` zeroes the counts."""
+    each counted wrapper to ``want`` (a dict, or a function of the call's
+    kind and tokens giving one); ``start()`` zeroes the counts."""
 
     def __init__(self, torch, fns, counters: dict, want: dict):
         super().__init__(torch, fns, keep=False)
@@ -2562,9 +2642,9 @@ class LaunchRecorder(Recorder):
         now = {n: f.launches for n, f in self.counters.items()}
         got = {n: now[n] - self.last[n] for n in now}
         self.last = now
-        if got != self.want:
-            fail(f"an lm_apply {kind} call launched {got}, expected "
-                 f"{self.want}")
+        want = self.want(kind, tokens) if callable(self.want) else self.want
+        if got != want:
+            fail(f"an lm_apply {kind} call launched {got}, expected {want}")
         self.kinds.add(kind)
 
 
@@ -3084,6 +3164,770 @@ def paper_tables(torch, dev) -> list:
                  "area from the model; the paper: 17.1 % power at VBL 13, "
                  "0.35 dB): " + "; ".join(parts))
     return lines
+
+
+# ------------------- slice 7: deepseek-v3, MoE and multi-head latent attention
+DS_SLOTS, DS_LEN = 8, 512
+DS_REQUESTS, DS_NEW = 16, 32
+DS_PROMPT = (32, 129)            # prompt lengths drawn from 32..128
+DS_NOISE = dict(mode="noise", mul="bbm0", wl=16, param=13, apply_to="mlp",
+                use_pallas=True)
+DS_BITEXACT = dict(mode="bitexact", mul="bbm0", wl=16, param=13,
+                   apply_to="all")
+# the card-against-CPU check: the routed experts cut to 16, bitexact
+# attention on the latent code cache, the MLPs exact (the CPU's plain dot
+# form at d_ff 18432 would take minutes; the kernels' own checks hold B2)
+DS_CPU_EXPERTS, DS_CPU_LEN = 16, 64
+DS_CPU_AMM = dict(DS_BITEXACT, apply_to="attn")
+# the MoE layer's output from the card's input and routing: f32 products
+# of K = 7168 and 2048 terms summed in another order, then a weighted sum
+# of 8; 2^-12 of the largest element is about 250 times what such sums
+# move by at these widths
+DS_LAYER_RTOL = 2.0 ** -12
+# the first step's B2 calls, held against the plain version: this many
+# sampled columns of each bbm_dot_scaled call (a column depends on its own
+# weight column alone), this many slices of each batched coded call
+DS_SAMPLE_COLS, DS_SAMPLE_SLICES = 512, 32
+# the plain versions at the full decode shapes run in blocks of this many
+# weight columns or slices (their digit planes take 32 bytes a code)
+DS_PLAIN_COLS, DS_PLAIN_SLICES = 1024, 128
+
+
+def deepseek_config(amm: dict, layers: int = 2, experts=None):
+    """deepseek-v3-671b at full width (d_model 7168, 128 heads, q_lora
+    1536, kv_lora 512, rope 64, nope 128, v 128, vocab 129,280, dense
+    d_ff 18,432, 256 routed experts of width 2,048, top-8, 1 shared),
+    cut to ``layers`` (the first dense, the rest MoE) and without the MTP
+    head, which serving never reads; ``experts`` cuts the routed
+    experts."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import AmmConfig
+    kw = dict(n_layers=layers, first_k_dense=1, mtp_depth=0,
+              amm=AmmConfig(**amm))
+    if experts is not None:
+        kw["n_experts"] = experts
+    return dataclasses.replace(get_arch("deepseek-v3-671b"), **kw)
+
+
+def ds_coded_per_call(cfg, kind: str, s: int, max_len: int) -> int:
+    """``bbm_dot_coded_batched`` launches an ``lm_apply`` call makes with
+    MLA's products on the amm datapath, as the code takes them: a decode
+    one score and one value launch a layer (``decode_attention``'s two
+    ``amm_dot`` calls); a prefill of ``s`` tokens against the cache one
+    pair a layer for every (q block, KV block) of the chunked schedule,
+    bq = min(512, s), bk = min(1024, max_len), over the whole cache."""
+    if kind == "decode":
+        return 2 * cfg.n_layers
+    bq, bk = min(512, s), min(1024, max_len)
+    return 2 * cfg.n_layers * (-(-s // bq)) * (-(-max_len // bk))
+
+
+def ds_b2_capture_check(torch, tb, calls, rng) -> tuple:
+    """The first step's B2 calls against their plain versions on their own
+    inputs: ``DS_SAMPLE_COLS`` sampled columns of each ``bbm_dot_scaled``
+    call (the plain version on the card), ``DS_SAMPLE_SLICES`` sampled
+    slices of each batched coded call (on CPU copies); bit for bit.
+    Returns (calls checked, max abs error)."""
+    worst = 0.0
+    for name, args, kw, out in calls:
+        if name == "bbm_dot_scaled":
+            x, w = args
+            n = w.shape[1]
+            cols = torch.as_tensor(np.sort(rng.choice(
+                n, min(DS_SAMPLE_COLS, n), replace=False)), device=w.device)
+            want = tb.bbm_dot_scaled_plain(x, w[:, cols].contiguous(), **kw)
+            got = out[:, cols]
+        elif name == "bbm_dot_coded_batched":
+            a, s_a, b, s_b = args
+            sl = torch.as_tensor(np.sort(rng.choice(
+                a.shape[0], min(DS_SAMPLE_SLICES, a.shape[0]),
+                replace=False)), device=a.device)
+            kw = {k: (v[sl].cpu() if torch.is_tensor(v) else v)
+                  for k, v in kw.items()}
+            want = tb.bbm_dot_coded_batched_plain(
+                a[sl].cpu(), s_a[sl].cpu(), b[sl].cpu(), s_b[sl].cpu(), **kw)
+            got = out[sl].cpu()
+        err = float((got.to(want.device) - want).abs().max())
+        if err != 0:
+            fail(f"a first-step {name} call at {tuple(args[0].shape)} x "
+                 f"{tuple(args[1].shape)} differs from its plain version "
+                 f"by {err}")
+        worst = max(worst, err)
+    return len(calls), worst
+
+
+def ds_serve(torch, dev, cfg, rt, params, counters, want, *, kv_codes,
+             first_step) -> dict:
+    """Serve ``DS_REQUESTS`` requests of ``DS_PROMPT`` prompt tokens and
+    ``DS_NEW`` new ones through the continuous Scheduler (``DS_SLOTS``
+    slots, max_len ``DS_LEN``), every ``lm_apply`` call's launches held
+    to ``want``.  ``first_step`` is a pair of functions, called just
+    before and just after the first step (the kernel captures)."""
+    from repro_torch.serve import Request, Scheduler, make_serve_fns
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    planes = rt.build_planes(cfg, params)
+    torch.cuda.synchronize()
+    planes_s = time.perf_counter() - t0
+    rec = LaunchRecorder(torch, make_serve_fns(
+        cfg, rt, amm_planes=planes, kv_codes=kv_codes), counters, want)
+    sched = Scheduler(cfg, rt, params, DS_SLOTS, DS_LEN,
+                      decode_fn=rec.decode, prefill_fn=rec.prefill,
+                      continuous=True, kv_codes=kv_codes, device=dev)
+    rng = np.random.default_rng(21)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, int(rng.integers(*DS_PROMPT))).tolist(),
+        max_new=DS_NEW) for i in range(DS_REQUESTS)]
+    for r in reqs:
+        sched.submit(r)
+    step_ms, prefill_ms = [], []
+    rec.start()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first_step[0]()
+    while True:
+        pre = sched.stats["prefills"]
+        ts = time.perf_counter()
+        n = sched.step()
+        if sched.stats["steps"] == 1 and first_step is not None:
+            torch.cuda.synchronize()
+            first_step[1]()
+            first_step = None
+        if not n:
+            break
+        (prefill_ms if sched.stats["prefills"] != pre else step_ms).append(
+            (time.perf_counter() - ts) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = sched.stats
+    calls = st["steps"] + st["prefills"]
+    if rec.calls != calls or rec.kinds != {"prefill", "decode"}:
+        fail(f"the Scheduler made {rec.calls} lm_apply calls ({rec.kinds}),"
+             f" its stats say {calls}")
+    if st["failed"] or st["deadline_expired"] or st["completed"] != len(reqs):
+        fail(f"the Scheduler did not serve every request: {st}")
+    if any(r.error or len(r.out) != DS_NEW for r in reqs):
+        fail("a request ended early or failed")
+    if int(rec.bad) != 0:
+        fail(f"{int(rec.bad)} non-finite logits serving {cfg.name}")
+    step_ms.sort()
+    return {"stats": st, "calls": calls, "wall_s": wall, "step_ms": step_ms,
+            "prefill_ms": sorted(prefill_ms),
+            "tokens": sum(len(r.out) for r in reqs),
+            "prompt_lens": sorted({len(r.prompt) for r in reqs}),
+            "prompt_tokens": sum(len(r.prompt) for r in reqs),
+            "launches": {n: f.launches for n, f in counters.items()},
+            "planes": planes, "planes_s": planes_s}
+
+
+def ds_serve_line(name: str, res: dict, per_call: str) -> str:
+    st, steps = res["stats"], res["step_ms"]
+    return (f"deepseek-v3 {name}: {DS_SLOTS} slots, max_len {DS_LEN}, "
+            f"{len(steps)} pure decode steps of {st['steps']}, "
+            f"{st['prefills']} prefills, {res['tokens']} tokens generated "
+            f"({res['prompt_tokens']} prompt tokens) in {res['wall_s']:.3f} "
+            f"s: {res['tokens'] / res['wall_s']:.6g} generated tokens/s; "
+            f"decode step ms p50 {steps[len(steps) // 2]:.3f}, p90 "
+            f"{steps[int(len(steps) * 0.9)]:.3f}; a step with a prefill "
+            f"p50 {res['prefill_ms'][len(res['prefill_ms']) // 2]:.3f}; "
+            f"launches {res['launches']} over {res['calls']} lm_apply calls, "
+            f"each call as predicted ({per_call}); nothing failed; all "
+            f"logits finite; weight planes {res['planes_s']:.3f} s")
+
+
+def ds_cut_experts(params, n: int):
+    """The parameters with the routed experts cut to the first ``n``
+    (views): the router's columns and the expert stacks."""
+    moe = params["layers"]["moe"]
+    cut = dict(moe, router=moe["router"][..., :n], w_gate=moe["w_gate"][:, :n],
+               w_up=moe["w_up"][:, :n], w_down=moe["w_down"][:, :n])
+    return dict(params, layers=dict(params["layers"], moe=cut))
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+class MoeRecorder:
+    """Wraps ``models.transformer``'s ``moe_apply`` while on: each MoE
+    layer call's flattened input and output, and its routing recomputed
+    from the same input on the same device (router logits, gate weights,
+    experts, capacity, ``_dispatch``'s two outputs), kept on the CPU."""
+
+    def __init__(self, tr, moe):
+        self.tr, self.moe, self.log = tr, moe, []
+        self.orig = tr.moe_apply
+        tr.moe_apply = self._call
+
+    def _call(self, p, x, cfg, **kw):
+        y, aux = self.orig(p, x, cfg, **kw)
+        b, s, d = x.shape
+        xf = x.reshape(b * s, d)
+        lg, gv, gi, _ = self.moe.moe_route(p, xf, cfg)
+        cap = self.moe.moe_capacity(cfg, b, s)
+        st, ts = self.moe._dispatch(gi.reshape(-1), cfg.top_k, b * s,
+                                    cfg.n_experts, cap)
+        self.log.append(dict(x=xf.cpu(), y=y.reshape(b * s, d).cpu(),
+                             logits=lg.cpu(), vals=gv.cpu(), idx=gi.cpu(),
+                             cap=cap, dispatch=(st.cpu(), ts.cpu())))
+        return y, aux
+
+    def close(self):
+        self.tr.moe_apply = self.orig
+
+
+class RouteLedger:
+    """Per serving slot, the first position a routing flip has reached;
+    the positions before it may be compared.
+
+    ``layer(ref, got, rows, positions, k)`` takes one MoE layer call's
+    router logits on both sides, token t at (rows[t], positions[t]).  A
+    comparable token's logits must agree within ``rtol`` of the largest,
+    ``scale``: a fault upstream of the router fails here.  A top-k set
+    can then differ only where the affinities moved by half the
+    reference's gap between its k-th and (k+1)-th affinity, and they move
+    by at most a quarter of the logits' move, so only a near-tie (gap
+    below ``rtol * scale / 2``) flips.  A flip is counted, its gap kept,
+    and its slot marked from that position on.  ``reset(slot)`` starts a
+    new request there."""
+
+    def __init__(self, rtol: float):
+        self.rtol = rtol
+        self.first = {}
+        self.flips = 0
+        self.tokens = 0
+        self.gaps = []
+
+    def reset(self, row) -> None:
+        self.first.pop(row, None)
+
+    def clean(self, rows, positions) -> np.ndarray:
+        return np.array([p < self.first.get(r, np.inf)
+                         for r, p in zip(rows, positions)], bool)
+
+    def layer(self, ref, got, rows, positions, k: int) -> None:
+        ok = self.clean(rows, positions)
+        ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+        if not ok.any():
+            return
+        err = np.abs(ref - got)[ok].max()
+        scale = np.abs(ref[ok]).max()
+        if err > self.rtol * scale:
+            fail(f"router logits off the card's by {err} (largest {scale}) "
+                 f"where no routing flip has reached")
+        pr, pg = 1 / (1 + np.exp(-ref)), 1 / (1 + np.exp(-got))
+        order = np.argsort(-pr, axis=-1, kind="stable")
+        want = np.sort(order[:, :k], axis=-1)
+        have = np.sort(np.argsort(-pg, axis=-1, kind="stable")[:, :k],
+                       axis=-1)
+        srt = np.take_along_axis(pr, order, axis=-1)
+        for t in np.flatnonzero(ok):
+            self.tokens += 1
+            if (want[t] != have[t]).any():
+                self.flips += 1
+                self.gaps.append(float(srt[t, k - 1] - srt[t, k]))
+                self.first[rows[t]] = min(self.first.get(rows[t], np.inf),
+                                          positions[t])
+
+
+def ds_cpu_check(torch, dev, params) -> dict:
+    """Two requests (a prefill and two decode steps each) on the card and
+    on the CPU port, ``DS_CPU_EXPERTS`` routed experts, bitexact attention
+    from the latent code cache.  Layer by layer from the card's MoE input:
+    the CPU's router logits within twice the f32 summation error's scale,
+    sqrt(K) u sum|x_k w_k| (rounding errors of K terms summed in any order
+    grow as their square root; the worst case, K u sum|x_k w_k|, is 85
+    times wider at K = 7168),
+    the CPU's experts equal to the card's at every token whose gap between
+    the k-th and (k+1)-th affinity exceeds twice the affinities' tolerance
+    (the others are near-ties, counted and reported), ``_dispatch``'s
+    outputs on the card's decisions equal on both devices
+    (``torch.equal``), and the layer output from the card's routing within
+    ``DS_LAYER_RTOL``.  Then the CPU serves the same
+    requests teacher-forced on the card's logits, its MoE layers held to
+    the card's by a ``RouteLedger``: router logits within ``LOGIT_RTOL``
+    (so a differing top-k set can only be a near-tie: counted, and the
+    rest of that slot's request left out), and the logits within
+    ``LOGIT_RTOL`` at every position no flip has reached."""
+    import repro_torch.models.moe as moe
+    import repro_torch.models.transformer as tr
+    from repro_torch.models import ModelRuntime
+    from repro_torch.models.moe import mlp_apply
+    from repro_torch.serve import Request, Scheduler, make_serve_fns
+    cfg = deepseek_config(DS_CPU_AMM, experts=DS_CPU_EXPERTS)
+    rt = ModelRuntime.build(cfg)
+    card_params = ds_cut_experts(params, DS_CPU_EXPERTS)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (24, 32)]
+    state = {"i": 0, "moe": 0, "worst": 0.0, "compared": 0}
+
+    def serve(p, device, fns):
+        sched = Scheduler(cfg, rt, p, 2, DS_CPU_LEN, decode_fn=fns[1],
+                          prefill_fn=fns[0], continuous=True, kv_codes=True,
+                          device=device)
+        state["sched"] = sched
+        for i, pr in enumerate(prompts):
+            sched.submit(Request(rid=i, prompt=pr, max_new=3))
+        while sched.step():
+            pass
+        return sched.stats
+
+    card_rec = MoeRecorder(tr, moe)
+    try:
+        rec = Recorder(torch, make_serve_fns(cfg, rt, kv_codes=True),
+                       keep=True)
+        card_stats = serve(card_params, dev, (rec.prefill, rec.decode))
+        torch.cuda.synchronize()
+    finally:
+        card_rec.close()
+    t0 = time.perf_counter()
+    cpu_params = _to_cpu(card_params)
+    copy_s = time.perf_counter() - t0
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    cpu_moe = [{n: (v[j] if not isinstance(v, dict)
+                    else {m: w[j] for m, w in v.items()})
+                for n, v in cpu_params["layers"]["moe"].items()}
+               for j in range(n_moe)]
+    k, u = cfg.top_k, 2.0 ** -24
+    ties, tokens, worst_lg, worst_y = 0, 0, 0.0, 0.0
+    for i, c in enumerate(card_rec.log):
+        p_cpu = cpu_moe[i % n_moe]
+        x = c["x"]
+        lg, _, idx, _ = moe.moe_route(p_cpu, x, cfg)
+        bound = 2 * x.shape[1] ** 0.5 * u * (
+            x.double().abs() @ p_cpu["router"].double().abs())
+        d_lg = (lg.double() - c["logits"].double()).abs()
+        if bool((d_lg > bound).any()):
+            fail(f"router logits off the card's by {float(d_lg.max())} "
+                 f"beyond twice the f32 summation error's scale")
+        worst_lg = max(worst_lg, float((d_lg / bound).max()))
+        aff = torch.sort(torch.sigmoid(c["logits"].double()), dim=-1,
+                         descending=True).values
+        tol_aff = bound.max(dim=-1).values / 4 + 2.0 ** -22
+        near = (aff[:, k - 1] - aff[:, k]) <= 2 * tol_aff
+        ties += int(near.sum())
+        tokens += int(near.numel())
+        if not torch.equal(torch.sort(idx[~near], -1).values,
+                           torch.sort(c["idx"][~near], -1).values):
+            fail("the CPU routed a token away from the card's experts where "
+                 "no near-tie explains it")
+        disp = moe._dispatch(c["idx"].reshape(-1), k, x.shape[0],
+                             cfg.n_experts, c["cap"])
+        if not all(torch.equal(a, b) for a, b in zip(disp, c["dispatch"])):
+            fail("_dispatch's outputs on the card's decisions differ between "
+                 "the CPU and the card")
+        y = moe.moe_combine(p_cpu, x, c["vals"], c["idx"], cfg, c["cap"])
+        y = y + mlp_apply(p_cpu["shared"], x)
+        err = float((y - c["y"]).abs().max())
+        scale = float(c["y"].abs().max())
+        worst_y = max(worst_y, err / scale)
+        if err > DS_LAYER_RTOL * scale:
+            fail(f"the MoE layer's output on the CPU is off the card's by "
+                 f"{err} (scale {scale}) from the card's input and routing")
+    # the CPU serves the same requests, teacher-forced on the card's logits
+    cpu_rec = MoeRecorder(tr, moe)
+    ledger = RouteLedger(LOGIT_RTOL)
+    fns = make_serve_fns(cfg, rt, kv_codes=True)
+
+    def forced(kind, logits, rows, positions):
+        """Hold this call's MoE layers to the card's, then its logits (the
+        last position of each row) wherever no flip has reached."""
+        want_kind, _, _, want = rec.log[state["i"]]
+        state["i"] += 1
+        if kind != want_kind:
+            fail(f"the CPU made a {kind} where the card made a {want_kind}")
+        if kind == "prefill":
+            ledger.reset(rows[0])
+        for j in range(state["moe"], len(cpu_rec.log)):
+            ledger.layer(card_rec.log[j]["logits"], cpu_rec.log[j]["logits"],
+                         rows, positions, k)
+        state["moe"] = len(cpu_rec.log)
+        last = np.array([i for i in range(len(rows))
+                         if i == len(rows) - 1 or rows[i + 1] != rows[i]])
+        ok = torch.from_numpy(ledger.clean(rows[last], positions[last]))
+        if bool(ok.any()):
+            got, ref = logits.float()[ok], want[ok]
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            state["worst"] = max(state["worst"], err / scale)
+            if err > LOGIT_RTOL * scale:
+                fail(f"CPU {kind} logits off the card's by {err} (largest "
+                     f"{scale}) where no routing flip has reached")
+            state["compared"] += int(ok.sum())
+        return want
+
+    def prefill(p, t, c):
+        logits, c = fns[0](p, t, c)
+        slot = next(i for i, r in enumerate(state["sched"].slots)
+                    if r is not None and not r.out)
+        s = t.shape[1]
+        return forced("prefill", logits, np.full(s, slot),
+                      np.arange(s)), c
+
+    def decode(p, t, c, q):
+        logits, c = fns[1](p, t, c, q)
+        b = t.shape[0]
+        return forced("decode", logits, np.arange(b),
+                      np.broadcast_to(np.asarray(torch.as_tensor(q).cpu()),
+                                      (b,))), c
+    try:
+        t0 = time.perf_counter()
+        cpu_stats = serve(cpu_params, "cpu", (prefill, decode))
+        cpu_s = time.perf_counter() - t0
+    finally:
+        cpu_rec.close()
+    if cpu_stats != card_stats or state["i"] != len(rec.log) \
+            or len(cpu_rec.log) != len(card_rec.log):
+        fail(f"the CPU replay made {state['i']} calls of the card's "
+             f"{len(rec.log)}; stats {cpu_stats} vs {card_stats}")
+    if state["compared"] == 0:
+        fail("routing flips left no logits of the CPU replay to compare")
+    return {"calls": len(rec.log), "layers": len(card_rec.log),
+            "tokens": tokens, "ties": ties, "worst_logits": worst_lg,
+            "worst_y": worst_y, "worst": state["worst"],
+            "moved": ledger.flips, "replay_tokens": ledger.tokens,
+            "flip_gap": max(ledger.gaps, default=0.0),
+            "compared": state["compared"], "copy_s": copy_s, "cpu_s": cpu_s}
+
+
+def ds_expert_timing(torch, dev, cfg, params) -> str:
+    """The routed experts of one dropless decode step (8 tokens, capacity
+    8, all 256 experts): the three batched products at (E, 8, d) against
+    the bound of reading every expert's weights once, and the whole
+    ``moe_combine`` (dispatch, products, combine)."""
+    from repro_torch.models.moe import moe_combine, moe_route
+    p = {k: (v[0] if not isinstance(v, dict) else v)
+         for k, v in params["layers"]["moe"].items()}
+    e, d, ff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    xe = torch.randn((e, DS_SLOTS, d), generator=gen, device=dev)
+    h = torch.randn((e, DS_SLOTS, ff), generator=gen, device=dev)
+
+    def products():
+        torch.bmm(xe, p["w_gate"])
+        torch.bmm(xe, p["w_up"])
+        torch.bmm(h, p["w_down"])
+    bmm_ms = cuda_ms(torch, products, 5)
+    xf = torch.randn((DS_SLOTS, d), generator=gen, device=dev)
+    _, gv, gi, _ = moe_route(p, xf, cfg)
+    combine_ms = cuda_ms(torch, lambda: moe_combine(p, xf, gv, gi, cfg,
+                                                    DS_SLOTS), 5)
+    nbytes = 3 * e * d * ff * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    return (f"deepseek-v3 routed experts at a decode step (8 tokens, "
+            f"capacity 8, {e} experts, dropless): the three f32 torch.bmm "
+            f"products {bmm_ms:.3f} ms (CUDA events), reading every expert's "
+            f"weights, {nbytes / 1e9:.2f} GB, bound {bound:.3f} ms (bytes; "
+            f"bound / time {bound / bmm_ms:.4g}); moe_combine with its "
+            f"dispatch and combine {combine_ms:.3f} ms")
+
+
+def ds_kernel_timing(torch, dev, tb, qm, cfg, rt_noise, params, planes,
+                     launches) -> tuple:
+    """Each kernel of the path at its new shapes: ``quant_matmul`` and
+    ``bbm_dot_scaled`` at the dense MLP's decode shapes (8, 7168) x (7168,
+    18432) and (8, 18432) x (18432, 7168), on the prefix layer's weights
+    (528 MB each, read from device memory), and ``bbm_dot_coded_batched``
+    at MLA's decode shapes (8 slots x 128 heads: scores (1, 192) x (192,
+    512), values (1, 512) x (512, 128)): device ms, plain ms, bound, one
+    f32 PyTorch product of the same shapes as a yardstick.  Returns
+    (printed lines, kernel JSON entries)."""
+    from repro_torch.kernels.ref import amm_quantize_slices, amm_scale
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    mlp = params["dense_prefix"][0]["mlp"]
+    codes = planes["dense_prefix"][0]["mlp"]
+    lines, rows = [], {"quant_matmul": [], "bbm_dot_scaled": [],
+                       "bbm_dot_coded_batched": []}
+    for key in ("w_gate", "w_down"):
+        w = mlp[key]
+        k, n = w.shape
+        x = torch.randn((8, k), generator=gen, device=dev)
+        sx, sw = amm_scale(x, 16), amm_scale(w, 16)
+        mu, sigma = rt_noise.amm.mu, rt_noise.amm.sigma
+        run = lambda: qm.quant_matmul(x, w, sx, sw, mu, sigma,  # noqa: E731
+                                      wl=16, seed=7)
+        plain = lambda: qm.quant_matmul_plain(  # noqa: E731
+            x, w, sx, sw, mu, sigma, wl=16, seed=7, bm=128, bk=512, bn=128)
+        ms, how = launch_ms(torch, run, 20, QM_KERNELS)
+        plain_ms = cuda_ms(torch, plain, 2)
+        lib_ms = cuda_ms(torch, lambda: x @ w, 20)
+        got, want = run(), plain()
+        tol = qm.quant_matmul_tolerance(x, w, sx, sw, mu, sigma, wl=16,
+                                        bk=512)
+        err = (got.double() - want.double()).abs()
+        if bool((err > tol).any()):
+            fail(f"quant_matmul at (8, {k}) x ({k}, {n}) is off its plain "
+                 f"version beyond the bound")
+        bound, by = qm_bound_ms(8, k, n)
+        rows["quant_matmul"].append(dict(
+            ms=ms, how=how, plain_ms=plain_ms, bound=bound, by=by,
+            lib_ms=lib_ms, err=float(err.max())))
+        route = qm.quant_matmul_plan(8, k, n, 512).route
+        lines.append(
+            f"quant_matmul at (8, {k}) x ({k}, {n}), {route} "
+            f"route: {ms:.6f} ms ({how}), plain {plain_ms:.6f} ms, bound "
+            f"{bound:.6f} ms ({by}; bound / time {bound / ms:.4g}), f32 "
+            f"x @ w yardstick {lib_ms:.6f} ms, max abs error vs plain "
+            f"{float(err.max())!r} within quant_matmul_tolerance")
+        wc = codes[key]["codes"]
+        xc = torch.randint(-32768, 32768, (8, k), generator=gen, device=dev,
+                           dtype=torch.int32)
+        run = lambda: tb.bbm_dot_scaled(xc, wc, wl=16, vbl=13,  # noqa: E731
+                                        kind=0)
+        # the plain version over blocks of DS_PLAIN_COLS columns (each
+        # column depends on its own weight column alone): one call would
+        # hold 17 GB of digit planes beside the 56 GB of weights
+        plain = lambda: torch.cat([  # noqa: E731
+            tb.bbm_dot_scaled_plain(xc, wc[:, j:j + DS_PLAIN_COLS]
+                                    .contiguous(), wl=16, vbl=13, kind=0)
+            for j in range(0, n, DS_PLAIN_COLS)], dim=1)
+        ms, how = launch_ms(torch, run, 20, TRAIN_KERNELS["bbm_dot_scaled"])
+        got = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - want).abs().max())
+        del want
+        if err != 0:
+            fail(f"bbm_dot_scaled at (8, {k}) x ({k}, {n}) differs from its "
+                 f"plain version by {err}")
+        xf = xc.float()
+        lib_ms = cuda_ms(torch, lambda: xf @ w, 20)
+        bound, by = dot_scaled_bound_ms(8, k, n)
+        rows["bbm_dot_scaled"].append(dict(
+            ms=ms, how=how, plain_ms=plain_ms, bound=bound, by=by,
+            lib_ms=lib_ms, err=err))
+        lines.append(
+            f"bbm_dot_scaled at (8, {k}) x ({k}, {n}), route "
+            f"{tb.bbm_dot_route(16, 13, 0)}: {ms:.6f} ms ({how}), plain "
+            f"{plain_ms:.3f} ms (host clock, in {DS_PLAIN_COLS}-column "
+            f"blocks), bound {bound:.6f} ms "
+            f"({by}; bound / time {bound / ms:.4g}), f32 x @ w yardstick "
+            f"{lib_ms:.6f} ms; bit-equal to the plain version")
+    bt = DS_SLOTS * cfg.n_heads
+    qk_d = cfg.qk_nope_dim + cfg.qk_rope_dim
+    shapes = {"qk": (qk_d, DS_LEN), "pv": (DS_LEN, cfg.v_head_dim)}
+    for name, (k, n) in shapes.items():
+        a = torch.randn((bt, 1, 1, k), generator=gen, device=dev)
+        if name == "pv":
+            a = torch.softmax(a * 4, dim=-1)
+        b = torch.randn((bt, 1, k, n), generator=gen, device=dev)
+        aq, s_a = amm_quantize_slices(a, 16)
+        bq, s_b = amm_quantize_slices(b, 16)
+        ops = (aq.contiguous(), s_a, bq, s_b[..., None])
+        kw = dict(wl=16, vbl=13, kind=0, block=n, per="column")
+        run = lambda: tb.bbm_dot_coded_batched(*ops, **kw)  # noqa: E731
+        # the plain version over blocks of DS_PLAIN_SLICES slices (one call
+        # would hold 13 GB of digit planes)
+        plain = lambda: torch.cat([  # noqa: E731
+            tb.bbm_dot_coded_batched_plain(
+                *(t[j:j + DS_PLAIN_SLICES] for t in ops), **kw)
+            for j in range(0, bt, DS_PLAIN_SLICES)])
+        ms, how = launch_ms(torch, run, 50, CODED_KERNEL)
+        plain_ms = cuda_ms(torch, plain, 1)
+        err = float((run() - plain()).abs().max())
+        if err != 0:
+            fail(f"bbm_dot_coded_batched at MLA's {name} shape differs from "
+                 f"its plain version by {err}")
+        af = a.reshape(bt, 1, k)
+        bf = b.reshape(bt, k, n)
+        lib_ms = cuda_ms(torch, lambda: torch.bmm(af, bf), 50)
+        bound, by = dense_coded_bound_ms(bt, 1, k, n)
+        route = tb.bbm_coded_route(16, 13, 0, "column", n)
+        rows["bbm_dot_coded_batched"].append(dict(
+            ms=ms, how=how, plain_ms=plain_ms, bound=bound, by=by,
+            lib_ms=lib_ms, err=err))
+        lines.append(
+            f"bbm_dot_coded_batched at MLA's decode {name} ({bt} slices of "
+            f"(1, {k}) x ({k}, {n}), route {route}): {ms:.6f} ms ({how}), "
+            f"plain {plain_ms:.6f} ms (in {DS_PLAIN_SLICES}-slice blocks), "
+            f"bound {bound:.6f} ms ({by}; bound / time {bound / ms:.4g}), "
+            f"f32 torch.bmm yardstick {lib_ms:.6f} ms; bit-equal to the "
+            f"plain version")
+    entries = []
+    names = {"quant_matmul": ("quant_matmul (deepseek-v3 decode)", QM_SOURCE,
+                              REPLACES["quant_matmul"]),
+             "bbm_dot_scaled": ("bbm_dot_scaled (deepseek-v3 decode)",
+                                MMA_SOURCE, REPLACES["bbm_dot_scaled"]),
+             "bbm_dot_coded_batched": ("bbm_dot_coded_batched (MLA decode)",
+                                       CODED_SOURCE, CODED_REPLACES)}
+    for key, (name, source, replaces) in names.items():
+        r = rows[key]
+        mean = lambda f: sum(x[f] for x in r) / len(r)  # noqa: E731
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[key],
+            "max_abs_err": max(x["err"] for x in r), "ms": mean("ms"),
+            "plain_ms": mean("plain_ms"), "bound_ms": mean("bound"),
+            "bound_by": r[0]["by"], "library_ms": None,
+            "matmul_ms": mean("lib_ms"),
+            "timed_by": ", ".join(sorted({x["how"] for x in r})),
+            "per_shape": [{k2: x[k2] for k2 in ("ms", "bound", "plain_ms",
+                                                  "lib_ms")} for x in r]})
+    return lines, entries
+
+
+def ds_window(torch, dev, cfg, rt, params, kv_codes, name, kernels) -> list:
+    """A profiled decode window of ``cfg`` with 8 residents (64-token
+    prompts), after 10 warm steps: ``decode_window``'s lines."""
+    from repro_torch.serve import Request, Scheduler
+    sched = Scheduler(cfg, rt, params, DS_SLOTS, DS_LEN, continuous=True,
+                      kv_codes=kv_codes, device=dev)
+    rng = np.random.default_rng(24)
+    for i in range(DS_SLOTS):
+        sched.submit(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab, 64).tolist(), max_new=40))
+    for _ in range(10):
+        sched.step()
+    lines, idle = decode_window(torch, sched, name, kernels,
+                                prefills=DS_SLOTS)
+    return lines, idle
+
+
+def deepseek_phase(torch, dev, tb, qm, nm, card: str) -> tuple:
+    """Slice 7: deepseek-v3 at full width (2 layers), served in noise
+    mode on the fused kernel from the float latent cache and bitexact from
+    the latent code cache; returns (printed lines, kernel entries)."""
+    import repro_torch.models.common as common
+    from repro_torch.models import ModelRuntime, lm_init
+    lines = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    cfg_n = deepseek_config(DS_NOISE)
+    cfg_b = deepseek_config(DS_BITEXACT)
+    t0 = time.perf_counter()
+    params = lm_init(cfg_n, 0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in _leaves(params))
+    lines.append(
+        f"deepseek-v3 at full width, n_layers 2 (first_k_dense 1, one MoE "
+        f"layer), mtp_depth 0: {n_params} parameters, "
+        f"{4 * n_params / 1e9:.2f} GB in f32, seeded on the card in "
+        f"{time.perf_counter() - t0:.2f} s ({base / 1e9:.2f} GB allocated "
+        f"before)")
+    counters = {"quant_matmul": qm.quant_matmul,
+                "bbm_dot_scaled": tb.bbm_dot_scaled,
+                "bbm_dot_coded_batched": tb.bbm_dot_coded_batched,
+                "normal_draw": nm.normal_draw}
+    per_layer_mlp = 3 * (cfg_n.first_k_dense + (cfg_n.n_layers
+                                                - cfg_n.first_k_dense)
+                         * min(cfg_n.n_shared_experts, 1))
+
+    # (a) noise mode on the fused kernel, the float latent cache
+    rt_n = ModelRuntime.build(cfg_n)
+    want_n = {"quant_matmul": per_layer_mlp, "bbm_dot_scaled": 0,
+              "bbm_dot_coded_batched": 0, "normal_draw": 0}
+    captured = {}
+    with KernelCapture(common) as cap:
+        res_n = ds_serve(
+            torch, dev, cfg_n, rt_n, params, counters, want_n,
+            kv_codes=False, first_step=(
+                lambda: setattr(cap, "calls", []),
+                lambda: captured.__setitem__("qm", cap.take())))
+    n_qm, qm_worst, qm_err = qm_capture_check(torch, qm, captured.pop("qm"))
+    if n_qm != 2 * per_layer_mlp:
+        fail(f"the first step captured {n_qm} quant_matmul calls, expected "
+             f"{per_layer_mlp} of a prefill and {per_layer_mlp} of a decode")
+    lines.append(ds_serve_line(
+        "noise (bbm0 WL 16 VBL 13, the fused kernel, float latent cache)",
+        res_n, f"{per_layer_mlp} quant_matmul: 3 for the prefix MLP, 3 for "
+        f"the shared expert"))
+    lines.append(f"deepseek-v3 noise: the first step's {n_qm} quant_matmul "
+                 f"calls within the bound of the plain version (worst "
+                 f"error/bound {qm_worst:.3g}, max abs error {qm_err!r})")
+
+    # (b) bitexact from the latent code cache
+    rt_b = ModelRuntime.build(cfg_b)
+    prefill_counts = {}
+
+    def want_b(kind, tokens):
+        s = tokens.shape[1]
+        coded = ds_coded_per_call(cfg_b, kind, s, DS_LEN)
+        if kind == "prefill":
+            prefill_counts[s] = coded
+        return {"quant_matmul": 0, "bbm_dot_scaled": per_layer_mlp,
+                "bbm_dot_coded_batched": coded, "normal_draw": 0}
+    with KernelCapture(common) as cap:
+        res_b = ds_serve(
+            torch, dev, cfg_b, rt_b, params, counters, want_b, kv_codes=True,
+            first_step=(lambda: setattr(cap, "calls", []),
+                        lambda: captured.__setitem__("b2", cap.take())))
+    n_b2, b2_err = ds_b2_capture_check(torch, tb, captured.pop("b2"),
+                                       np.random.default_rng(25))
+    lines.append(ds_serve_line(
+        "bitexact kv-codes (bbm0 WL 16 VBL 13, apply_to=all, latent code "
+        "cache)", res_b,
+        f"{per_layer_mlp} bbm_dot_scaled; bbm_dot_coded_batched "
+        f"{ds_coded_per_call(cfg_b, 'decode', 1, DS_LEN)} a decode (scores "
+        f"and values x 2 layers) and, a prefill, by prompt length "
+        f"{dict(sorted(prefill_counts.items()))}"))
+    lines.append(f"deepseek-v3 bitexact: the first step's {n_b2} B2 calls "
+                 f"(bbm_dot_scaled on {DS_SAMPLE_COLS} sampled columns each, "
+                 f"bbm_dot_coded_batched on {DS_SAMPLE_SLICES} sampled "
+                 f"slices each) bit-equal to their plain versions "
+                 f"(max abs error {b2_err!r})")
+    from repro_torch.serve.kv_cache import memory_report
+    rep = memory_report(cfg_b, DS_SLOTS, DS_LEN, wl=16)
+    lines.append(
+        f"deepseek-v3 latent code cache at {DS_SLOTS} slots x {DS_LEN} "
+        f"positions, WL 16: codes {rep['code_bytes']} B, scales "
+        f"{rep['scale_bytes']} B, bf16 latent cache {rep['bf16_bytes']} B "
+        f"(ratio_total {rep['ratio_total']!r})")
+    torch.cuda.synchronize()
+    lines.append(f"deepseek-v3 peak allocated on the card: "
+                 f"{torch.cuda.max_memory_allocated(dev)} B "
+                 f"({torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB)")
+
+    # card against the CPU
+    chk = ds_cpu_check(torch, dev, params)
+    lines.append(
+        f"deepseek-v3 card vs CPU ({DS_CPU_EXPERTS} routed experts, bitexact "
+        f"attention from the latent code cache, MLPs exact; two requests of "
+        f"a prefill and two decode steps each, {chk['calls']} lm_apply "
+        f"calls): {chk['layers']} MoE layer calls from the card's input: "
+        f"router logits within {chk['worst_logits']:.3g} of twice the f32 "
+        f"summation error's scale; {chk['ties']} near-ties in {chk['tokens']} "
+        f"tokens; _dispatch's outputs equal; the layer output from the card's "
+        f"routing within {chk['worst_y']:.4g} of its largest (tolerance "
+        f"{DS_LAYER_RTOL}); the CPU's own teacher-forced run: router "
+        f"logits within {LOGIT_RTOL} of the card's on {chk['replay_tokens']} "
+        f"tokens, {chk['moved']} routed elsewhere at a near-tie (largest "
+        f"affinity gap {chk['flip_gap']:.3g}; the rest of that slot left "
+        f"out), the logits "
+        f"of {chk['compared']} rows within {chk['worst']:.4g} of the card's "
+        f"largest (tolerance {LOGIT_RTOL}); host copy {chk['copy_s']:.1f} "
+        f"s, CPU {chk['cpu_s']:.1f} s)")
+
+    # where a decode step's time goes, and the kernels at the new shapes
+    lines.append(ds_expert_timing(torch, dev, cfg_b, params))
+    win, idle_b = ds_window(torch, dev, cfg_b, rt_b, params, True,
+                            "bbm_dot_scaled", TRAIN_KERNELS["bbm_dot_scaled"])
+    lines += ["deepseek-v3 bitexact " + line.lstrip() for line in win]
+    win, idle_n = ds_window(torch, dev, cfg_n, rt_n, params, False,
+                            "quant_matmul", QM_KERNELS)
+    lines += ["deepseek-v3 noise " + line.lstrip() for line in win]
+    launches = {"quant_matmul": res_n["launches"]["quant_matmul"],
+                "bbm_dot_scaled": res_b["launches"]["bbm_dot_scaled"],
+                "bbm_dot_coded_batched":
+                    res_b["launches"]["bbm_dot_coded_batched"]}
+    k_lines, entries = ds_kernel_timing(torch, dev, tb, qm, cfg_b, rt_n,
+                                        params, res_b["planes"], launches)
+    lines += k_lines
+    for e in entries:
+        e["idle_share"] = idle_n if e["name"].startswith("quant") else idle_b
+    lines.append(f"deepseek-v3 phase on {card}")
+    return lines, entries
 
 
 def main() -> None:
@@ -3681,6 +4525,19 @@ def main() -> None:
                                               "lib_ms", "bound",
                                               "epi_bound")},
         "idle_share": n_idle})
+
+    # --------------------- slice 7: deepseek-v3 (MoE, latent attention)
+    # the earlier paths' models and caches go first: the full-width
+    # deepseek-v3 cut takes 56 GB of the card's 80
+    del params, res, res_p, sched, full
+    import gc
+    gc.collect()
+    t0 = time.perf_counter()
+    lines, entries = deepseek_phase(torch, dev, tb, qm, nm, gpu_line())
+    for line in lines:
+        print(line)
+    print(f"deepseek-v3 phase: {time.perf_counter() - t0:.1f} s")
+    kernels += entries
 
     print(f"gpu: {gpu_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -8,13 +8,15 @@ import importlib
 
 from .base import AmmConfig, ArchConfig, reduced
 
-_PORTED = {"qwen2-0.5b": "qwen2_0_5b"}
+_PORTED = {
+    "qwen2-0.5b": "qwen2_0_5b",
+    "qwen1.5-110b": "qwen1_5_110b",
+    "llama3.2-3b": "llama3_2_3b",
+    "yi-34b": "yi_34b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "grok-1-314b": "grok1_314b",
+}
 _NOT_PORTED = {
-    "qwen1.5-110b": "A7 (the other dense configs)",
-    "llama3.2-3b": "A7 (the other dense configs)",
-    "yi-34b": "A7 (the other dense configs)",
-    "deepseek-v3-671b": "A12 (MoE and MLA)",
-    "grok-1-314b": "A12 (MoE)",
     "mamba2-370m": "A12 (SSM)",
     "whisper-base": "A12 (encoder-decoder)",
     "chameleon-34b": "A12 (VLM)",

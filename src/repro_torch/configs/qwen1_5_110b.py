@@ -1,0 +1,9 @@
+"""Qwen1.5-110B: dense GQA with QKV bias [hf:Qwen]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen1.5-110b", family="dense",
+    n_layers=80, d_model=8192, n_heads=64, n_kv_heads=8,
+    head_dim=128, d_ff=49152, vocab=152064, qkv_bias=True,
+    rope_theta=1e6,
+)

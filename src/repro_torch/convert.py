@@ -57,14 +57,17 @@ def lm_params_from_numpy(tree, *, device=None, dtype=torch.float32):
 
     ``tree`` is ``repro.models.lm_init``'s nested dict with every leaf
     turned into a numpy array (e.g. ``jax.tree.map(np.asarray, params)``);
-    the keys and the layer-stacked shapes are the port's own, so the tree
-    is copied leaf for leaf onto ``device`` (the GPU unless told
-    otherwise).
+    the keys, the lists (a MoE model's ``dense_prefix``) and the
+    layer-stacked shapes are the port's own, so the tree is copied leaf
+    for leaf onto ``device`` (the GPU unless told otherwise).
     """
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device=dev, dtype=dtype)
                 for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [lm_params_from_numpy(v, device=dev, dtype=dtype)
+                for v in tree]
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(
         device=dev, dtype=dtype)
 

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from scipy.signal import remez
 
 from ..core.multipliers import MulSpec, mul
 from ..device import resolve_device
@@ -63,6 +62,7 @@ def design_lowpass(num_taps: int = NUM_TAPS,
     the paper's SNR_out of 25.7 dB (docs/filterbank.md §Testbed
     calibration).
     """
+    from scipy.signal import remez      # seconds to import: only here
     h = remez(num_taps, [0.0, PASS_EDGE, STOP_EDGE, 0.5], [1.0, 0.0],
               weight=[1.0, stop_weight])
     return h.astype(np.float64)

@@ -461,17 +461,10 @@ def quant_matmul(x, w, s_x, s_w, mu: float = 0.0, sigma: float = 0.0, *,
     _launch(x, w, sx, sw, out, mu, sigma, wl=wl, seed=seed, bm=bm, bk=bk,
             bn=bn, plan=quant_matmul_plan(m, k, n, bk))
     quant_matmul.launches += 1
-    if quant_matmul.capture is not None:
-        quant_matmul.capture.append(dict(
-            x=x, w=w, s_x=sx, s_w=sw, mu=mu, sigma=sigma, wl=wl, seed=seed,
-            bm=bm, bk=bk, bn=bn, out=out))
     return out
 
 
 quant_matmul.launches = 0
-# a list to record every launch's operands and output into (a check of
-# the main path against the plain version on the same inputs), or None
-quant_matmul.capture = None
 
 
 def hash_words(m: int, n: int, seed: int, *, bm: int, bn: int,

@@ -17,7 +17,8 @@ calibrated noise: bare, an f32 matmul of the codes and
 parameters are random, from a seeded generator.  Data and checkpoints as
 in the reference: the deterministic synthetic pipeline, a checkpoint
 directory that the loop resumes from (pass a fresh ``--ckpt-dir`` to
-start over).  A mesh other than 1 x 1 is the parallel item, ROADMAP A13.
+start over).  A mesh other than 1 x 1 is the parallel item, ROADMAP A13;
+a MoE arch (its auxiliary and MTP losses) is ROADMAP A16.
 """
 from __future__ import annotations
 
@@ -86,6 +87,10 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     cfg = get_arch(args.arch)
+    if cfg.family == "moe":
+        raise NotImplementedError(
+            f"training {args.arch!r} (the MoE family's moe_aux and MTP "
+            f"losses) is not ported yet (ROADMAP item A16)")
     if args.reduced:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(

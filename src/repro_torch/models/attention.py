@@ -1,7 +1,7 @@
-"""GQA attention: the float KV cache, the chunked schedule (exact and on
-the amm datapath) and the flash lowerings.
+"""GQA and multi-head latent attention: the float KV cache, the chunked
+schedule (exact and on the amm datapath) and the flash lowerings.
 
-Counterpart of ``repro.models.attention`` for the dense family:
+Counterpart of ``repro.models.attention``:
 ``attn_table``, ``chunked_attention`` (the online-softmax block schedule,
 its score and value products optionally through ``amm_dot``),
 ``decode_attention``, ``_cache_put`` (scalar and per-slot ``(B,)``
@@ -29,6 +29,16 @@ the chunked schedule on it), and ``decode_attention_codes`` contracts the
 cached codes directly, the score and value products of every (slot,
 kv-head) slice in one ``bbm_dot_coded_batched`` launch each.
 
+DeepSeek-V3's multi-head latent attention (``mla_table``,
+``mla_attention``) caches the compressed latent with its decoupled rope
+key, (B, S, kv_lora + rope) per layer: as bf16 floats, or as the
+``lat_codes``/``lat_scale`` code cache (one scale per block of positions;
+the code cache's helpers with a head axis of 1), dequantized at read.
+K and V are re-expanded from the latent at every call (the reference's
+naive formulation); decode runs ``decode_attention`` and prefill
+``chunked_attention`` over them, both with ``amm`` (the score and value
+products on ``amm_dot``), never the flash kernels.
+
 The port writes the caches in place: ``attention`` updates the given
 ``cache`` tensors and returns the same dict, where the reference returns
 new arrays.
@@ -51,7 +61,8 @@ from ..kernels.bbm_matmul import bbm_dot_coded_batched
 from ..kernels.ref import amm_quantize_slices
 from .common import Spec, amm_dot, apply_rope, rmsnorm
 
-__all__ = ["attn_table", "attention", "chunked_attention",
+__all__ = ["attn_table", "mla_table", "attention", "mla_attention",
+           "chunked_attention",
            "code_cache_dequant", "code_cache_update", "decode_attention",
            "decode_attention_codes", "flash_amm_chunked_equiv",
            "FlashFallbackWarning", "reset_flash_fallback_dedup", "NEG_INF"]
@@ -105,6 +116,24 @@ def attn_table(cfg: ArchConfig) -> Dict[str, Spec]:
         t["q_norm"] = Spec((hd,), ("head_dim",), "ones")
         t["k_norm"] = Spec((hd,), ("head_dim",), "ones")
     return t
+
+
+def mla_table(cfg: ArchConfig) -> Dict[str, Spec]:
+    d, h = cfg.d_model, cfg.n_heads
+    qk_n, qk_r, v_hd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "wq_a": Spec((d, cfg.q_lora_rank), ("embed", "q_latent")),
+        "q_a_norm": Spec((cfg.q_lora_rank,), ("q_latent",), "ones"),
+        "wq_b": Spec((cfg.q_lora_rank, h, qk_n + qk_r),
+                     ("q_latent", "heads", "head_dim")),
+        "w_dkv": Spec((d, cfg.kv_lora_rank + qk_r), ("embed", "kv_latent")),
+        "kv_norm": Spec((cfg.kv_lora_rank,), ("kv_latent",), "ones"),
+        "w_uk": Spec((cfg.kv_lora_rank, h, qk_n),
+                     ("kv_latent", "heads", "head_dim")),
+        "w_uv": Spec((cfg.kv_lora_rank, h, v_hd),
+                     ("kv_latent", "heads", "head_dim")),
+        "wo": Spec((h, v_hd, d), ("heads", "head_dim", "embed")),
+    }
 
 
 def _pad_seq(t: torch.Tensor, n: int) -> torch.Tensor:
@@ -463,6 +492,26 @@ def _cache_put(buf: torch.Tensor, new: torch.Tensor, pos) -> None:
     buf[torch.arange(buf.shape[0], device=buf.device), p] = new[:, 0]
 
 
+def _cache_len(cache, pos, s: int, device):
+    """The valid length after a cached call of ``s`` positions at ``pos``:
+    an int for a scalar position, a (B,) tensor for per-slot ones (which
+    only a one-token decode may take); None without a cache."""
+    if cache is None:
+        return None
+    if torch.as_tensor(pos).ndim == 1:
+        if s > 1:
+            raise ValueError("multi-token prefill needs a scalar position; "
+                             "per-slot position vectors are decode-only")
+        return torch.as_tensor(pos, device=device) + s
+    return int(pos) + s
+
+
+def _require_lowering(amm) -> None:
+    if amm is None or amm.attn_lowering is None:
+        raise ValueError("int-code KV cache requires an active "
+                         "Booth-family bitexact amm attention lowering")
+
+
 def attention(p, x, cfg: ArchConfig, *, positions, cache=None, pos=None,
               causal: bool = True, kv=None, use_pallas: bool = False,
               amm=None):
@@ -496,16 +545,9 @@ def attention(p, x, cfg: ArchConfig, *, positions, cache=None, pos=None,
     if kv is None:
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and s > 1 and torch.as_tensor(pos).ndim == 1:
-        raise ValueError("multi-token prefill needs a scalar position; "
-                         "per-slot position vectors are decode-only")
-    if cache is not None:
-        kv_len = torch.as_tensor(pos, device=x.device) + s \
-            if torch.as_tensor(pos).ndim == 1 else int(pos) + s
+    kv_len = _cache_len(cache, pos, s, x.device)
     if cache is not None and "k_codes" in cache:
-        if amm is None or amm.attn_lowering is None:
-            raise ValueError("int-code KV cache requires an active "
-                             "Booth-family bitexact amm attention lowering")
+        _require_lowering(amm)
         wl = amm.attn_lowering[0]
         code_cache_update(cache["k_codes"], cache["k_scale"], k, pos, wl=wl)
         code_cache_update(cache["v_codes"], cache["v_scale"], v, pos, wl=wl)
@@ -555,4 +597,76 @@ def attention(p, x, cfg: ArchConfig, *, positions, cache=None, pos=None,
                     amm=f"{amm.cfg.mul}/mode={amm.cfg.mode}")
         out = chunked_attention(q, k, v, causal=causal, amm=amm)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache
+
+
+def _expand_f32(a: torch.Tensor, w: torch.Tensor, eq: str) -> torch.Tensor:
+    """``einsum(eq, a, w)`` with both operands promoted to their common
+    dtype, as ``jnp.einsum`` promotes a bf16 cache against f32 weights."""
+    dt = torch.promote_types(a.dtype, w.dtype)
+    return torch.einsum(eq, a.to(dt), w.to(dt))
+
+
+def mla_attention(p, x, cfg: ArchConfig, *, positions, cache=None, pos=None,
+                  amm=None):
+    """DeepSeek-V3 multi-head latent attention.  x: (B, S, d_model).
+
+    Queries take the low-rank path (``wq_a``, its rmsnorm, ``wq_b``);
+    keys and values come from the compressed latent (``w_dkv``: the
+    kv_lora part rmsnormed, the decoupled rope key rotated), re-expanded
+    per head by ``w_uk`` and ``w_uv`` at every call; the head dims are
+    nope + rope for the scores and v_head_dim for the values, and the
+    softmax scale is (nope + rope) ** -0.5.
+
+    cache: None; one layer of the float cache {"latent"} (B, S_max,
+    kv_lora + rope), written in place at ``pos``; or one layer of the
+    code cache {"lat_codes" (B, S_max, kv_lora + rope), "lat_scale" (B,
+    nb)}, the latent quantized at write (``code_cache_update`` with a
+    head axis of 1) and dequantized at read, which needs an active
+    Booth-family amm lowering.  A cached call of one token decodes
+    (``decode_attention``), a longer one takes the chunked schedule at
+    ``q_offset=pos``; ``amm`` sends both products through ``amm_dot``.
+    Returns (out, cache).
+    """
+    b, s, _ = x.shape
+    nope, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
+    q_lat = rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", q_lat, p["wq_b"])
+    q_rope = apply_rope(q[..., nope:], positions, cfg.rope_theta)
+    q_full = torch.cat([q[..., :nope], q_rope], dim=-1)
+
+    latent = x @ p["w_dkv"]                          # (B, S, kv_lora+rope)
+    c_kv = rmsnorm(latent[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(latent[..., None, kvr:], positions, cfg.rope_theta)
+    lat_cat = torch.cat([c_kv, k_rope[..., 0, :].to(c_kv.dtype)], dim=-1)
+
+    kv_len = _cache_len(cache, pos, s, x.device)
+    if cache is not None and "lat_codes" in cache:
+        _require_lowering(amm)
+        lc = cache["lat_codes"][:, :, None, :]       # views: written in
+        ls = cache["lat_scale"][..., None]           # place through them
+        code_cache_update(lc, ls, lat_cat[:, :, None, :], pos,
+                          wl=amm.attn_lowering[0])
+        lat_all = code_cache_dequant(lc, ls, kv_len=kv_len)[:, :, 0, :]
+    elif cache is not None:
+        _cache_put(cache["latent"], lat_cat.to(cache["latent"].dtype), pos)
+        lat_all = cache["latent"]
+    else:
+        lat_all = lat_cat
+        kv_len = s
+
+    c_all = lat_all[..., :kvr]
+    k_nope = _expand_f32(c_all, p["w_uk"], "bsr,rhk->bshk")
+    v_all = _expand_f32(c_all, p["w_uv"], "bsr,rhk->bshk")
+    kr_all = lat_all[..., None, kvr:].to(k_nope.dtype)
+    k_full = torch.cat([k_nope, kr_all.expand(
+        k_nope.shape[:3] + (kr_all.shape[-1],))], dim=-1)
+    if cache is not None and s == 1:
+        out = decode_attention(q_full, k_full, v_all, kv_len, amm=amm)
+    elif cache is not None:
+        out = chunked_attention(q_full, k_full, v_all, causal=True,
+                                q_offset=int(pos), kv_len=kv_len, amm=amm)
+    else:
+        out = chunked_attention(q_full, k_full, v_all, causal=True, amm=amm)
+    y = torch.einsum("bshk,hkd->bsd", out.to(p["wo"].dtype), p["wo"])
     return y, cache

@@ -62,7 +62,8 @@ def _init_one(spec: Spec, generator, device, dtype) -> torch.Tensor:
     scale = spec.scale if spec.init == "normal" else 1e-3
     out = torch.randn(spec.shape, generator=generator, dtype=torch.float32,
                       device=device)
-    return (out * scale).to(dtype)
+    # scaled in place: a full-width expert stack is 15 GB in f32
+    return out.mul_(scale).to(dtype)
 
 
 def init_params(table: Dict[str, Any], generator: torch.Generator, *,

@@ -1,11 +1,16 @@
-"""Decoder-only LM, dense family: [attention + gated MLP] x L.
+"""Decoder-only LM: the dense family, [attention + gated MLP] x L, and
+the MoE family, a dense prefix then [attention + MoE] x L, with GQA or
+multi-head latent attention (DeepSeek-V3).
 
-Counterpart of the dense half of ``repro.models.transformer``:
-``ModelRuntime``, ``lm_table``/``lm_init``, ``init_cache`` and
-``lm_apply`` in train, prefill and decode modes.  The reference scans
-its layers with ``jax.lax.scan``; here a Python loop walks the
-layer-stacked parameters.  The residual stream is bf16 and the float
-cache bf16, as in the reference.
+Counterpart of the dense and MoE halves of ``repro.models.transformer``:
+``ModelRuntime``, ``lm_table``/``lm_init``, ``init_cache``,
+``lm_amm_planes`` and ``lm_apply`` in train, prefill and decode modes.
+The reference scans its layers with ``jax.lax.scan``; here a Python loop
+walks the layer-stacked parameters.  A MoE model's first
+``first_k_dense`` layers are a list of unstacked dense layers
+(``"dense_prefix"``), run first; its caches stay stacked over all
+layers, prefix first.  The residual stream is bf16 and the float cache
+bf16, as in the reference.
 
 The bitexact datapath's weight side is precoded once for fixed weights
 (``lm_amm_planes``, ``ModelRuntime.build_planes``) and threaded through
@@ -15,14 +20,16 @@ attention layer tells apart by their leaves.
 
 The noise follows the reference's key chain: ``lm_apply`` starts from
 ``jax.random.key(rng)`` (``rng`` defaults to 0, as the reference's
-serving path never passes one), splits it once per layer, and the
-layer's ``amm_dense`` calls share the layer key (the plain noise branch
-draws from it; the fused kernel takes ``randint(layer key)`` as its
-seed).  ``core.prng`` computes both on the host, cached.
+serving path never passes one), splits it once per layer (a MoE model's
+prefix first, then its stack from the carried key), and the layer's
+``amm_dense`` calls share the layer key (the plain noise branch draws
+from it; the fused kernel takes ``randint(layer key)`` as its seed).
+``core.prng`` computes both on the host, cached.
 
-The other families (MoE, SSM, hybrid, encoder-decoder, VLM) are ROADMAP
-item A12 and raise ``NotImplementedError``.  ``lm_loss`` is the training
-loss of the cacheless train mode.
+The SSM, hybrid, encoder-decoder and VLM families are ROADMAP item A12
+and raise ``NotImplementedError``.  ``lm_loss`` is the training loss of
+the cacheless train mode for the dense family; the MoE family's (its
+auxiliary and MTP terms) is item A16.
 """
 from __future__ import annotations
 
@@ -34,10 +41,10 @@ import torch
 from ..configs.base import ArchConfig
 from ..core.prng import layer_keys
 from ..device import pin_fp32, resolve_device
-from .attention import attention, attn_table
+from .attention import attention, attn_table, mla_attention, mla_table
 from .common import (AmmRuntime, Spec, cross_entropy_loss, init_params,
                      rmsnorm)
-from .moe import mlp_apply, mlp_table
+from .moe import mlp_apply, mlp_table, moe_apply, moe_table
 
 __all__ = ["ModelRuntime", "lm_table", "lm_init", "lm_apply", "lm_loss",
            "lm_amm_planes", "init_cache"]
@@ -69,11 +76,17 @@ class ModelRuntime:
         return lm_amm_planes(cfg, self.amm, params)
 
 
-def _check_family(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.is_encoder_decoder or cfg.use_mla:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} of {cfg.name!r} is not ported yet "
-            f"(ROADMAP item A12); the dense family is")
+def _family(cfg: ArchConfig) -> str:
+    """The ported family of ``cfg`` ("dense" or "moe"); the others raise
+    the ROADMAP item that ports them."""
+    if cfg.family == "dense" and not cfg.is_encoder_decoder \
+            and not cfg.use_mla:
+        return "dense"
+    if cfg.family == "moe":
+        return "moe"
+    raise NotImplementedError(
+        f"model family {cfg.family!r} of {cfg.name!r} is not ported yet "
+        f"(ROADMAP item A12); the dense and MoE families are")
 
 
 def _stack(table: Dict, n: int) -> Dict:
@@ -84,8 +97,27 @@ def _stack(table: Dict, n: int) -> Dict:
     return {k: _stack(v, n) for k, v in table.items()}
 
 
+def _attn_block_table(cfg: ArchConfig) -> Dict[str, Any]:
+    return {"attn_norm": Spec((cfg.d_model,), ("embed",), "ones"),
+            "attn": mla_table(cfg) if cfg.use_mla else attn_table(cfg)}
+
+
+def _dense_layer_table(cfg: ArchConfig) -> Dict[str, Any]:
+    t = _attn_block_table(cfg)
+    t["mlp_norm"] = Spec((cfg.d_model,), ("embed",), "ones")
+    t["mlp"] = mlp_table(cfg.d_model, cfg.d_ff)
+    return t
+
+
+def _moe_layer_table(cfg: ArchConfig) -> Dict[str, Any]:
+    t = _attn_block_table(cfg)
+    t["mlp_norm"] = Spec((cfg.d_model,), ("embed",), "ones")
+    t["moe"] = moe_table(cfg)
+    return t
+
+
 def lm_table(cfg: ArchConfig) -> Dict[str, Any]:
-    _check_family(cfg)
+    family = _family(cfg)
     d, v = cfg.d_model, cfg.vocab
     t: Dict[str, Any] = {
         "embed": Spec((v, d), ("vocab", "embed"), "normal", 0.01),
@@ -93,11 +125,20 @@ def lm_table(cfg: ArchConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         t["lm_head"] = Spec((d, v), ("embed", "vocab"), "normal", 0.01)
-    layer = {"attn_norm": Spec((d,), ("embed",), "ones"),
-             "attn": attn_table(cfg),
-             "mlp_norm": Spec((d,), ("embed",), "ones"),
-             "mlp": mlp_table(d, cfg.d_ff)}
-    t["layers"] = _stack(layer, cfg.n_layers)
+    if family == "dense":
+        t["layers"] = _stack(_dense_layer_table(cfg), cfg.n_layers)
+        return t
+    t["dense_prefix"] = [_dense_layer_table(cfg)
+                         for _ in range(cfg.first_k_dense)]
+    t["layers"] = _stack(_moe_layer_table(cfg),
+                         cfg.n_layers - cfg.first_k_dense)
+    if cfg.mtp_depth:
+        # the multi-token-prediction block: its parameters only (serving
+        # never reads it; its loss term is ROADMAP item A16)
+        mtp = _moe_layer_table(cfg)
+        mtp["proj"] = Spec((2 * d, d), (None, "embed"))
+        mtp["norm"] = Spec((d,), ("embed",), "ones")
+        t["mtp"] = mtp
     return t
 
 
@@ -115,22 +156,38 @@ def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):
     """The precode cache of every weight ``amm_dense`` approximates: for
     the dense family ``{"layers": {"mlp": {"w_gate", "w_up", "w_down"}}}``,
     each an ``AmmRuntime.precode`` entry of the layer stack (codes (L, K,
-    N), one scale per layer), sliced per layer by ``lm_apply``.  None
-    when the mode caches nothing (not bitexact, or a non-Booth family) or
-    when no MLP product is approximated (``apply_to="attn"``)."""
+    N), one scale per layer), sliced per layer by ``lm_apply``; for the
+    MoE family ``{"dense_prefix": [{"mlp": ...} per prefix layer]}`` and,
+    with a shared expert, ``"layers": {"moe": {"shared": ...}}`` stacked
+    (the routed experts are not approximated).  None when the mode
+    caches nothing (not bitexact, or a non-Booth family) or when no MLP
+    product is approximated (``apply_to="attn"``)."""
     if not (amm.cacheable and amm.mlp_active):
         return None
-    _check_family(cfg)
-    mlp = params["layers"]["mlp"]
-    return {"layers": {"mlp": {k: amm.precode(mlp[k])
-                               for k in ("w_gate", "w_up", "w_down")}}}
+    family = _family(cfg)
+
+    def mlp(p):
+        return {k: amm.precode(p[k]) for k in ("w_gate", "w_up", "w_down")}
+    if family == "dense":
+        return {"layers": {"mlp": mlp(params["layers"]["mlp"])}}
+    planes = {"dense_prefix": [{"mlp": mlp(p["mlp"])}
+                               for p in params["dense_prefix"]]}
+    if cfg.n_shared_experts:
+        planes["layers"] = {"moe": {"shared": mlp(
+            params["layers"]["moe"]["shared"])}}
+    return planes
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Layer-stacked float KV cache: k, v (L, B, max_len, KV, head_dim)."""
-    _check_family(cfg)
+    """Layer-stacked float KV cache: k, v (L, B, max_len, KV, head_dim);
+    with MLA the compressed latent, (L, B, max_len, kv_lora + rope)."""
+    _family(cfg)
     dev = resolve_device(device)
+    if cfg.use_mla:
+        return {"latent": torch.zeros(
+            (cfg.n_layers, batch, max_len,
+             cfg.kv_lora_rank + cfg.qk_rope_dim), dtype=dtype, device=dev)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -139,10 +196,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
 
 def _attn_block(p, h, cfg, rt, *, positions, cache=None, pos=None):
     amm = rt.amm if rt.amm.attn_active else None
-    y, new_cache = attention(p["attn"], rmsnorm(h, p["attn_norm"],
-                                                cfg.norm_eps),
-                             cfg, positions=positions, cache=cache, pos=pos,
-                             use_pallas=rt.use_pallas_attention, amm=amm)
+    x = rmsnorm(h, p["attn_norm"], cfg.norm_eps)
+    if cfg.use_mla:        # never the flash kernels, as in the reference
+        y, new_cache = mla_attention(p["attn"], x, cfg, positions=positions,
+                                     cache=cache, pos=pos, amm=amm)
+    else:
+        y, new_cache = attention(p["attn"], x, cfg, positions=positions,
+                                 cache=cache, pos=pos,
+                                 use_pallas=rt.use_pallas_attention, amm=amm)
     return h + y.to(h.dtype), new_cache
 
 
@@ -153,6 +214,16 @@ def _dense_block(p, h, cfg, rt, key, *, positions, cache=None, pos=None,
     y = mlp_apply(p["mlp"], rmsnorm(h, p["mlp_norm"], cfg.norm_eps), rt.amm,
                   key, planes=(planes or {}).get("mlp"))
     return h + y.to(h.dtype), new_cache
+
+
+def _moe_block(p, h, cfg, rt, key, *, positions, cache=None, pos=None,
+               planes=None):
+    h, new_cache = _attn_block(p, h, cfg, rt, positions=positions,
+                               cache=cache, pos=pos)
+    y, aux = moe_apply(p["moe"], rmsnorm(h, p["mlp_norm"], cfg.norm_eps),
+                       cfg, amm=rt.amm, key=key,
+                       planes=(planes or {}).get("moe"))
+    return h + y.to(h.dtype), new_cache, aux
 
 
 def _layer(tree, i: int):
@@ -169,7 +240,9 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
 
     tokens: (B, S) integer tokens (S == 1 to decode against caches).
     caches: optional ``init_cache`` dict or int-code cache
-    (``serve.kv_cache.init_code_cache``), updated in place at ``pos`` (a
+    (``serve.kv_cache.init_code_cache``; MLA's latent caches for
+    deepseek-v3), stacked over all layers (a MoE model's dense prefix
+    first), updated in place at ``pos`` (a
     scalar, or a (B,) per-slot vector under continuous batching) and
     returned; without caches the attention is the cacheless causal
     schedule (train and prefill), or the flash kernels with
@@ -181,7 +254,7 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     """
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"unknown mode {mode!r}")
-    _check_family(cfg)
+    family = _family(cfg)
     pin_fp32()
     embed = params["embed"]
     dev = embed.device
@@ -197,26 +270,50 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     positions = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
                  + off) * torch.ones((b, 1), dtype=torch.int32, device=dev)
     planes = (amm_planes or {}).get("layers")
-    for i in range(cfg.n_layers):
-        # the layer's leaves, float ({"k", "v"}) or code ({"k_codes",
-        # "k_scale", "v_codes", "v_scale"}): attention routes on the keys
+    # the layer's cache leaves, float ({"k", "v"} or {"latent"}) or code
+    # ({"k_codes", ...} or {"lat_codes", "lat_scale"}): attention routes
+    # on the keys.  A MoE model's prefix takes the first cache layers.
+    prefix = params.get("dense_prefix", [])
+    prefix_planes = (amm_planes or {}).get("dense_prefix")
+    for i, p_l in enumerate(prefix):
+        h, _ = _dense_block(p_l, h, cfg, rt, keys[i], positions=positions,
+                            cache=None if caches is None
+                            else _layer(caches, i), pos=pos,
+                            planes=prefix_planes[i] if prefix_planes
+                            else None)
+    aux_total = 0.0
+    if family == "moe":
+        aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for j in range(cfg.n_layers - len(prefix)):
+        i = len(prefix) + j
         cache_l = None if caches is None else _layer(caches, i)
-        h, _ = _dense_block(_layer(params["layers"], i), h, cfg, rt,
-                            keys[i], positions=positions, cache=cache_l,
-                            pos=pos, planes=None if planes is None
-                            else _layer(planes, i))
+        planes_l = None if planes is None else _layer(planes, j)
+        if family == "dense":
+            h, _ = _dense_block(_layer(params["layers"], j), h, cfg, rt,
+                                keys[i], positions=positions, cache=cache_l,
+                                pos=pos, planes=planes_l)
+        else:
+            h, _, aux = _moe_block(_layer(params["layers"], j), h, cfg, rt,
+                                   keys[i], positions=positions,
+                                   cache=cache_l, pos=pos, planes=planes_l)
+            aux_total = aux_total + aux
     h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
     head = embed.T if cfg.tie_embeddings else params["lm_head"]
     logits = (h @ head.to(h.dtype)).to(torch.float32)
     new_caches = caches if caches is not None else {}
-    return logits, {"moe_aux": 0.0}, new_caches
+    return logits, {"moe_aux": aux_total}, new_caches
 
 
 def lm_loss(params, cfg: ArchConfig, rt: ModelRuntime, tokens, labels, *,
             rng=None, moe_aux_weight: float = 1e-2):
     """Training loss: next-token cross entropy (with the z-loss) plus the
     MoE auxiliary loss, which the dense family leaves at 0.  Returns
-    (total, {"ce", "moe_aux"})."""
+    (total, {"ce", "moe_aux"}).  The MoE family's loss (its auxiliary
+    term and the MTP head's) is ROADMAP item A16 and raises."""
+    if _family(cfg) == "moe":
+        raise NotImplementedError(
+            f"training the MoE family ({cfg.name!r}: the moe_aux and MTP "
+            f"terms of lm_loss) is not ported yet (ROADMAP item A16)")
     logits, aux, _ = lm_apply(params, cfg, rt, tokens, mode="train",
                               rng=rng)
     labels = torch.as_tensor(labels, device=logits.device)

@@ -55,11 +55,14 @@ __all__ = ["cache_logical_axes", "make_serve_fns", "Request", "Scheduler",
 
 def cache_logical_axes(cfg: ArchConfig, *,
                        kv_codes: bool = False) -> Dict[str, Any]:
-    """Logical axes of every cache leaf of the dense family's
-    ``models.init_cache`` (the only family ported), or with
-    ``kv_codes=True`` of ``serve.kv_cache.init_code_cache``."""
+    """Logical axes of every cache leaf of ``models.init_cache`` (the
+    dense family's k and v; the MoE family's MLA latent, or its k and v
+    without MLA), or with ``kv_codes=True`` of
+    ``serve.kv_cache.init_code_cache``."""
     if kv_codes:
         return code_cache_logical_axes(cfg)
+    if cfg.use_mla:
+        return {"latent": ("layers", "batch", "seq_model", "kv_latent")}
     kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
     return {"k": kvax, "v": kvax}
 

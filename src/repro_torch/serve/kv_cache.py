@@ -11,9 +11,14 @@ slot, seq-block, kv-head); decode contracts the codes directly
     k_scale, v_scale: (layers, batch, n_blocks, kv_heads)           f32
 
 with ``n_blocks = max_len // block`` and intN = int8 for wl <= 8, int16
-for wl <= 16.  A scale of 0.0 marks a never-written block (real scales
-are floored at 1e-12); the first write touching a block freezes its
-scale.  MLA's latent code cache is ROADMAP item A12.
+for wl <= 16.  MLA (DeepSeek-V3) caches the compressed latent instead,
+one scale per (layer, slot, seq-block)::
+
+    lat_codes: (layers, batch, max_len, kv_lora + rope)  intN
+    lat_scale: (layers, batch, n_blocks)                 f32
+
+A scale of 0.0 marks a never-written block (real scales are floored at
+1e-12); the first write touching a block freezes its scale.
 
 The continuous scheduler addresses one slot of the batch axis at a time:
 admission resets it, prefill runs on a batch-1 slice and writes it back.
@@ -50,11 +55,7 @@ def code_dtype(wl: int) -> torch.dtype:
     raise ValueError(f"wl={wl} exceeds the 16-bit code envelope")
 
 
-def _check_dense(cfg: ArchConfig) -> None:
-    if cfg.family == "moe" and cfg.use_mla:
-        raise NotImplementedError(
-            "the MLA latent code cache (lat_codes) is not ported yet "
-            "(ROADMAP item A12)")
+def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in ("dense", "vlm", "audio", "moe") \
             or cfg.is_encoder_decoder:
         raise ValueError(f"int-code KV cache supports dense/GQA and MLA "
@@ -69,10 +70,15 @@ def _code_shapes(cfg: ArchConfig, batch: int, max_len: int, wl: int,
     if max_len % block:
         raise ValueError(f"max_len={max_len} not a multiple of the scale "
                          f"block {block}")
-    _check_dense(cfg)
-    n, kv, hd = cfg.n_layers, cfg.n_kv_heads, cfg.resolved_head_dim
+    _check_family(cfg)
+    n, nb = cfg.n_layers, max_len // block
+    if cfg.use_mla:
+        lat = cfg.kv_lora_rank + cfg.qk_rope_dim
+        return {"lat_codes": ((n, batch, max_len, lat), code_dtype(wl)),
+                "lat_scale": ((n, batch, nb), torch.float32)}
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
     codes = ((n, batch, max_len, kv, hd), code_dtype(wl))
-    scales = ((n, batch, max_len // block, kv), torch.float32)
+    scales = ((n, batch, nb, kv), torch.float32)
     return {"k_codes": codes, "v_codes": codes, "k_scale": scales,
             "v_scale": scales}
 
@@ -94,7 +100,10 @@ def init_code_cache(cfg: ArchConfig, batch: int, max_len: int, *, wl: int,
 
 def code_cache_logical_axes(cfg: ArchConfig) -> Dict[str, Any]:
     """Logical axis names per code-cache leaf."""
-    _check_dense(cfg)
+    _check_family(cfg)
+    if cfg.use_mla:
+        return {"lat_codes": ("layers", "batch", "seq_model", "kv_latent"),
+                "lat_scale": ("layers", "batch", "blocks")}
     kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
     scax = ("layers", "batch", "blocks", "kv_heads")
     return {"k_codes": kvax, "v_codes": kvax,
@@ -117,7 +126,11 @@ def cache_nbytes(cache) -> int:
 def float_cache_nbytes(cfg: ArchConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16) -> int:
     """Bytes of the float cache the code cache replaces (no allocation):
-    k and v, (layers, batch, max_len, kv_heads, head_dim) each."""
+    k and v, (layers, batch, max_len, kv_heads, head_dim) each, or MLA's
+    latent, (layers, batch, max_len, kv_lora + rope)."""
+    if cfg.use_mla:
+        return _nbytes((cfg.n_layers, batch, max_len,
+                        cfg.kv_lora_rank + cfg.qk_rope_dim), dtype)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
     return 2 * _nbytes(shape, dtype)

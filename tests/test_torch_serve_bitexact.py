@@ -360,7 +360,7 @@ def test_kv_codes_requires_attention_routing(lm):
                            kv_codes=True, device="cpu")
     with pytest.raises(ValueError, match="attention lowering"):
         t_engine.make_serve_fns(cfg, TRT.build(dataclasses.replace(
-            cfg, amm=TAmm(mode="noise"))), kv_codes=True)
+            cfg, amm=TAmm(mode="noise")), device="cpu"), kv_codes=True)
 
 
 def test_kv_codes_rejects_exact_budget_guard(lm):
