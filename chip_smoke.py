@@ -728,14 +728,23 @@ def lm_config():
 class Recorder:
     """Wraps the serve functions: counts the ``lm_apply`` calls, keeps a
     device-side count of non-finite logits, and optionally each call's
-    (kind, tokens, position, logits) for a replay."""
+    (kind, tokens, position, logits) for a replay, and with
+    ``keep_caches`` a CPU copy of the caches each call was handed
+    (``cache_log``)."""
 
-    def __init__(self, torch, fns, keep: bool):
+    def __init__(self, torch, fns, keep: bool, keep_caches: bool = False):
         self.torch, self.keep = torch, keep
         self.prefill_fn, self.decode_fn = fns
         self.calls = 0
         self.bad = None
         self.log = []
+        self.keep_caches = keep_caches
+        self.cache_log = []
+
+    def _take(self, c):
+        if self.keep_caches:
+            self.cache_log.append({k: v.to("cpu", copy=True)
+                                   for k, v in c.items()})
 
     def _note(self, kind, tokens, pos, logits):
         self.calls += 1
@@ -745,11 +754,13 @@ class Recorder:
             self.log.append((kind, tokens.cpu(), pos, logits.float().cpu()))
 
     def prefill(self, p, t, c):
+        self._take(c)
         logits, c = self.prefill_fn(p, t, c)
         self._note("prefill", t, 0, logits)
         return logits, c
 
     def decode(self, p, t, c, q):
+        self._take(c)
         logits, c = self.decode_fn(p, t, c, q)
         self._note("decode", t, q, logits)
         return logits, c
@@ -896,17 +907,22 @@ def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
 LOGIT_RTOL = 2.0 ** -5
 
 
-def lm_cpu_check(torch, dev, cfg, rt, params, kv_codes=False) -> dict:
+def lm_cpu_check(torch, dev, cfg, rt, params, kv_codes=False,
+                 state_forced=False) -> dict:
     """Two requests on the card, then on the CPU port teacher-forced on
     the card's tokens: every step's logits within ``LOGIT_RTOL``.  Each
     side's step functions carry its own weight planes (bitexact mode);
-    ``kv_codes``: both serve from the int-code KV cache."""
+    ``kv_codes``: both serve from the int-code KV cache.
+    ``state_forced``: each CPU call also starts from the caches the card's
+    call was handed (a recurrent state carries the rounding of every
+    earlier call into the next, and a deep SSM stack amplifies it), so
+    every call is held from the same input."""
     from repro_torch.serve import Request, Scheduler, make_serve_fns
     rng = np.random.default_rng(4)
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in (32, 40)]
     rec = Recorder(torch, make_serve_fns(
         cfg, rt, amm_planes=rt.build_planes(cfg, params),
-        kv_codes=kv_codes), keep=True)
+        kv_codes=kv_codes), keep=True, keep_caches=state_forced)
     card = Scheduler(cfg, rt, params, 8, 64, decode_fn=rec.decode,
                      prefill_fn=rec.prefill, continuous=True,
                      kv_codes=kv_codes, device=dev)
@@ -939,12 +955,17 @@ def lm_cpu_check(torch, dev, cfg, rt, params, kv_codes=False) -> dict:
         state["flips"] += int((clear & ~same).sum())
         return want            # teacher forcing: the card's tokens
 
+    def card_caches(c):
+        if not state_forced:
+            return c
+        return {k: v.clone() for k, v in rec.cache_log[state["i"]].items()}
+
     def prefill(p, t, c):
-        logits, c = fns[0](p, t, c)
+        logits, c = fns[0](p, t, card_caches(c))
         return forced("prefill", logits), c
 
     def decode(p, t, c, q):
-        logits, c = fns[1](p, t, c, q)
+        logits, c = fns[1](p, t, card_caches(c), q)
         return forced("decode", logits), c
 
     cpu = Scheduler(cfg, rt, cpu_params, 8, 64, decode_fn=decode,
@@ -1046,14 +1067,15 @@ def qm_host_us(torch, qm, dev, cfg, rt, params) -> str:
 
 
 def decode_window(torch, sched, name: str, kernels, prefills: int,
-                  steps: int = 5, forbid=()) -> tuple:
+                  steps: int = 5, forbid=(), stats=None) -> tuple:
     """A profiled window of ``steps`` pure decode steps of ``sched``
     (device time only), then 2 more with the host's operations traced
     too; returns (printed lines, the window's idle share).  ``kernels``:
     the profiler names of the ``name`` wrapper's kernels, whose share is
     reported apart; ``prefills``: the scheduler's prefills so far, which
     the window must not add to; ``forbid``: kernel names that must not
-    run in the window."""
+    run in the window; ``stats``: a dict that gets the window's device
+    busy and wall ms per step."""
     from torch.profiler import ProfilerActivity, profile
     lines = []
     torch.cuda.synchronize()
@@ -1078,6 +1100,8 @@ def decode_window(torch, sched, name: str, kernels, prefills: int,
         if any(q in ev.key for q in forbid):
             fail(f"{ev.key[:90]} ran in the decode window")
     idle = 1.0 - busy_us / 1e3 / wall_ms
+    if stats is not None:
+        stats.update(busy_ms=busy_us / steps / 1e3, wall_ms=wall_ms / steps)
     lines.append(
         f"decode window ({steps} steps, {sched.stats['steps']} so far, "
         f"profiled): {wall_ms / steps:.3f} ms per step, device busy "
@@ -3257,13 +3281,21 @@ def ds_b2_capture_check(torch, tb, calls, rng) -> tuple:
     return len(calls), worst
 
 
+def ds_prompts(cfg, seed: int = 21) -> list:
+    """deepseek-v3's traffic: ``DS_REQUESTS`` prompts of ``DS_PROMPT``
+    tokens."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, int(rng.integers(*DS_PROMPT))).tolist()
+            for _ in range(DS_REQUESTS)]
+
+
 def ds_serve(torch, dev, cfg, rt, params, counters, want, *, kv_codes,
-             first_step) -> dict:
-    """Serve ``DS_REQUESTS`` requests of ``DS_PROMPT`` prompt tokens and
-    ``DS_NEW`` new ones through the continuous Scheduler (``DS_SLOTS``
-    slots, max_len ``DS_LEN``), every ``lm_apply`` call's launches held
-    to ``want``.  ``first_step`` is a pair of functions, called just
-    before and just after the first step (the kernel captures)."""
+             first_step, prompts=None) -> dict:
+    """Serve ``prompts`` (``ds_prompts`` by default), ``DS_NEW`` new
+    tokens each, through the continuous Scheduler (``DS_SLOTS`` slots,
+    max_len ``DS_LEN``), every ``lm_apply`` call's launches held to
+    ``want``.  ``first_step`` is a pair of functions, called just before
+    and just after the first step (the kernel captures), or None."""
     from repro_torch.serve import Request, Scheduler, make_serve_fns
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3275,17 +3307,16 @@ def ds_serve(torch, dev, cfg, rt, params, counters, want, *, kv_codes,
     sched = Scheduler(cfg, rt, params, DS_SLOTS, DS_LEN,
                       decode_fn=rec.decode, prefill_fn=rec.prefill,
                       continuous=True, kv_codes=kv_codes, device=dev)
-    rng = np.random.default_rng(21)
-    reqs = [Request(rid=i, prompt=rng.integers(
-        0, cfg.vocab, int(rng.integers(*DS_PROMPT))).tolist(),
-        max_new=DS_NEW) for i in range(DS_REQUESTS)]
+    reqs = [Request(rid=i, prompt=list(p), max_new=DS_NEW)
+            for i, p in enumerate(prompts or ds_prompts(cfg))]
     for r in reqs:
         sched.submit(r)
     step_ms, prefill_ms = [], []
     rec.start()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    first_step[0]()
+    if first_step is not None:
+        first_step[0]()
     while True:
         pre = sched.stats["prefills"]
         ts = time.perf_counter()
@@ -3321,9 +3352,10 @@ def ds_serve(torch, dev, cfg, rt, params, counters, want, *, kv_codes,
             "planes": planes, "planes_s": planes_s}
 
 
-def ds_serve_line(name: str, res: dict, per_call: str) -> str:
+def ds_serve_line(name: str, res: dict, per_call: str,
+                  arch: str = "deepseek-v3") -> str:
     st, steps = res["stats"], res["step_ms"]
-    return (f"deepseek-v3 {name}: {DS_SLOTS} slots, max_len {DS_LEN}, "
+    return (f"{arch} {name}: {DS_SLOTS} slots, max_len {DS_LEN}, "
             f"{len(steps)} pure decode steps of {st['steps']}, "
             f"{st['prefills']} prefills, {res['tokens']} tokens generated "
             f"({res['prompt_tokens']} prompt tokens) in {res['wall_s']:.3f} "
@@ -3630,19 +3662,33 @@ def ds_expert_timing(torch, dev, cfg, params) -> str:
 
 def ds_kernel_timing(torch, dev, tb, qm, cfg, rt_noise, params, planes,
                      launches) -> tuple:
-    """Each kernel of the path at its new shapes: ``quant_matmul`` and
-    ``bbm_dot_scaled`` at the dense MLP's decode shapes (8, 7168) x (7168,
-    18432) and (8, 18432) x (18432, 7168), on the prefix layer's weights
-    (528 MB each, read from device memory), and ``bbm_dot_coded_batched``
-    at MLA's decode shapes (8 slots x 128 heads: scores (1, 192) x (192,
-    512), values (1, 512) x (512, 128)): device ms, plain ms, bound, one
-    f32 PyTorch product of the same shapes as a yardstick.  Returns
-    (printed lines, kernel JSON entries)."""
+    """deepseek-v3's kernels at its new shapes (``kernel_shape_timing``):
+    the dense MLP's decode shapes (8, 7168) x (7168, 18432) and (8, 18432)
+    x (18432, 7168) on the prefix layer's weights (528 MB each, read from
+    device memory), and MLA's decode shapes (8 slots x 128 heads: scores
+    (1, 192) x (192, 512), values (1, 512) x (512, 128))."""
+    qk_d = cfg.qk_nope_dim + cfg.qk_rope_dim
+    return kernel_shape_timing(
+        torch, dev, tb, qm, rt_noise, params["dense_prefix"][0]["mlp"],
+        planes["dense_prefix"][0]["mlp"],
+        (DS_SLOTS * cfg.n_heads, {"qk": (qk_d, DS_LEN),
+                                  "pv": (DS_LEN, cfg.v_head_dim)}),
+        launches, "deepseek-v3 decode", "MLA decode")
+
+
+def kernel_shape_timing(torch, dev, tb, qm, rt_noise, mlp, codes, coded,
+                        launches, tag: str, coded_tag: str = "") -> tuple:
+    """Each kernel of a path at its shapes: ``quant_matmul`` and (with
+    ``codes``, the layer's precoded planes) ``bbm_dot_scaled`` at an MLP's
+    decode shapes, 8 rows against ``mlp``'s w_gate and w_down as the path
+    holds them; with ``coded`` = (slices, {name: (k, n)}),
+    ``bbm_dot_coded_batched`` at the attention's decode score and value
+    shapes: device ms, plain ms, bound, one f32 PyTorch product of the
+    same shapes as a yardstick.  ``launches``: each kernel's count from
+    the path's run.  Returns (printed lines, kernel JSON entries)."""
     from repro_torch.kernels.ref import amm_quantize_slices, amm_scale
     gen = torch.Generator(device=dev)
     gen.manual_seed(32)
-    mlp = params["dense_prefix"][0]["mlp"]
-    codes = planes["dense_prefix"][0]["mlp"]
     lines, rows = [], {"quant_matmul": [], "bbm_dot_scaled": [],
                        "bbm_dot_coded_batched": []}
     for key in ("w_gate", "w_down"):
@@ -3676,6 +3722,8 @@ def ds_kernel_timing(torch, dev, tb, qm, cfg, rt_noise, params, planes,
             f"{bound:.6f} ms ({by}; bound / time {bound / ms:.4g}), f32 "
             f"x @ w yardstick {lib_ms:.6f} ms, max abs error vs plain "
             f"{float(err.max())!r} within quant_matmul_tolerance")
+        if codes is None:
+            continue
         wc = codes[key]["codes"]
         xc = torch.randint(-32768, 32768, (8, k), generator=gen, device=dev,
                            dtype=torch.int32)
@@ -3713,9 +3761,7 @@ def ds_kernel_timing(torch, dev, tb, qm, cfg, rt_noise, params, planes,
             f"blocks), bound {bound:.6f} ms "
             f"({by}; bound / time {bound / ms:.4g}), f32 x @ w yardstick "
             f"{lib_ms:.6f} ms; bit-equal to the plain version")
-    bt = DS_SLOTS * cfg.n_heads
-    qk_d = cfg.qk_nope_dim + cfg.qk_rope_dim
-    shapes = {"qk": (qk_d, DS_LEN), "pv": (DS_LEN, cfg.v_head_dim)}
+    bt, shapes = coded if coded is not None else (0, {})
     for name, (k, n) in shapes.items():
         a = torch.randn((bt, 1, 1, k), generator=gen, device=dev)
         if name == "pv":
@@ -3736,7 +3782,7 @@ def ds_kernel_timing(torch, dev, tb, qm, cfg, rt_noise, params, planes,
         plain_ms = cuda_ms(torch, plain, 1)
         err = float((run() - plain()).abs().max())
         if err != 0:
-            fail(f"bbm_dot_coded_batched at MLA's {name} shape differs from "
+            fail(f"bbm_dot_coded_batched at {coded_tag} {name} differs from "
                  f"its plain version by {err}")
         af = a.reshape(bt, 1, k)
         bf = b.reshape(bt, k, n)
@@ -3747,21 +3793,23 @@ def ds_kernel_timing(torch, dev, tb, qm, cfg, rt_noise, params, planes,
             ms=ms, how=how, plain_ms=plain_ms, bound=bound, by=by,
             lib_ms=lib_ms, err=err))
         lines.append(
-            f"bbm_dot_coded_batched at MLA's decode {name} ({bt} slices of "
+            f"bbm_dot_coded_batched at {coded_tag} {name} ({bt} slices of "
             f"(1, {k}) x ({k}, {n}), route {route}): {ms:.6f} ms ({how}), "
             f"plain {plain_ms:.6f} ms (in {DS_PLAIN_SLICES}-slice blocks), "
             f"bound {bound:.6f} ms ({by}; bound / time {bound / ms:.4g}), "
             f"f32 torch.bmm yardstick {lib_ms:.6f} ms; bit-equal to the "
             f"plain version")
     entries = []
-    names = {"quant_matmul": ("quant_matmul (deepseek-v3 decode)", QM_SOURCE,
+    names = {"quant_matmul": (f"quant_matmul ({tag})", QM_SOURCE,
                               REPLACES["quant_matmul"]),
-             "bbm_dot_scaled": ("bbm_dot_scaled (deepseek-v3 decode)",
-                                MMA_SOURCE, REPLACES["bbm_dot_scaled"]),
-             "bbm_dot_coded_batched": ("bbm_dot_coded_batched (MLA decode)",
+             "bbm_dot_scaled": (f"bbm_dot_scaled ({tag})", MMA_SOURCE,
+                                REPLACES["bbm_dot_scaled"]),
+             "bbm_dot_coded_batched": (f"bbm_dot_coded_batched ({coded_tag})",
                                        CODED_SOURCE, CODED_REPLACES)}
     for key, (name, source, replaces) in names.items():
         r = rows[key]
+        if not r:
+            continue
         mean = lambda f: sum(x[f] for x in r) / len(r)  # noqa: E731
         entries.append({
             "name": name, "route": "cuda", "source": source,
@@ -3776,9 +3824,11 @@ def ds_kernel_timing(torch, dev, tb, qm, cfg, rt_noise, params, planes,
     return lines, entries
 
 
-def ds_window(torch, dev, cfg, rt, params, kv_codes, name, kernels) -> list:
+def ds_window(torch, dev, cfg, rt, params, kv_codes, name, kernels,
+              forbid=(), stats=None) -> list:
     """A profiled decode window of ``cfg`` with 8 residents (64-token
-    prompts), after 10 warm steps: ``decode_window``'s lines."""
+    prompts), after 10 warm steps: ``decode_window``'s lines and idle
+    share (``forbid``: kernels that must not run there)."""
     from repro_torch.serve import Request, Scheduler
     sched = Scheduler(cfg, rt, params, DS_SLOTS, DS_LEN, continuous=True,
                       kv_codes=kv_codes, device=dev)
@@ -3789,7 +3839,8 @@ def ds_window(torch, dev, cfg, rt, params, kv_codes, name, kernels) -> list:
     for _ in range(10):
         sched.step()
     lines, idle = decode_window(torch, sched, name, kernels,
-                                prefills=DS_SLOTS)
+                                prefills=DS_SLOTS, forbid=forbid,
+                                stats=stats)
     return lines, idle
 
 
@@ -3927,6 +3978,297 @@ def deepseek_phase(torch, dev, tb, qm, nm, card: str) -> tuple:
     for e in entries:
         e["idle_share"] = idle_n if e["name"].startswith("quant") else idle_b
     lines.append(f"deepseek-v3 phase on {card}")
+    return lines, entries
+
+
+# -------------- slice 8: mamba2-370m (SSM), zamba2-2.7b (hybrid), chameleon
+# the SSM and hybrid traffic: DS_SLOTS slots, max_len DS_LEN, DS_NEW new
+# tokens a request; SSM_REQUESTS prompts of DS_PROMPT tokens (one
+# ssm_chunk of 128 or less), SSM_LONG of them exactly two chunks, so the
+# chunked scan's inter-chunk recurrence runs at full width
+SSM_REQUESTS, SSM_LONG = 24, 4
+VLM_LAYERS, VLM_REQUESTS = 2, 8
+# the card-against-CPU replays run on depth cuts of the served weights:
+# a one-rounding change of the bf16 residual stream moves a random
+# 48-54-layer stack's logits by about LOGIT_RTOL on its own (at full
+# depth an NVIDIA H100 and the CPU differed by 0.0327 and 0.0323 of the
+# largest logit), so each check keeps qwen2's 24 blocks or fewer: mamba2
+# 24 of its 48 layers, zamba2 2 of its 9 groups (12 Mamba2 layers and
+# 2 shared-block calls)
+SSM_CPU_LAYERS, HYBRID_CPU_GROUPS = 24, 2
+PORT_KERNELS = QM_KERNELS + TRAIN_KERNELS["bbm_dot_scaled"] + (
+    CODED_KERNEL, CODED_TILE_KERNEL, NORMAL_KERNEL)
+
+
+def ssm_config(name: str, amm: dict, layers=None):
+    """``name`` at full width under ``amm``, cut to ``layers`` if given."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import AmmConfig
+    cfg = dataclasses.replace(get_arch(name), amm=AmmConfig(**amm))
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def ssm_prompts(cfg, seed: int = 41) -> list:
+    """``SSM_REQUESTS`` prompts: of DS_PROMPT tokens, every sixth of
+    2 * ssm_chunk tokens (``SSM_LONG`` of them)."""
+    rng = np.random.default_rng(seed)
+    every = SSM_REQUESTS // SSM_LONG
+    lens = [2 * cfg.ssm_chunk if i % every == every - 1
+            else int(rng.integers(*DS_PROMPT)) for i in range(SSM_REQUESTS)]
+    return [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+
+
+def ssd_timing(torch, dev, cfg, busy_ms: float, step_ms: float) -> list:
+    """The SSD scan at the served shapes: one ``ssd_decode_step`` at 8
+    slots, its device time summed over its kernels (the profiler; the
+    state read and written once bounds it) and its time a call between
+    CUDA events (the host's launches included), times the Mamba2 layers
+    of a decode step, as a share of the profiled window's device-busy
+    and wall time per step; one ``ssd_chunked`` of a 2-chunk prompt."""
+    from repro_torch.models.mamba2 import ssd_chunked, ssd_decode_step
+    h, p, n, g = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, \
+        cfg.ssm_groups
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(43)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    b = DS_SLOTS
+    a = -torch.exp(rnd(h) * 0.5)
+    d = rnd(h)
+    state = rnd(b, h, p, n)
+    args = (state, rnd(b, h, p), torch.rand((b, h), generator=gen,
+                                            device=dev) * 0.1, a,
+            rnd(b, h, n), rnd(b, h, n), d)
+    ms = kernel_device_ms(torch, lambda: ssd_decode_step(*args), 20, "")
+    if ms is None:
+        fail("the profiler recorded no device time for ssd_decode_step")
+    call_ms = cuda_ms(torch, lambda: ssd_decode_step(*args), 50)
+    nbytes = 4 * (2 * b * h * p * n + 2 * b * h * p + b * h + 2 * b * h * n)
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    per_step = ms * cfg.n_layers
+    lines = [
+        f"{cfg.name} SSD decode update (ssd_decode_step, plain PyTorch) at "
+        f"{b} slots x {h} heads x ({p}, {n}): {ms:.6f} ms of device time a "
+        f"layer (profiler, all its kernels), {call_ms:.6f} ms a call "
+        f"(CUDA events, the host's launches included), bound "
+        f"{bound:.6f} ms (bytes: the state read and written once, {nbytes} "
+        f"B; bound / device time {bound / ms:.4g}); x {cfg.n_layers} "
+        f"layers = {per_step:.4f} ms of device time a decode step, "
+        f"{per_step / busy_ms:.4f} of the window's device-busy time "
+        f"({busy_ms:.4f} ms), {per_step / step_ms:.4f} of its wall time "
+        f"({step_ms:.4f} ms)"]
+    q = cfg.ssm_chunk
+    args = (rnd(1, 2 * q, h, p), torch.rand((1, 2 * q, h), generator=gen,
+                                            device=dev) * 0.1, a,
+            rnd(1, 2 * q, g, n), rnd(1, 2 * q, g, n), d)
+    ms = kernel_device_ms(torch, lambda: ssd_chunked(*args, chunk=q), 10,
+                          "") or float("nan")
+    call_ms = cuda_ms(torch, lambda: ssd_chunked(*args, chunk=q), 10)
+    lines.append(f"{cfg.name} SSD chunked scan (ssd_chunked) of a "
+                 f"{2 * q}-token prompt (two chunks of {q}): {ms:.6f} ms of "
+                 f"device time a layer (profiler), {call_ms:.6f} ms a call "
+                 f"(CUDA events)")
+    return lines
+
+
+def ssm_phase(torch, dev, tb, qm, nm, card: str) -> tuple:
+    """Slice 8: mamba2-370m and zamba2-2.7b at full width and full depth,
+    served through the continuous Scheduler (zamba2 in noise mode on the
+    fused kernel and bitexact with apply_to="all" on the float cache),
+    then chameleon-34b at full width cut to ``VLM_LAYERS`` layers; returns
+    (printed lines, kernel entries)."""
+    import dataclasses
+    import gc
+
+    import repro_torch.models.common as common
+    from repro_torch.models import ModelRuntime, lm_init
+    lines, entries = [], []
+    counters = {"quant_matmul": qm.quant_matmul,
+                "bbm_dot_scaled": tb.bbm_dot_scaled,
+                "bbm_dot_coded_batched": tb.bbm_dot_coded_batched,
+                "normal_draw": nm.normal_draw}
+    none = {k: 0 for k in counters}
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        lines.append(f"  ({what}: {now - t_lap[0]:.1f} s)")
+        t_lap[0] = now
+
+    def init(cfg, what):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = lm_init(cfg, 0, device=dev)
+        torch.cuda.synchronize()
+        n = sum(v.numel() for v in _leaves(params))
+        lines.append(f"{cfg.name} at full width, {what}: {n} parameters, "
+                     f"{4 * n / 1e9:.2f} GB in f32, seeded on the card in "
+                     f"{time.perf_counter() - t0:.2f} s")
+        return params
+
+    def window(cfg, rt, params, name, kernels, forbid=()):
+        stats = {}
+        win, idle = ds_window(torch, dev, cfg, rt, params, False, name,
+                              kernels, forbid=forbid, stats=stats)
+        lines.extend(f"{cfg.name} {rt.amm.cfg.mode} " + ln.lstrip()
+                     for ln in win)
+        return idle, stats
+
+    # (a) mamba2-370m: no amm product, so no kernel of the port runs
+    cfg = ssm_config("mamba2-370m", DS_NOISE)
+    params = init(cfg, f"all {cfg.n_layers} layers")
+    rt = ModelRuntime.build(cfg)
+    res = ds_serve(torch, dev, cfg, rt, params, counters, none,
+                   kv_codes=False, first_step=None, prompts=ssm_prompts(cfg))
+    lines.append(ds_serve_line(
+        "noise (bbm0 WL 16 VBL 13, fused; no product is approximated)", res,
+        "no launch of any port kernel", arch=cfg.name))
+    lines.append(f"{cfg.name} prompt lengths {res['prompt_lens']}; peak "
+                 f"allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+                 f" GB")
+    lap("mamba2 served")
+    idle, st = window(cfg, rt, params, "none", (), forbid=PORT_KERNELS)
+    lines += ssd_timing(torch, dev, cfg, st["busy_ms"], st["wall_ms"])
+    lap("mamba2 window and SSD timing")
+    cut = dataclasses.replace(cfg, n_layers=SSM_CPU_LAYERS)
+    chk = lm_cpu_check(torch, dev, cut, rt, first_layers(params,
+                                                         SSM_CPU_LAYERS),
+                       state_forced=True)
+    lines.append(f"{cfg.name} card vs CPU port, cut to {SSM_CPU_LAYERS} "
+                 f"layers: {chk['calls']} calls "
+                 f"teacher-forced from the card's tokens and caches, logits "
+                 f"within {chk['worst']:.4g} of the card's largest "
+                 f"(tolerance {LOGIT_RTOL}), "
+                 f"{chk['checked']} greedy tokens decided and equal")
+    lap("mamba2 card vs CPU")
+    del params, res
+    gc.collect()
+
+    # (b) zamba2-2.7b, noise on the fused kernel, then bitexact
+    cfg_n = ssm_config("zamba2-2.7b", DS_NOISE)
+    cfg_b = ssm_config("zamba2-2.7b", DS_BITEXACT)
+    groups = cfg_n.n_layers // cfg_n.shared_attn_every
+    params = init(cfg_n, f"all {cfg_n.n_layers} layers ({groups} groups of "
+                         f"{cfg_n.shared_attn_every} Mamba2 layers, each "
+                         f"followed by the one shared attention + MLP block)")
+    prompts = ssm_prompts(cfg_n)
+    rt_n = ModelRuntime.build(cfg_n)
+    want_n = dict(none, quant_matmul=3 * groups)
+    captured = {}
+    with KernelCapture(common) as cap:
+        res_n = ds_serve(
+            torch, dev, cfg_n, rt_n, params, counters, want_n,
+            kv_codes=False, prompts=prompts,
+            first_step=(lambda: setattr(cap, "calls", []),
+                        lambda: captured.__setitem__("qm", cap.take())))
+    lines.append(ds_serve_line(
+        "noise (bbm0 WL 16 VBL 13, the fused kernel)", res_n,
+        f"{3 * groups} quant_matmul: the shared block's MLP x {groups} "
+        f"groups", arch=cfg_n.name))
+    n_qm, qm_worst, qm_err = qm_capture_check(torch, qm, captured.pop("qm"))
+    if n_qm != 2 * 3 * groups:
+        fail(f"zamba2's first step captured {n_qm} quant_matmul calls")
+    lines.append(f"{cfg_n.name} noise: the first step's {n_qm} quant_matmul "
+                 f"calls within the bound of the plain version (worst "
+                 f"error/bound {qm_worst:.3g}, max abs error {qm_err!r})")
+    rt_b = ModelRuntime.build(cfg_b)
+
+    def want_b(kind, tokens):
+        s = tokens.shape[1]
+        coded = 2 * groups * (-(-s // min(512, s))) * (-(-DS_LEN // min(
+            1024, DS_LEN)))
+        return dict(none, bbm_dot_scaled=3 * groups,
+                    bbm_dot_coded_batched=coded)
+    with KernelCapture(common) as cap:
+        res_b = ds_serve(
+            torch, dev, cfg_b, rt_b, params, counters, want_b,
+            kv_codes=False, prompts=prompts,
+            first_step=(lambda: setattr(cap, "calls", []),
+                        lambda: captured.__setitem__("b2", cap.take())))
+    lines.append(ds_serve_line(
+        "bitexact (bbm0 WL 16 VBL 13, apply_to=all, float cache)", res_b,
+        f"{3 * groups} bbm_dot_scaled and {2 * groups} bbm_dot_coded_batched"
+        f" (scores and values x {groups} groups), prefill and decode alike",
+        arch=cfg_b.name))
+    n_b2, b2_err = ds_b2_capture_check(torch, tb, captured.pop("b2"),
+                                       np.random.default_rng(45))
+    lines.append(f"{cfg_b.name} bitexact: the first step's {n_b2} B2 calls "
+                 f"bit-equal to their plain versions on sampled columns and "
+                 f"slices (max abs error {b2_err!r})")
+    if [r for r in (res_n, res_b) if r["tokens"] != SSM_REQUESTS * DS_NEW]:
+        fail("zamba2 did not generate every token")
+    lines.append(f"{cfg_n.name} prompt lengths {res_n['prompt_lens']}; peak "
+                 f"allocated {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+                 f" GB")
+    lap("zamba2 served twice, first steps checked")
+    idle_n, st = window(cfg_n, rt_n, params, "quant_matmul", QM_KERNELS)
+    lines += ssd_timing(torch, dev, cfg_n, st["busy_ms"], st["wall_ms"])
+    idle_b, _ = window(cfg_b, rt_b, params, "bbm_dot_scaled",
+                       TRAIN_KERNELS["bbm_dot_scaled"])
+    lap("zamba2 windows and SSD timing")
+    cut = dataclasses.replace(cfg_n, n_layers=HYBRID_CPU_GROUPS
+                              * cfg_n.shared_attn_every)
+    chk = lm_cpu_check(torch, dev, cut, rt_n,
+                       first_layers(params, HYBRID_CPU_GROUPS),
+                       state_forced=True)
+    lines.append(f"{cfg_n.name} noise card vs CPU port, cut to "
+                 f"{HYBRID_CPU_GROUPS} groups: {chk['calls']} "
+                 f"calls teacher-forced from the card's tokens and caches, "
+                 f"logits within {chk['worst']:.4g} of the card's largest "
+                 f"(tolerance {LOGIT_RTOL}), "
+                 f"{chk['checked']} greedy tokens decided and equal")
+    hd = cfg_b.resolved_head_dim
+    launches = {"quant_matmul": res_n["launches"]["quant_matmul"],
+                "bbm_dot_scaled": res_b["launches"]["bbm_dot_scaled"],
+                "bbm_dot_coded_batched":
+                    res_b["launches"]["bbm_dot_coded_batched"]}
+    k_lines, k_entries = kernel_shape_timing(
+        torch, dev, tb, qm, rt_n, params["shared_block"]["mlp"],
+        res_b["planes"]["shared_block"]["mlp"],
+        (DS_SLOTS * cfg_b.n_heads, {"qk": (hd, DS_LEN), "pv": (DS_LEN, hd)}),
+        launches, "zamba2 decode", "zamba2 decode attention")
+    lines += k_lines
+    lap("zamba2 card vs CPU and kernel timing")
+    for e in k_entries:
+        e["idle_share"] = idle_n if e["name"].startswith("quant") else idle_b
+    entries += k_entries
+    del params, res_n, res_b
+    gc.collect()
+
+    # (c) chameleon-34b, full width cut to VLM_LAYERS layers, noise fused
+    cfg = ssm_config("chameleon-34b", DS_NOISE, layers=VLM_LAYERS)
+    params = init(cfg, f"cut to {VLM_LAYERS} of 48 layers")
+    rt = ModelRuntime.build(cfg)
+    res = ds_serve(torch, dev, cfg, rt, params, counters,
+                   dict(none, quant_matmul=3 * VLM_LAYERS), kv_codes=False,
+                   first_step=None, prompts=ssm_prompts(cfg)[:VLM_REQUESTS])
+    lines.append(ds_serve_line(
+        "noise (bbm0 WL 16 VBL 13, the fused kernel, qk_norm)", res,
+        f"{3 * VLM_LAYERS} quant_matmul", arch=cfg.name))
+    idle, _ = window(cfg, rt, params, "quant_matmul", QM_KERNELS)
+    chk = lm_cpu_check(torch, dev, cfg, rt, params)
+    lines.append(f"{cfg.name} card vs CPU port: {chk['calls']} calls "
+                 f"teacher-forced, logits within {chk['worst']:.4g} of the "
+                 f"card's largest (tolerance {LOGIT_RTOL}), "
+                 f"{chk['checked']} greedy tokens decided and equal")
+    k_lines, k_entries = kernel_shape_timing(
+        torch, dev, tb, qm, rt,
+        {k: v[0] for k, v in params["layers"]["mlp"].items()}, None, None,
+        {"quant_matmul": res["launches"]["quant_matmul"]},
+        "chameleon decode")
+    lines += k_lines
+    lap("chameleon")
+    for e in k_entries:
+        e["idle_share"] = idle
+    entries += k_entries
+    del params, res
+    gc.collect()
+    lines.append(f"slice 8 phase on {card}")
     return lines, entries
 
 
@@ -4537,6 +4879,17 @@ def main() -> None:
     for line in lines:
         print(line)
     print(f"deepseek-v3 phase: {time.perf_counter() - t0:.1f} s")
+    kernels += entries
+
+    # ------ slice 8: mamba2-370m, zamba2-2.7b (SSM, hybrid), chameleon-34b
+    # after the deepseek-v3 phase has freed its 56 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines, entries = ssm_phase(torch, dev, tb, qm, nm, gpu_line())
+    for line in lines:
+        print(line)
+    print(f"slice 8 phase: {time.perf_counter() - t0:.1f} s")
     kernels += entries
 
     print(f"gpu: {gpu_line()}")

@@ -15,12 +15,12 @@ _PORTED = {
     "yi-34b": "yi_34b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "grok-1-314b": "grok1_314b",
+    "mamba2-370m": "mamba2_370m",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "chameleon-34b": "chameleon_34b",
 }
 _NOT_PORTED = {
-    "mamba2-370m": "A12 (SSM)",
     "whisper-base": "A12 (encoder-decoder)",
-    "chameleon-34b": "A12 (VLM)",
-    "zamba2-2.7b": "A12 (hybrid)",
 }
 
 ARCH_NAMES = sorted(_PORTED.keys() | _NOT_PORTED.keys())

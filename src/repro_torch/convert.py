@@ -58,7 +58,8 @@ def lm_params_from_numpy(tree, *, device=None, dtype=torch.float32):
     ``tree`` is ``repro.models.lm_init``'s nested dict with every leaf
     turned into a numpy array (e.g. ``jax.tree.map(np.asarray, params)``);
     the keys, the lists (a MoE model's ``dense_prefix``) and the
-    layer-stacked shapes are the port's own, so the tree is copied leaf
+    layer-stacked shapes (a hybrid's (groups, per, ...) Mamba2 stack and
+    its ``shared_block``) are the port's own, so the tree is copied leaf
     for leaf onto ``device`` (the GPU unless told otherwise).
     """
     dev = resolve_device(device)

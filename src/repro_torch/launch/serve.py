@@ -6,6 +6,9 @@
     python -m repro_torch.launch.serve --arch qwen2-0.5b --reduced \
         --amm bitexact --amm-attn --kv-codes --continuous
 
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --reduced \
+        --amm noise --amm-pallas --continuous
+
 Counterpart of ``repro.launch.serve`` with the same flags.  It runs on
 the GPU (``--device cpu`` runs the kernels' plain versions).  The
 parameters are random, from a seeded generator.
@@ -24,9 +27,14 @@ only).  ``--kv-codes`` stores the KV cache as WL-bit codes plus
 per-block f32 scales, decoded straight from the codes
 (``bbm_dot_coded_batched``); it needs ``--amm bitexact``, a Booth-family
 ``--mul`` and ``--amm-attn``.  ``--continuous`` switches the Scheduler
-to continuous batching.  The reference's ``--flash-attn`` is left out:
-under the Scheduler every call carries a cache, so it changes nothing
-there (ROADMAP C3).
+to continuous batching.  The SSM (``mamba2-370m``) and hybrid
+(``zamba2-2.7b``) archs serve from their scan and conv state (and the
+hybrid's shared-block KV cache); ``--kv-codes`` is refused for them, as
+the reference refuses it (the code cache holds attention K/V only), and
+a continuous-mode prompt longer than ``ssm_chunk`` that is not a
+multiple of it fails its request, as in the reference (ROADMAP C11).
+The reference's ``--flash-attn`` is left out: under the Scheduler every
+call carries a cache, so it changes nothing there (ROADMAP C3).
 """
 from __future__ import annotations
 

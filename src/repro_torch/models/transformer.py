@@ -1,9 +1,16 @@
-"""Decoder-only LM: the dense family, [attention + gated MLP] x L, and
-the MoE family, a dense prefix then [attention + MoE] x L, with GQA or
-multi-head latent attention (DeepSeek-V3).
+"""Decoder-only LM over the dense, VLM, MoE, SSM and hybrid families:
 
-Counterpart of the dense and MoE halves of ``repro.models.transformer``:
-``ModelRuntime``, ``lm_table``/``lm_init``, ``init_cache``,
+  * dense / vlm: [attention + gated MLP] x L (a VLM's image tokens are
+    ordinary vocabulary entries);
+  * moe:         a dense prefix then [attention + MoE] x L, with GQA or
+                 multi-head latent attention (DeepSeek-V3);
+  * ssm:         [Mamba2] x L;
+  * hybrid:      groups of ``shared_attn_every`` Mamba2 layers, each
+                 group followed by one weight-shared attention + MLP
+                 block (Zamba2), whose KV cache is stacked per group.
+
+Counterpart of ``repro.models.transformer`` without its encoder-decoder
+branch: ``ModelRuntime``, ``lm_table``/``lm_init``, ``init_cache``,
 ``lm_amm_planes`` and ``lm_apply`` in train, prefill and decode modes.
 The reference scans its layers with ``jax.lax.scan``; here a Python loop
 walks the layer-stacked parameters.  A MoE model's first
@@ -11,6 +18,13 @@ walks the layer-stacked parameters.  A MoE model's first
 (``"dense_prefix"``), run first; its caches stay stacked over all
 layers, prefix first.  The residual stream is bf16 and the float cache
 bf16, as in the reference.
+
+The attention caches are written in place; the SSM leaves (``ssm``, f32,
+and ``conv``) are returned as new tensors, as the reference returns
+them: the conv state comes back f32 whatever the cache held (the bf16
+history is promoted by the f32 projection), so a cache's ``conv`` leaf
+changes dtype with its first decode, and a caller rebinds the caches it
+gets back (ROADMAP C12).
 
 The bitexact datapath's weight side is precoded once for fixed weights
 (``lm_amm_planes``, ``ModelRuntime.build_planes``) and threaded through
@@ -26,10 +40,13 @@ prefix first, then its stack from the carried key), and the layer's
 from it; the fused kernel takes ``randint(layer key)`` as its seed).
 ``core.prng`` computes both on the host, cached.
 
-The SSM, hybrid, encoder-decoder and VLM families are ROADMAP item A12
-and raise ``NotImplementedError``.  ``lm_loss`` is the training loss of
-the cacheless train mode for the dense family; the MoE family's (its
-auxiliary and MTP terms) is item A16.
+In the hybrid, the shared block of each group takes the group's key: one
+split of the chain per group, after its Mamba2 layers, which take none.
+
+The encoder-decoder family is ROADMAP item A12 and raises
+``NotImplementedError``.  ``lm_loss`` is the training loss of the
+cacheless train mode; the MoE family's (its auxiliary and MTP terms) is
+item A16.
 """
 from __future__ import annotations
 
@@ -44,6 +61,7 @@ from ..device import pin_fp32, resolve_device
 from .attention import attention, attn_table, mla_attention, mla_table
 from .common import (AmmRuntime, Spec, cross_entropy_loss, init_params,
                      rmsnorm)
+from .mamba2 import mamba_apply, mamba_table
 from .moe import mlp_apply, mlp_table, moe_apply, moe_table
 
 __all__ = ["ModelRuntime", "lm_table", "lm_init", "lm_apply", "lm_loss",
@@ -77,16 +95,18 @@ class ModelRuntime:
 
 
 def _family(cfg: ArchConfig) -> str:
-    """The ported family of ``cfg`` ("dense" or "moe"); the others raise
-    the ROADMAP item that ports them."""
-    if cfg.family == "dense" and not cfg.is_encoder_decoder \
+    """The ported family of ``cfg``: "dense" (a VLM's stack is the dense
+    one), "moe", "ssm" or "hybrid"; the encoder-decoder family raises the
+    ROADMAP item that ports it."""
+    if cfg.family in ("dense", "vlm") and not cfg.is_encoder_decoder \
             and not cfg.use_mla:
         return "dense"
-    if cfg.family == "moe":
-        return "moe"
+    if cfg.family in ("moe", "ssm", "hybrid"):
+        return cfg.family
     raise NotImplementedError(
         f"model family {cfg.family!r} of {cfg.name!r} is not ported yet "
-        f"(ROADMAP item A12); the dense and MoE families are")
+        f"(ROADMAP item A12); the dense, VLM, MoE, SSM and hybrid "
+        f"families are")
 
 
 def _stack(table: Dict, n: int) -> Dict:
@@ -116,6 +136,20 @@ def _moe_layer_table(cfg: ArchConfig) -> Dict[str, Any]:
     return t
 
 
+def _ssm_layer_table(cfg: ArchConfig) -> Dict[str, Any]:
+    return {"norm": Spec((cfg.d_model,), ("embed",), "ones"),
+            "mamba": mamba_table(cfg)}
+
+
+def _groups(cfg: ArchConfig) -> int:
+    """A hybrid's number of (Mamba2 group, shared block) pairs."""
+    if cfg.n_layers % cfg.shared_attn_every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of shared_attn_every "
+                         f"{cfg.shared_attn_every}")
+    return cfg.n_layers // cfg.shared_attn_every
+
+
 def lm_table(cfg: ArchConfig) -> Dict[str, Any]:
     family = _family(cfg)
     d, v = cfg.d_model, cfg.vocab
@@ -127,6 +161,14 @@ def lm_table(cfg: ArchConfig) -> Dict[str, Any]:
         t["lm_head"] = Spec((d, v), ("embed", "vocab"), "normal", 0.01)
     if family == "dense":
         t["layers"] = _stack(_dense_layer_table(cfg), cfg.n_layers)
+        return t
+    if family == "ssm":
+        t["layers"] = _stack(_ssm_layer_table(cfg), cfg.n_layers)
+        return t
+    if family == "hybrid":                        # (groups, per, ...)
+        t["layers"] = _stack(_stack(_ssm_layer_table(cfg),
+                                    cfg.shared_attn_every), _groups(cfg))
+        t["shared_block"] = _dense_layer_table(cfg)
         return t
     t["dense_prefix"] = [_dense_layer_table(cfg)
                          for _ in range(cfg.first_k_dense)]
@@ -159,9 +201,11 @@ def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):
     N), one scale per layer), sliced per layer by ``lm_apply``; for the
     MoE family ``{"dense_prefix": [{"mlp": ...} per prefix layer]}`` and,
     with a shared expert, ``"layers": {"moe": {"shared": ...}}`` stacked
-    (the routed experts are not approximated).  None when the mode
-    caches nothing (not bitexact, or a non-Booth family) or when no MLP
-    product is approximated (``apply_to="attn"``)."""
+    (the routed experts are not approximated); for the hybrid
+    ``{"shared_block": {"mlp": ...}}``, once for every group.  None when
+    the mode caches nothing (not bitexact, or a non-Booth family), when
+    no MLP product is approximated (``apply_to="attn"``), or for the SSM
+    family, which has no approximated product."""
     if not (amm.cacheable and amm.mlp_active):
         return None
     family = _family(cfg)
@@ -170,6 +214,10 @@ def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):
         return {k: amm.precode(p[k]) for k in ("w_gate", "w_up", "w_down")}
     if family == "dense":
         return {"layers": {"mlp": mlp(params["layers"]["mlp"])}}
+    if family == "hybrid":
+        return {"shared_block": {"mlp": mlp(params["shared_block"]["mlp"])}}
+    if family == "ssm":
+        return None
     planes = {"dense_prefix": [{"mlp": mlp(p["mlp"])}
                                for p in params["dense_prefix"]]}
     if cfg.n_shared_experts:
@@ -180,10 +228,29 @@ def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
                dtype=torch.bfloat16, device=None) -> Dict[str, torch.Tensor]:
-    """Layer-stacked float KV cache: k, v (L, B, max_len, KV, head_dim);
-    with MLA the compressed latent, (L, B, max_len, kv_lora + rope)."""
-    _family(cfg)
+    """Layer-stacked decode caches: k, v (L, B, max_len, KV, head_dim);
+    with MLA the compressed latent, (L, B, max_len, kv_lora + rope); for
+    the SSM family the scan state ``ssm`` (L, B, H, P, N) f32 and the
+    conv history ``conv`` (L, B, conv - 1, conv_dim) in ``dtype``; for the
+    hybrid the same with (groups, per) for L, and k, v stacked over the
+    groups (one shared-block call each)."""
+    family = _family(cfg)
     dev = resolve_device(device)
+    if family in ("ssm", "hybrid"):
+        lead = ((cfg.n_layers,) if family == "ssm"
+                else (_groups(cfg), cfg.shared_attn_every))
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+        c = {"ssm": torch.zeros(lead + (batch, cfg.ssm_heads,
+                                        cfg.ssm_headdim, cfg.ssm_state),
+                                dtype=torch.float32, device=dev),
+             "conv": torch.zeros(lead + (batch, cfg.ssm_conv - 1, conv_dim),
+                                 dtype=dtype, device=dev)}
+        if family == "hybrid":
+            shape = (_groups(cfg), batch, max_len, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            c["k"] = torch.zeros(shape, dtype=dtype, device=dev)
+            c["v"] = torch.zeros(shape, dtype=dtype, device=dev)
+        return c
     if cfg.use_mla:
         return {"latent": torch.zeros(
             (cfg.n_layers, batch, max_len,
@@ -226,6 +293,13 @@ def _moe_block(p, h, cfg, rt, key, *, positions, cache=None, pos=None,
     return h + y.to(h.dtype), new_cache, aux
 
 
+def _ssm_block(p, h, cfg, *, state=None, conv_state=None):
+    y, new_states = mamba_apply(p["mamba"], rmsnorm(h, p["norm"],
+                                                    cfg.norm_eps),
+                                cfg, state=state, conv_state=conv_state)
+    return h + y.to(h.dtype), new_states
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a layer-stacked parameter tree (views)."""
     if isinstance(tree, dict):
@@ -242,11 +316,14 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     caches: optional ``init_cache`` dict or int-code cache
     (``serve.kv_cache.init_code_cache``; MLA's latent caches for
     deepseek-v3), stacked over all layers (a MoE model's dense prefix
-    first), updated in place at ``pos`` (a
-    scalar, or a (B,) per-slot vector under continuous batching) and
-    returned; without caches the attention is the cacheless causal
-    schedule (train and prefill), or the flash kernels with
-    ``rt.use_pallas_attention``.  rng: the key the noise seeds derive
+    first), its attention leaves updated in place at ``pos`` (a
+    scalar, or a (B,) per-slot vector under continuous batching); the
+    returned dict holds them and, for the SSM and hybrid families, the
+    new ``ssm`` and ``conv`` leaves (new tensors, conv f32: rebind the
+    caches to what comes back).  A multi-token call against SSM state
+    prefills from the empty state.  Without caches the attention is the
+    cacheless causal schedule (train and prefill), or the flash kernels
+    with ``rt.use_pallas_attention``.  rng: the key the noise seeds derive
     from, as an int seed (``jax.random.key(rng)``; default 0) or a
     ``core.prng`` key.  amm_planes: an optional ``lm_amm_planes`` cache,
     bit-identical to none.
@@ -260,7 +337,6 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     dev = embed.device
     tokens = torch.as_tensor(tokens, device=dev).to(torch.int64)
     root = rng if isinstance(rng, tuple) else (0 if rng is None else int(rng))
-    keys = layer_keys(root, cfg.n_layers)
     h = embed[tokens].to(torch.bfloat16)
     b, s = tokens.shape
     off = torch.as_tensor(0 if pos is None else pos, device=dev).to(
@@ -269,6 +345,82 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
         off = off[:, None]
     positions = (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
                  + off) * torch.ones((b, 1), dtype=torch.int32, device=dev)
+    aux = {"moe_aux": 0.0}
+    if family == "ssm":
+        h, new_caches = _ssm_stack(params["layers"], h, cfg, caches)
+    elif family == "hybrid":
+        h, new_caches = _hybrid_stack(params, h, cfg, rt, caches, root,
+                                      amm_planes, positions=positions,
+                                      pos=pos)
+    else:
+        h, aux["moe_aux"] = _attn_stack(params, h, cfg, rt, caches, root,
+                                        amm_planes, positions=positions,
+                                        pos=pos)
+        new_caches = caches if caches is not None else {}
+    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
+    head = embed.T if cfg.tie_embeddings else params["lm_head"]
+    logits = (h @ head.to(h.dtype)).to(torch.float32)
+    return logits, aux, new_caches
+
+
+def _ssm_layers(p_stack, h, cfg, n: int, ssm=None, conv=None):
+    """``n`` layer-stacked Mamba2 layers, with their states stacked the
+    same way (``ssm``, ``conv``) or None; returns (h, [new ssm states],
+    [new conv states])."""
+    new_s, new_c = [], []
+    for i in range(n):
+        h, (ns, nc) = _ssm_block(_layer(p_stack, i), h, cfg,
+                                 state=None if ssm is None else ssm[i],
+                                 conv_state=None if conv is None else conv[i])
+        new_s.append(ns)
+        new_c.append(nc)
+    return h, new_s, new_c
+
+
+def _ssm_stack(p_stack, h, cfg, caches):
+    """The SSM family's stack; returns (h, the new ``{"ssm", "conv"}``
+    leaves, or {} without caches)."""
+    if caches is None:
+        return _ssm_layers(p_stack, h, cfg, cfg.n_layers)[0], {}
+    h, new_s, new_c = _ssm_layers(p_stack, h, cfg, cfg.n_layers,
+                                  caches["ssm"], caches["conv"])
+    return h, {"ssm": torch.stack(new_s), "conv": torch.stack(new_c)}
+
+
+def _hybrid_stack(params, h, cfg, rt, caches, root, amm_planes, *,
+                  positions, pos):
+    """The hybrid's groups: ``shared_attn_every`` Mamba2 layers, then the
+    shared block on the group's key and its slice of the k, v caches.
+    Returns (h, the caches with new ``ssm`` and ``conv`` leaves, or {})."""
+    groups, per = _groups(cfg), cfg.shared_attn_every
+    keys = layer_keys(root, groups)
+    shared = params["shared_block"]
+    planes = (amm_planes or {}).get("shared_block")
+    new_s, new_c = [], []
+    for g in range(groups):
+        states = ((None, None) if caches is None
+                  else (caches["ssm"][g], caches["conv"][g]))
+        h, ns, nc = _ssm_layers(_layer(params["layers"], g), h, cfg, per,
+                                *states)
+        new_s += ns
+        new_c += nc
+        cache_g = (None if caches is None
+                   else {"k": caches["k"][g], "v": caches["v"][g]})
+        h, _ = _dense_block(shared, h, cfg, rt, keys[g], positions=positions,
+                            cache=cache_g, pos=pos, planes=planes)
+    if caches is None:
+        return h, {}
+    lead = (groups, per)
+    return h, dict(caches,
+                   ssm=torch.stack(new_s).reshape(lead + new_s[0].shape),
+                   conv=torch.stack(new_c).reshape(lead + new_c[0].shape))
+
+
+def _attn_stack(params, h, cfg, rt, caches, root, amm_planes, *, positions,
+                pos):
+    """The dense and MoE stacks; returns (h, the MoE auxiliary loss)."""
+    family = _family(cfg)
+    keys = layer_keys(root, cfg.n_layers)
     planes = (amm_planes or {}).get("layers")
     # the layer's cache leaves, float ({"k", "v"} or {"latent"}) or code
     # ({"k_codes", ...} or {"lat_codes", "lat_scale"}): attention routes
@@ -283,7 +435,7 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
                             else None)
     aux_total = 0.0
     if family == "moe":
-        aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+        aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for j in range(cfg.n_layers - len(prefix)):
         i = len(prefix) + j
         cache_l = None if caches is None else _layer(caches, i)
@@ -297,17 +449,13 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
                                    keys[i], positions=positions,
                                    cache=cache_l, pos=pos, planes=planes_l)
             aux_total = aux_total + aux
-    h = rmsnorm(h, params["final_norm"], cfg.norm_eps)
-    head = embed.T if cfg.tie_embeddings else params["lm_head"]
-    logits = (h @ head.to(h.dtype)).to(torch.float32)
-    new_caches = caches if caches is not None else {}
-    return logits, {"moe_aux": aux_total}, new_caches
+    return h, aux_total
 
 
 def lm_loss(params, cfg: ArchConfig, rt: ModelRuntime, tokens, labels, *,
             rng=None, moe_aux_weight: float = 1e-2):
     """Training loss: next-token cross entropy (with the z-loss) plus the
-    MoE auxiliary loss, which the dense family leaves at 0.  Returns
+    MoE auxiliary loss, which the other families leave at 0.  Returns
     (total, {"ce", "moe_aux"}).  The MoE family's loss (its auxiliary
     term and the MTP head's) is ROADMAP item A16 and raises."""
     if _family(cfg) == "moe":

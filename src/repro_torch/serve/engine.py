@@ -19,8 +19,13 @@ reference's flush mode (lockstep, one prompt token per step) or its
 continuous mode (per-step FIFO admission, whole-prompt prefill on a
 batch-1 slot slice, per-slot-position decode, eviction on completion or
 failure), with its retries, poison-request probes, deadlines and guards.
-The caches live on the scheduler's device and are updated in place (the
-reference replaces them with each call's result).
+The caches live on the scheduler's device; the attention leaves are
+updated in place (the reference replaces them with each call's result),
+the SSM and hybrid families' ``ssm`` and ``conv`` leaves come back as new
+tensors, and the scheduler rebinds the caches to each call's result.  A
+prefill's state written back into a slot takes the cache leaf's dtype
+(a bf16 ``conv`` leaf until the first decode returns it f32, as in the
+reference; ROADMAP C12).
 
 ``FilterbankEngine`` serves the paper's own workload: filtering requests
 accumulate into channel slots and are served by one multi-channel
@@ -57,10 +62,22 @@ def cache_logical_axes(cfg: ArchConfig, *,
                        kv_codes: bool = False) -> Dict[str, Any]:
     """Logical axes of every cache leaf of ``models.init_cache`` (the
     dense family's k and v; the MoE family's MLA latent, or its k and v
-    without MLA), or with ``kv_codes=True`` of
+    without MLA; the SSM family's scan state and conv history; the
+    hybrid's, under a group axis that puts the batch at depth 2, beside
+    its k and v), or with ``kv_codes=True`` of
     ``serve.kv_cache.init_code_cache``."""
     if kv_codes:
         return code_cache_logical_axes(cfg)
+    if cfg.family == "ssm":
+        return {"ssm": ("layers", "batch", "ssm_heads", "head_dim",
+                        "ssm_state"),
+                "conv": ("layers", "batch", "conv", "ssm_inner")}
+    if cfg.family == "hybrid":
+        kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
+        return {"ssm": ("layers", None, "batch", "ssm_heads", "head_dim",
+                        "ssm_state"),
+                "conv": ("layers", None, "batch", "conv", "ssm_inner"),
+                "k": kvax, "v": kvax}
     if cfg.use_mla:
         return {"latent": ("layers", "batch", "seq_model", "kv_latent")}
     kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
@@ -317,8 +334,9 @@ class Scheduler:
 
     ``device``: where the caches live and the steps run (the GPU unless
     told otherwise); ``params`` must already be there.  The default step
-    functions update the caches in place; a retry rewrites the same
-    positions from the same inputs.  A supplied ``decode_fn`` counts as
+    functions update the attention caches in place; a retry rewrites the
+    same positions from the same inputs (the SSM state is returned anew,
+    so a failed step leaves it as it was).  A supplied ``decode_fn`` counts as
     consuming its caches, as a donating jitted step does in the
     reference: retries then snapshot the caches first.
     """

@@ -312,7 +312,7 @@ def test_unported_parts_name_their_roadmap_item(tmp_path):
     from repro_torch.models.common import AmmRuntime
     from repro_torch.configs.base import AmmConfig
     with pytest.raises(NotImplementedError, match="A12"):
-        get_arch("mamba2-370m")
+        get_arch("whisper-base")
     # --kv-codes takes the reference's parse-time rules (bitexact, a Booth
     # family, --amm-attn): each missing piece is an argparse error
     for flag in (["--kv-codes"], ["--kv-codes", "--amm", "bitexact"],

@@ -408,17 +408,16 @@ def test_lm_amm_planes_tree_matches_the_reference():
 # ------------------------------------------------------------- registry
 def test_registry_ports_the_moe_and_dense_configs():
     for name in ("deepseek-v3-671b", "grok-1-314b", "qwen1.5-110b",
-                 "llama3.2-3b", "yi-34b", "qwen2-0.5b"):
+                 "llama3.2-3b", "yi-34b", "qwen2-0.5b", "mamba2-370m",
+                 "zamba2-2.7b", "chameleon-34b"):
         want = dataclasses.asdict(j_get(name))
         got = dataclasses.asdict(t_get(name))
         assert got == want, name
         assert dataclasses.asdict(t_reduced(t_get(name))) \
             == dataclasses.asdict(j_reduced(j_get(name))), name
-    for name, item in (("mamba2-370m", "A12"), ("zamba2-2.7b", "A12"),
-                       ("whisper-base", "A12"), ("chameleon-34b", "A12")):
-        assert name in ARCH_NAMES
-        with pytest.raises(NotImplementedError, match=item):
-            t_get(name)
+    assert "whisper-base" in ARCH_NAMES
+    with pytest.raises(NotImplementedError, match="A12"):
+        t_get("whisper-base")
     _, t_cfg = _cfgs("deepseek-v3-671b")
     tp = _weights("deepseek-v3-671b")[1]
     toks = torch.zeros((1, 4), dtype=torch.int64)
@@ -428,7 +427,7 @@ def test_registry_ports_the_moe_and_dense_configs():
     with pytest.raises(NotImplementedError, match="A16"):
         t_train.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
                       "cpu", "--steps", "1"])
-    for fam in ("ssm", "hybrid", "audio", "vlm"):
+    for fam in ("audio",):
         cfg = dataclasses.replace(t_cfg, family=fam, use_mla=False)
         with pytest.raises(NotImplementedError, match="A12"):
             t_apply(tp, cfg, TRT.build(cfg), toks)
