@@ -191,7 +191,8 @@ of the JAX package.  Phases, each of which fails the run:
      ``lm_apply`` call and no ``quant_matmul``; nothing failed, every logit
      finite; decode p50 / p90 and tokens/s beside the fused kernel's path
      of phase 7; 10^7 draws' mean and std against N(0, 1); two requests
-     replayed on the CPU port (logits within ``LOGIT_RTOL``); a profiled
+     replayed on the CPU port on a 6-layer cut (logits within
+     ``LOGIT_RTOL``); a profiled
      decode window (idle share; no ``quant_matmul`` kernel in it);
  22. the paper's tables: Table I at WL 12 over all 2^24 pairs on the
      card, equal to the CPU port's floats, beside the paper's values; Fig.
@@ -227,6 +228,32 @@ of the JAX package.  Phases, each of which fails the run:
      (7168, 18432) and (8, 18432) x (18432, 7168), the batched coded
      entry at MLA's decode shapes) against its bound, its plain version
      and an f32 PyTorch product.
+ 24. slice 8, the SSM and hybrid families: mamba2-370m and zamba2-2.7b at
+     full width and depth through the continuous ``Scheduler`` (zamba2 in
+     noise on the fused kernel and bitexact on the float cache),
+     chameleon-34b cut to 2 layers, each call's launches held, decode
+     windows, the SSD's share, depth-cut CPU replays and the kernels at
+     the new shapes (``ssm_phase``).
+ 25. slice 9, the encoder-decoder family (``whisper_phase``):
+     whisper-base at full width and depth (6 + 6 layers, 109,749,248
+     parameters) served through ``make_serve_fns`` (the ``Scheduler``
+     cannot serve it): a static batch of 8 prompts of 16 tokens, 32 new
+     each, max_len 448, seeded frame embeddings (8, 1500, 512) in every
+     call, in noise on the fused kernel (36 ``quant_matmul`` a call), on
+     the plain branch (36 ``normal_draw``) and bitexact with
+     ``apply_to="all"`` on the float cache (36 ``bbm_dot_scaled`` and
+     108 ``bbm_dot_coded_batched``); every call's launches held, the first
+     call's kernel calls against their plain versions, decode p50 / p90,
+     tokens/s, idle share and the recomputed encoder's share of a step
+     (ROADMAP C15); two sequences replayed on the CPU port (exact mode);
+     training through ``launch.train --arch whisper-base`` on the
+     launcher's zero embeddings, 3 steps each of T1 (36
+     ``bbm_dot_scaled``, 12 ``flash_attention_amm``, 24 coded a step: the
+     cross-attention stays chunked, C16) and T2 (12 ``flash_attention``),
+     one step on seeded embeddings, a 2 + 2 layer card-vs-CPU loss; both
+     flash kernels and their gradients at whisper's shapes (Sq != Skv,
+     one query against 1,500 keys, all-zero K and V); each kernel at the
+     encoder's shapes against its bound and a PyTorch call.
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -1375,10 +1402,16 @@ def flash_amm_kv_len_check(torch, tf, q, k, v, *, kv_len, kind, causal):
     return rep
 
 
+# the flash sweep's cross-attention shapes (Sq, Skv): non-square, and a
+# ragged key length
+FLASH_CROSS = ((128, 384), (200, 300))
+
+
 def flash_sweep(torch, tf, dev) -> tuple:
     """Both flash kernels within their bounds of their plain versions
     (the amm kernel through ``flash_amm_check``) at S in {128, 384, 512}
-    (d 64), a ragged S = 200 at d in {16, 32, 64}, causal and not, and
+    (d 64), a ragged S = 200 at d in {16, 32, 64}, causal and not, at
+    Sq != Skv (``FLASH_CROSS``, not causal), and
     the amm kernel with a valid KV length below the padded one; kind 1's
     dead tiles computed (their P V products not 0) at S = 512 causal; the
     whole amm output bit-equal where P is one-hot.  Returns (cases, worst
@@ -1416,6 +1449,22 @@ def flash_sweep(torch, tf, dev) -> tuple:
                     # tile 3 is dead for q-block 0: kind 1 computes it
                     if not bool((res["pv"][:, 3, :128] != 0).any()):
                         fail("kind 1's dead tiles were not computed")
+    # Sq != Skv (cross-attention): a non-square case and a ragged key
+    # length (300 = 2 x 128 + 44 for the amm kernel's tiles, 4 x 64 + 44
+    # for the exact kernel's), both non-causal
+    for sq, skv in FLASH_CROSS:
+        q = torch.randn((2, 6, sq, 64), generator=gen, device=dev)
+        k, v = (torch.randn((2, 6, skv, 64), generator=gen, device=dev)
+                for _ in range(2))
+        what = f"at q {tuple(q.shape)} against {skv} keys, not causal"
+        worst["flash_attention"] = max(
+            worst["flash_attention"],
+            flash_exact_check(torch, tf, q, k, v, causal=False, what=what))
+        cases += 1
+        for kind in (0, 1):
+            note(flash_amm_check(torch, tf, q, k, v, kind=kind, causal=False,
+                                 what=what))
+            cases += 1
     # valid KV length below the padded one: whole tiles dead for every row
     q, k, v = (torch.randn((2, 6, 512, 64), generator=gen, device=dev)
                for _ in range(3))
@@ -1533,10 +1582,11 @@ class MmaLaunches:
         self.fn.mma_launches = value
 
 
-def train_run(torch, flags, counters) -> dict:
-    """One run of the training launcher's ``main`` at full width; the
-    launch counts of every kernel per step, the steps' wall times, and a
-    torch.profiler breakdown of the last step."""
+def train_run(torch, flags, counters, batch: int = TRAIN_BATCH,
+              seq: int = TRAIN_SEQ) -> dict:
+    """One run of the training launcher's ``main`` at full width, ``batch``
+    x ``seq``; the launch counts of every kernel per step, the steps' wall
+    times, and a torch.profiler breakdown of the last step."""
     import shutil
     from torch.profiler import ProfilerActivity, profile
     import repro_torch.launch.train as launch
@@ -1548,7 +1598,7 @@ def train_run(torch, flags, counters) -> dict:
     def counted_make(cfg, rt, tc):
         step = make(cfg, rt, tc)
 
-        def counted(params, opt, tokens, labels, key):
+        def counted(params, opt, tokens, labels, key, **kw):
             before = {n: f.launches for n, f in counters.items()}
             last = len(steps) == TRAIN_STEPS - 1
             prof = profile(activities=[ProfilerActivity.CUDA]) if last \
@@ -1557,7 +1607,7 @@ def train_run(torch, flags, counters) -> dict:
             if prof is not None:
                 prof.start()
             t0 = time.perf_counter()
-            out = step(params, opt, tokens, labels, key)
+            out = step(params, opt, tokens, labels, key, **kw)
             loss = float(out[2]["loss"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
@@ -1575,7 +1625,7 @@ def train_run(torch, flags, counters) -> dict:
     try:
         t0 = time.perf_counter()
         hist = launch.main(flags + [
-            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+            "--batch", str(batch), "--seq", str(seq), "--steps",
             str(TRAIN_STEPS), "--ckpt-dir", str(ckpt)])
         run_s = time.perf_counter() - t0
     finally:
@@ -1832,22 +1882,25 @@ FLASH_TILES = {"flash_attention": (64, 64), "flash_attention_amm": (128, 128)}
 B2_BEFORE_MS = {(2048, 896, 4864): 15.095584, (2048, 4864, 896): 17.864314}
 
 
-def flash_raw_ms(torch, q, k, v, reps: int = 50) -> float:
-    """ms per launch of the exact flash kernel alone (causal), between
-    CUDA events over back-to-back launches through its C entry point: the
-    wrapper's host work (checks, layout, about 20 us of Python) exceeds
-    the kernel's time, so timing wrapper calls measures the host."""
+def flash_raw_ms(torch, q, k, v, reps: int = 50,
+                 causal: bool = True) -> float:
+    """ms per launch of the exact flash kernel alone, between CUDA events
+    over back-to-back launches through its C entry point: the wrapper's
+    host work (checks, layout, about 20 us of Python) exceeds the
+    kernel's time, so timing wrapper calls measures the host."""
     from repro_torch.kernels._build import library
     lib = library("flash_attention")
     b, h, s_len, d = q.shape
-    qc, kc, vc = (t.reshape(b * h, s_len, d).contiguous() for t in (q, k, v))
+    skv = k.shape[2]
+    qc = q.reshape(b * h, s_len, d).contiguous()
+    kc, vc = (t.reshape(b * h, skv, d).contiguous() for t in (k, v))
     out = torch.empty_like(qc)
     stream = torch.cuda.current_stream().cuda_stream
     ptrs = [t.data_ptr() for t in (qc, kc, vc, out)]
 
     def launch():
-        err = lib.flash_attention_launch(*ptrs, b * h, s_len, s_len, d, 1,
-                                         1.0 / d ** 0.5, stream)
+        err = lib.flash_attention_launch(*ptrs, b * h, s_len, skv, d,
+                                         int(causal), 1.0 / d ** 0.5, stream)
         if err:
             fail(f"flash_attention_launch returned {err}")
     return cuda_ms(torch, launch, reps)
@@ -2914,6 +2967,8 @@ NORMAL_SHAPES = ((8, 1, 4864), (8, 1, 896), (1, 256, 4864), (1, 256, 896))
 NORMAL_TIMED = (("decode", (8, 1, 4864), 896), ("prefill", (1, 256, 4864),
                                                  896))
 NORMAL_MOMENT_N = 10_000_000
+# the plain noise branch's CPU replay runs on this many of the 24 layers
+NOISE_CPU_LAYERS = 6
 # operations an element takes, counted from csrc/normal.cu: integer ops
 # (Threefry-2x32: 20 rounds of add, rotate, xor; 5 key injections of 2
 # adds, since ks[(g + 2) % 3] + g + 1 depends on the key alone and is
@@ -3247,31 +3302,32 @@ def ds_coded_per_call(cfg, kind: str, s: int, max_len: int) -> int:
     return 2 * cfg.n_layers * (-(-s // bq)) * (-(-max_len // bk))
 
 
-def ds_b2_capture_check(torch, tb, calls, rng) -> tuple:
+def ds_b2_capture_check(torch, tb, calls, rng, *, cols=DS_SAMPLE_COLS,
+                        slices=DS_SAMPLE_SLICES, coded_on="cpu") -> tuple:
     """The first step's B2 calls against their plain versions on their own
-    inputs: ``DS_SAMPLE_COLS`` sampled columns of each ``bbm_dot_scaled``
-    call (the plain version on the card), ``DS_SAMPLE_SLICES`` sampled
-    slices of each batched coded call (on CPU copies); bit for bit.
-    Returns (calls checked, max abs error)."""
+    inputs: ``cols`` sampled columns of each ``bbm_dot_scaled`` call (the
+    plain version on the card), ``slices`` sampled slices of each batched
+    coded call (on copies on ``coded_on``); bit for bit.  Returns (calls
+    checked, max abs error)."""
     worst = 0.0
     for name, args, kw, out in calls:
         if name == "bbm_dot_scaled":
             x, w = args
             n = w.shape[1]
-            cols = torch.as_tensor(np.sort(rng.choice(
-                n, min(DS_SAMPLE_COLS, n), replace=False)), device=w.device)
-            want = tb.bbm_dot_scaled_plain(x, w[:, cols].contiguous(), **kw)
-            got = out[:, cols]
+            pick = torch.as_tensor(np.sort(rng.choice(
+                n, min(cols, n), replace=False)), device=w.device)
+            want = tb.bbm_dot_scaled_plain(x, w[:, pick].contiguous(), **kw)
+            got = out[:, pick]
         elif name == "bbm_dot_coded_batched":
             a, s_a, b, s_b = args
             sl = torch.as_tensor(np.sort(rng.choice(
-                a.shape[0], min(DS_SAMPLE_SLICES, a.shape[0]),
-                replace=False)), device=a.device)
-            kw = {k: (v[sl].cpu() if torch.is_tensor(v) else v)
+                a.shape[0], min(slices, a.shape[0]), replace=False)),
+                device=a.device)
+            kw = {k: (v[sl].to(coded_on) if torch.is_tensor(v) else v)
                   for k, v in kw.items()}
             want = tb.bbm_dot_coded_batched_plain(
-                a[sl].cpu(), s_a[sl].cpu(), b[sl].cpu(), s_b[sl].cpu(), **kw)
-            got = out[sl].cpu()
+                *(t[sl].to(coded_on) for t in (a, s_a, b, s_b)), **kw)
+            got = out[sl]
         err = float((got.to(want.device) - want).abs().max())
         if err != 0:
             fail(f"a first-step {name} call at {tuple(args[0].shape)} x "
@@ -3988,6 +4044,9 @@ def deepseek_phase(torch, dev, tb, qm, nm, card: str) -> tuple:
 # chunked scan's inter-chunk recurrence runs at full width
 SSM_REQUESTS, SSM_LONG = 24, 4
 VLM_LAYERS, VLM_REQUESTS = 2, 8
+# its CPU replay on one of the two layers: the plain fused kernel on the
+# CPU at (8192, 22016) products took most of the phase
+VLM_CPU_LAYERS = 1
 # the card-against-CPU replays run on depth cuts of the served weights:
 # a one-rounding change of the bf16 residual stream moves a random
 # 48-54-layer stack's logits by about LOGIT_RTOL on its own (at full
@@ -4251,8 +4310,11 @@ def ssm_phase(torch, dev, tb, qm, nm, card: str) -> tuple:
         "noise (bbm0 WL 16 VBL 13, the fused kernel, qk_norm)", res,
         f"{3 * VLM_LAYERS} quant_matmul", arch=cfg.name))
     idle, _ = window(cfg, rt, params, "quant_matmul", QM_KERNELS)
-    chk = lm_cpu_check(torch, dev, cfg, rt, params)
-    lines.append(f"{cfg.name} card vs CPU port: {chk['calls']} calls "
+    chk = lm_cpu_check(torch, dev, dataclasses.replace(
+        cfg, n_layers=VLM_CPU_LAYERS), rt, first_layers(params,
+                                                        VLM_CPU_LAYERS))
+    lines.append(f"{cfg.name} card vs CPU port (cut to {VLM_CPU_LAYERS} "
+                 f"layer): {chk['calls']} calls "
                  f"teacher-forced, logits within {chk['worst']:.4g} of the "
                  f"card's largest (tolerance {LOGIT_RTOL}), "
                  f"{chk['checked']} greedy tokens decided and equal")
@@ -4269,6 +4331,899 @@ def ssm_phase(torch, dev, tb, qm, nm, card: str) -> tuple:
     del params, res
     gc.collect()
     lines.append(f"slice 8 phase on {card}")
+    return lines, entries
+
+
+# ------------------------------------------------------------- slice 9
+# whisper-base served: a static batch of 8 prompts of 16 tokens, 32 new
+# tokens each, through make_serve_fns (the Scheduler cannot serve an
+# encoder-decoder model), max_len 448 (Whisper's text context), seeded
+# normal frame embeddings (8, 1500, 512) passed to every call
+WH_BATCH, WH_PROMPT, WH_NEW, WH_LEN = 8, 16, 32, 448
+# the card against the CPU: two sequences, a prefill and 2 decodes, in
+# exact mode (the plain versions of the fused kernel and of B2 on the CPU
+# would take minutes at the encoder's 3,000 rows; the first call's
+# kernel checks hold the kernels)
+WH_CPU_SEQS, WH_CPU_DECODES = 2, 2
+# training through launch.train: batch 4 x seq 256, TRAIN_STEPS steps
+WH_TRAIN_BATCH, WH_TRAIN_SEQ = 4, 256
+WH_T1 = ["--arch", "whisper-base", "--amm", "bitexact", "--mul", "bbm0",
+         "--wl", "16", "--vbl", "13", "--amm-attn", "--flash-attn"]
+WH_T2 = ["--arch", "whisper-base", "--amm", "off", "--flash-attn"]
+# the training check against the CPU: 2 encoder + 2 decoder layers at
+# full width, one sequence of WH_TRAIN_SEQ tokens, T2's settings (for the
+# same reason as the serving check)
+WH_CPU_LAYERS = 2
+# the first call's batched coded calls held against the plain version on
+# this many sampled slices each, its bbm_dot_scaled calls on this many
+# sampled columns (both plain versions on the card: 512 x 1,024 slices
+# take seconds each on the CPU)
+WH_SAMPLE_SLICES, WH_SAMPLE_COLS = 4, 256
+# the flash kernels' gradients against float64 attention (f32 sums of
+# up to 1,500 terms err by about 1e-5 of the largest gradient)
+WH_FLASH_GRAD_RTOL = 2.0 ** -12
+WH_MODES = {"noise": DS_NOISE,
+            "noise plain": dict(DS_NOISE, use_pallas=False),
+            "bitexact": DS_BITEXACT}
+
+
+def whisper_config(amm: dict, layers=None):
+    """whisper-base at full width (d_model 512, 8 heads x 64, d_ff 2048,
+    vocab 51,865, encoder_len 1,500) under ``amm``, its 6 encoder and 6
+    decoder layers each cut to ``layers`` if given."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import AmmConfig
+    cfg = dataclasses.replace(get_arch("whisper-base"), amm=AmmConfig(**amm))
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=layers)
+
+
+def wh_blocks(sq: int, skv: int) -> int:
+    """(q block, KV block) pairs of ``chunked_attention`` at its default
+    tiles: bq = min(512, Sq), bk = min(1024, Skv)."""
+    return -(-sq // min(512, sq)) * -(-skv // min(1024, skv))
+
+
+def wh_coded_per_call(cfg, s: int, max_len: int) -> int:
+    """``bbm_dot_coded_batched`` launches of one ``lm_apply`` call with
+    every attention product on the amm datapath (apply_to="all", float
+    cache), two (scores, values) for each block pair: the encoder's
+    self-attention over ``encoder_len`` positions in the chunked
+    schedule; the decoder's self-attention, a decode's
+    ``decode_attention`` (one pair) or a prefill of ``s`` tokens in the
+    chunked schedule against the ``max_len`` cache; its cross-attention,
+    ``s`` queries against ``encoder_len`` keys in the chunked schedule."""
+    e = cfg.encoder_len
+    self_pairs = 1 if s == 1 else wh_blocks(s, max_len)
+    return 2 * (cfg.n_encoder_layers * wh_blocks(e, e)
+                + cfg.n_layers * (self_pairs + wh_blocks(s, e)))
+
+
+def wh_want(cfg, mode: str, counters):
+    """The launches every ``lm_apply`` call of ``mode`` makes, as a
+    function of the call's token count: noise 3 ``quant_matmul`` per
+    layer (encoder and decoder), its plain branch 3 ``normal_draw``,
+    bitexact 3 ``bbm_dot_scaled`` and ``wh_coded_per_call``."""
+    mlp = 3 * (cfg.n_encoder_layers + cfg.n_layers)
+    none = {k: 0 for k in counters}
+
+    def want(s: int) -> dict:
+        if mode == "noise":
+            return dict(none, quant_matmul=mlp)
+        if mode == "noise plain":
+            return dict(none, normal_draw=mlp)
+        return dict(none, bbm_dot_scaled=mlp,
+                    bbm_dot_coded_batched=wh_coded_per_call(cfg, s, WH_LEN))
+    return want
+
+
+class StaticBatch:
+    """A static batch served through ``make_serve_fns``: ``prefill()``
+    writes the prompts at position 0, each ``step()`` decodes one token
+    for every sequence at their common position (greedy, from the last
+    call's logits, or the given tokens), the frame embeddings passed to
+    every call.  ``stats`` counts the calls as the Scheduler's do (for
+    ``decode_window``).  ``want``: a function of a call's token count
+    giving each counted wrapper's launches, held at every call; ``log``:
+    keep each call's (kind, tokens, logits) on the CPU."""
+
+    def __init__(self, torch, cfg, rt, params, enc, prompts, *,
+                 counters=None, want=None, log=False):
+        from repro_torch.models import init_cache
+        from repro_torch.serve import make_serve_fns
+        self.torch, self.params, self.enc = torch, params, enc
+        self.prefill_fn, self.decode_fn = make_serve_fns(
+            cfg, rt, amm_planes=rt.build_planes(cfg, params))
+        dev = params["embed"].device
+        self.caches = init_cache(cfg, len(prompts), WH_LEN, device=dev)
+        self.prompt = torch.as_tensor(np.asarray(prompts), device=dev)
+        self.counters, self.want = counters or {}, want
+        self.last = {n: f.launches for n, f in self.counters.items()}
+        self.stats = {"steps": 0, "prefills": 0}
+        self.log = [] if log else None
+        self.bad = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out, self.pos, self.next = [], 0, None
+
+    def _note(self, kind, tokens, logits):
+        self.bad += (~self.torch.isfinite(logits)).sum()
+        if self.log is not None:
+            self.log.append((kind, tokens.cpu(), logits.float().cpu()))
+        if self.want is not None:
+            now = {n: f.launches for n, f in self.counters.items()}
+            got = {n: now[n] - self.last[n] for n in now}
+            self.last = now
+            want = self.want(tokens.shape[1])
+            if got != want:
+                fail(f"a whisper {kind} call of {tokens.shape[1]} tokens "
+                     f"launched {got}, expected {want}")
+        self.next = self.torch.argmax(logits, dim=-1)[:, None]
+        self.out.append(self.next)
+        return logits
+
+    def prefill(self):
+        logits, self.caches = self.prefill_fn(self.params, self.prompt,
+                                              self.caches, self.enc)
+        self.pos = self.prompt.shape[1]
+        self.stats["prefills"] += 1
+        return self._note("prefill", self.prompt, logits)
+
+    def step(self, tokens=None):
+        tokens = self.next if tokens is None else tokens
+        logits, self.caches = self.decode_fn(self.params, tokens,
+                                             self.caches, self.pos, self.enc)
+        self.pos += 1
+        self.stats["steps"] += 1
+        return self._note("decode", tokens, logits)
+
+
+class NormalCapture:
+    """While ``on``, every ``normal_draw`` call ``models.common`` makes
+    keeps its key, shape, keywords, a copy of its accumulator taken
+    before the call, and its output; ``check()`` holds each against the
+    plain version on the card, bit for bit.  ``close()`` (or leaving a
+    ``with`` block) restores the name."""
+
+    def __init__(self, common):
+        self.common, self.calls, self.on = common, [], False
+        self.orig = common.normal_draw
+        common.normal_draw = self._call
+
+    def _call(self, k, shape, **kw):
+        if not self.on:
+            return self.orig(k, shape, **kw)
+        acc = kw.get("acc")
+        before = None if acc is None else acc.clone()
+        out = self.orig(k, shape, **kw)
+        self.calls.append((k, tuple(shape), before, kw, out))
+        return out
+
+    def check(self, torch, prng) -> tuple:
+        """(calls checked, max abs error); fails on any differing bit."""
+        worst = 0.0
+        for k, shape, acc, kw, out in self.calls:
+            want = prng.normal_plain(
+                k, shape, acc=acc, c1=kw.get("c1", 0.0),
+                c2=kw.get("c2", 0.0), order=kw.get("order", "acc"))
+            if not torch.equal(out.view(torch.int32),
+                               want.to(out.device).view(torch.int32)):
+                fail(f"a first-call normal_draw at {shape} differs from its "
+                     f"plain version")
+            worst = max(worst, float((out.double() - want.double())
+                                     .abs().max()))
+        return len(self.calls), worst
+
+    def close(self):
+        self.common.normal_draw = self.orig
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def wh_serve(torch, cfg, rt, params, enc, prompts, counters, want, *,
+             capture=None) -> dict:
+    """Serve ``prompts`` as one static batch: a prefill, then ``WH_NEW - 1``
+    decode steps (``WH_NEW`` new tokens each), every call's launches held
+    to ``want`` (the counts zeroed just before).  ``capture``: a pair of
+    functions called just before and just after the prefill (the kernel
+    captures)."""
+    for f in counters.values():
+        f.launches = 0
+    sb = StaticBatch(torch, cfg, rt, params, enc, prompts,
+                     counters=counters, want=want)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if capture is not None:
+        capture[0]()
+    sb.prefill()
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    if capture is not None:
+        capture[1]()
+    steps = []
+    for _ in range(WH_NEW - 1):
+        ts = time.perf_counter()
+        sb.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    if int(sb.bad):
+        fail(f"{int(sb.bad)} non-finite logits serving {cfg.name}")
+    new = torch.cat(sb.out, dim=1)
+    if tuple(new.shape) != (len(prompts), WH_NEW):
+        fail(f"whisper generated {tuple(new.shape)} tokens")
+    return {"step_ms": sorted(steps), "prefill_ms": prefill_ms,
+            "wall_s": wall, "tokens": new.numel(), "calls": 1 + len(steps),
+            "launches": {n: f.launches for n, f in counters.items()},
+            "batch": sb}
+
+
+def wh_encoder_ms(torch, cfg, rt, params, enc, reps: int = 5) -> float:
+    """Median wall ms of the encoder alone (``_encoder``: the 6 layers
+    over the 8 x 1,500 frames and the final norm), as every decode step
+    recomputes it (ROADMAP C15)."""
+    from repro_torch.models.transformer import _encoder
+    times = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _encoder(params["encoder"], enc, cfg, rt, 0, enc.shape[0],
+                 torch.bfloat16)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times[1:])[reps // 2]
+
+
+def wh_cpu_serve_check(torch, params, enc, prompts) -> dict:
+    """Two sequences served on the card in exact mode, then on the CPU
+    port teacher-forced on the card's tokens: every call's logits within
+    ``LOGIT_RTOL`` of the card's largest."""
+    from repro_torch.models import ModelRuntime
+    cfg = whisper_config(dict(mode="off"))
+    rt = ModelRuntime.build(cfg)
+    n = WH_CPU_SEQS
+    card = StaticBatch(torch, cfg, rt, params, enc[:n], prompts[:n], log=True)
+    card.prefill()
+    for _ in range(WH_CPU_DECODES):
+        card.step()
+    t0 = time.perf_counter()
+    cpu = StaticBatch(torch, cfg, rt, _to_cpu(params), enc[:n].cpu(),
+                      prompts[:n])
+    worst = 0.0
+    for kind, tokens, want in card.log:
+        got = cpu.prefill() if kind == "prefill" else cpu.step(tokens)
+        err = float((got.float() - want).abs().max())
+        scale = float(want.abs().max())
+        worst = max(worst, err / scale)
+        if err > LOGIT_RTOL * scale:
+            fail(f"whisper's CPU logits off the card's by {err} (scale "
+                 f"{scale}) at a {kind} call")
+    if int(cpu.bad):
+        fail("non-finite logits in whisper's CPU replay")
+    return {"calls": len(card.log), "worst": worst,
+            "cpu_s": time.perf_counter() - t0}
+
+
+def wh_train_step(torch, dev, counters) -> dict:
+    """One step of ``make_train_step`` (T1's settings: bitexact with
+    apply_to="all" and the flash kernels) on seeded frame embeddings, so
+    that the encoder's kernels see live data; the launches of the step."""
+    from repro_torch.core import prng
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models import ModelRuntime, lm_init
+    from repro_torch.train.optimizer import OptConfig, init_opt
+    from repro_torch.train.trainstep import TrainConfig, make_train_step
+    cfg = whisper_config(DS_BITEXACT)
+    rt = ModelRuntime.build(cfg, use_pallas=True)
+    params = lm_init(cfg, 2, device=dev)
+    tc = TrainConfig(opt=OptConfig(total_steps=1))
+    opt = init_opt(params, tc.opt)
+    toks, labels = global_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=WH_TRAIN_SEQ, global_batch=WH_TRAIN_BATCH),
+        0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(91)
+    enc = torch.randn((WH_TRAIN_BATCH, cfg.encoder_len, cfg.d_model),
+                      generator=gen, device=dev)
+    step = make_train_step(cfg, rt, tc)
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, metrics = step(params, opt, torch.from_numpy(toks).to(dev),
+                         torch.from_numpy(labels).to(dev), prng.key(42),
+                         encoder_embeds=enc)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    return {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": {n: f.launches for n, f in counters.items()}}
+
+
+def wh_train_cpu_check(torch, dev) -> dict:
+    """A 2 + 2 layer cut of whisper-base at full width, one sequence of
+    ``WH_TRAIN_SEQ`` tokens and seeded frame embeddings, T2's settings (amm
+    off, the flash kernels): the card's loss and gradients against the
+    CPU port's."""
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    from repro_torch.models import ModelRuntime, lm_init
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainstep import loss_and_grads
+    cfg = whisper_config(dict(mode="off"), layers=WH_CPU_LAYERS)
+    rt = ModelRuntime.build(cfg, use_pallas=True)
+    params = lm_init(cfg, 3, device=dev)
+    toks, labels = global_batch(DataConfig(
+        vocab=cfg.vocab, seq_len=WH_TRAIN_SEQ, global_batch=1), 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(92)
+    enc = torch.randn((1, cfg.encoder_len, cfg.d_model), generator=gen,
+                      device=dev)
+    card, card_g, _ = loss_and_grads(
+        params, cfg, rt, torch.from_numpy(toks).to(dev),
+        torch.from_numpy(labels).to(dev), None, encoder_embeds=enc)
+    card = float(card)
+    t0 = time.perf_counter()
+    cpu, cpu_g, _ = loss_and_grads(
+        _to_cpu(params), cfg, rt, torch.from_numpy(toks),
+        torch.from_numpy(labels), None, encoder_embeds=enc.cpu())
+    cpu = float(cpu)
+    cpu_s = time.perf_counter() - t0
+    if not (np.isfinite(card) and abs(card - cpu) <= TRAIN_LOSS_RTOL
+            * abs(cpu)):
+        fail(f"whisper's loss on the card {card!r} is off the CPU port's "
+             f"{cpu!r}")
+    worst = 0.0
+    for g, w in zip(tree_leaves(card_g), tree_leaves(cpu_g)):
+        ratio = float((g.cpu().double() - w.double()).abs().max()
+                      / w.double().abs().max().clamp_min(1e-30))
+        if not ratio <= TRAIN_GRAD_RTOL:
+            fail(f"a whisper gradient leaf {tuple(w.shape)} on the card is "
+                 f"off the CPU port's by {ratio} of its largest element")
+        worst = max(worst, ratio)
+    return {"card": card, "cpu": cpu, "cpu_s": cpu_s, "grad_worst": worst}
+
+
+def wh_flash_operands(torch, gen, dev, cfg, sq: int, skv: int,
+                      zero_kv=False):
+    """(B, H, S, D) operands of whisper's attention at training batch."""
+    h, d = cfg.n_heads, cfg.resolved_head_dim
+    q = torch.randn((WH_TRAIN_BATCH, h, sq, d), generator=gen, device=dev)
+    k, v = (torch.randn((WH_TRAIN_BATCH, h, skv, d), generator=gen,
+                        device=dev) for _ in range(2))
+    if zero_kv:
+        k.zero_()
+        v.zero_()
+    return q, k, v
+
+
+def wh_flash_cases(cfg) -> tuple:
+    """whisper's attention shapes, (name, Sq, Skv, causal, all-zero K and
+    V): the encoder's self-attention, the training cross-attention, a
+    decode step's cross-attention (one query against the frames), and the
+    launcher's zero embeddings (K and V all 0: every amm tile at the
+    quantizer's floor scale)."""
+    e = cfg.encoder_len
+    return (("encoder self-attention", e, e, True, False),
+            ("cross-attention", WH_TRAIN_SEQ, e, False, False),
+            ("decode cross-attention", 1, e, False, False),
+            ("zero K and V", WH_TRAIN_SEQ, e, False, True),
+            ("zero K and V, encoder", e, e, True, True))
+
+
+def wh_flash_checks(torch, tf, attn, dev, cfg, amm) -> list:
+    """Both flash kernels against their plain versions at whisper's
+    shapes (``wh_flash_cases``): the exact one within ``flash_tolerance``, the
+    amm one by ``flash_amm_compare`` (both kinds); then the gradients: the
+    exact kernel's (its plain backward) within ``WH_FLASH_GRAD_RTOL`` of
+    float64 attention's, and the amm kernel's straight-through gradient
+    from the kernel's residuals against the same from its plain
+    version's, within the same bound."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(93)
+    lines = []
+    for name, sq, skv, causal, zero in wh_flash_cases(cfg):
+        q, k, v = wh_flash_operands(torch, gen, dev, cfg, sq, skv, zero)
+        what = f"at whisper's {name} {tuple(q.shape)} x {skv} keys"
+        ratio = flash_exact_check(torch, tf, q, k, v, causal=causal,
+                                  what=what)
+        if ratio != ratio:
+            # K and V all 0: the bound is 0 and every error was 0 (a
+            # nonzero one would have failed the check), so 0/0 reads 0
+            ratio = 0.0
+        reps = [flash_amm_check(torch, tf, q, k, v, kind=kind,
+                                causal=causal, what=what)
+                for kind in (0, 1)]
+        g = torch.randn(q.shape, generator=gen, device=dev)
+        qd, kd, vd = (t.detach().requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(attn._FlashExact.apply(qd, kd, vd, causal),
+                                  (qd, kd, vd), g)
+        q64, k64, v64 = (t.detach().double().requires_grad_()
+                         for t in (q, k, v))
+        ref = torch.nn.functional.scaled_dot_product_attention(
+            q64, k64, v64, is_causal=causal)
+        want = torch.autograd.grad(ref, (q64, k64, v64), g.double())
+        e_ratio = max(float((a.double() - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30))
+                      for a, b in zip(got, want) if bool(b.any()))
+        if not e_ratio <= WH_FLASH_GRAD_RTOL:
+            fail(f"flash_attention's gradient {what} is off float64 "
+                 f"attention's by {e_ratio} of its largest element")
+        got = torch.autograd.grad(attn._flash_amm_ste(amm, causal, qd, kd,
+                                                      vd), (qd, kd, vd), g)
+        kernel = attn.flash_attention_amm
+
+        def plain(q_, k_, v_, *, wl, vbl, kind, causal, residuals):
+            ops = tf.flash_amm_operands(q_, k_, v_, wl=wl)
+            out, res = tf.flash_amm_plain(ops, wl=wl, vbl=vbl, kind=kind,
+                                          causal=causal, residuals=True)
+            b, h, s_len, d = ops["shape"]
+            return out[:, :s_len].reshape(b, h, s_len, d), res
+        attn.flash_attention_amm = plain
+        try:
+            want = torch.autograd.grad(attn._flash_amm_ste(
+                amm, causal, qd, kd, vd), (qd, kd, vd), g)
+        finally:
+            attn.flash_attention_amm = kernel
+        a_ratio = max(float((a - b).abs().max()
+                            / b.abs().max().clamp_min(1e-30))
+                      for a, b in zip(got, want) if bool(b.any()))
+        if not a_ratio <= WH_FLASH_GRAD_RTOL:
+            fail(f"flash_attention_amm's gradient {what} from the kernel's "
+                 f"residuals is off the plain version's by {a_ratio}")
+        lines.append(
+            f"whisper flash check, {name} ({tuple(q.shape)} x {skv} keys, "
+            f"causal={causal}): flash_attention within its bound (worst "
+            f"error/bound {ratio:.3g}), its gradient within {e_ratio:.3g} of "
+            f"float64 attention's largest element; flash_attention_amm by "
+            f"flash_amm_compare at kinds 0 and 1 (worst ratio "
+            f"{max(r['worst_ratio'] for r in reps):.3g}, "
+            f"{sum(r['codes_moved'] for r in reps)} of "
+            f"{sum(r['codes'] for r in reps)} P codes moved), its "
+            f"straight-through gradient within {a_ratio:.3g} of the plain "
+            f"version's (tolerance {WH_FLASH_GRAD_RTOL})")
+        del q, k, v, qd, kd, vd, q64, k64, v64, got, want, g
+    return lines
+
+
+def wh_kernel_timing(torch, dev, tb, tf, qm, nm, prng, cfg, rt_noise,
+                     rt_bx, params, launches) -> tuple:
+    """Each kernel at whisper's new shapes: ``quant_matmul`` and
+    ``bbm_dot_scaled`` at the encoder's MLP products (8 x 1,500 = 12,000
+    rows against the first encoder layer's w_gate and w_down),
+    ``normal_draw`` with its epilogue at the encoder's widest product,
+    ``bbm_dot_coded_batched`` at the encoder's chunked pair (64 slices of
+    (512, 64) x (64, 1024) and (512, 1024) x (1024, 64)), both flash
+    kernels at the encoder's self-attention and the training
+    cross-attention: device ms, plain ms, bound and one PyTorch call
+    (the same function for the exact flash kernel:
+    ``scaled_dot_product_attention``; a yardstick otherwise).  Returns
+    (printed lines, kernel JSON entries)."""
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    from repro_torch.kernels.ref import amm_scale
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(94)
+    rows = WH_BATCH * cfg.encoder_len
+    mlp = {k: v[0] for k, v in params["encoder"]["layers"]["mlp"].items()}
+    lines, entries = [], []
+
+    def entry(name, source, replaces, n, err, ms, plain_ms, bound, by,
+              lib_ms, how, **extra):
+        entries.append(dict({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": n, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": lib_ms, "timed_by": how}, **extra))
+
+    qm_rows, b2_rows = [], []
+    for key in ("w_gate", "w_down"):
+        w = mlp[key]
+        k, n = w.shape
+        x = torch.randn((rows, k), generator=gen, device=dev)
+        sx, sw = amm_scale(x, 16), amm_scale(w, 16)
+        mu, sigma = rt_noise.amm.mu, rt_noise.amm.sigma
+        run = lambda: qm.quant_matmul(x, w, sx, sw, mu, sigma,  # noqa: E731
+                                      wl=16, seed=7)
+        plain = lambda: qm.quant_matmul_plain(  # noqa: E731
+            x, w, sx, sw, mu, sigma, wl=16, seed=7, bm=128, bk=512, bn=128)
+        ms, how = launch_ms(torch, run, 20, QM_KERNELS)
+        plain_ms = cuda_ms(torch, plain, 2)
+        lib_ms = cuda_ms(torch, lambda: x @ w, 20)
+        tol = qm.quant_matmul_tolerance(x, w, sx, sw, mu, sigma, wl=16,
+                                        bk=512)
+        err = (run().double() - plain().double()).abs()
+        if bool((err > tol).any()):
+            fail(f"quant_matmul at ({rows}, {k}) x ({k}, {n}) is off its "
+                 f"plain version beyond the bound")
+        bound, by = qm_bound_ms(rows, k, n)
+        route = qm.quant_matmul_plan(rows, k, n, 512).route
+        qm_rows.append(dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by,
+                            lib_ms=lib_ms, err=float(err.max()), how=how))
+        lines.append(f"quant_matmul at whisper's encoder ({rows}, {k}) x "
+                     f"({k}, {n}), {route} route: {ms:.6f} ms ({how}), plain "
+                     f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; bound "
+                     f"/ time {bound / ms:.4g}), f32 x @ w yardstick "
+                     f"{lib_ms:.6f} ms, within quant_matmul_tolerance")
+        wc = rt_bx.amm.precode(w)["codes"]
+        xc = torch.randint(-32768, 32768, (rows, k), generator=gen,
+                           device=dev, dtype=torch.int32)
+        run = lambda: tb.bbm_dot_scaled(xc, wc, wl=16, vbl=13,  # noqa: E731
+                                        kind=0)
+        ms, how = launch_ms(torch, run, 20, TRAIN_KERNELS["bbm_dot_scaled"])
+        got = run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = torch.cat([tb.bbm_dot_scaled_plain(
+            xc, wc[:, j:j + DS_PLAIN_COLS].contiguous(), wl=16, vbl=13,
+            kind=0) for j in range(0, n, DS_PLAIN_COLS)], dim=1)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - want).abs().max())
+        del want
+        if err != 0:
+            fail(f"bbm_dot_scaled at ({rows}, {k}) x ({k}, {n}) differs from "
+                 f"its plain version by {err}")
+        xf = xc.float()
+        lib_ms = cuda_ms(torch, lambda: xf @ w, 20)
+        bound, by = dot_scaled_bound_ms(rows, k, n)
+        b2_rows.append(dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by,
+                            lib_ms=lib_ms, err=err, how=how))
+        lines.append(f"bbm_dot_scaled at whisper's encoder ({rows}, {k}) x "
+                     f"({k}, {n}), route {tb.bbm_dot_route(16, 13, 0)}: "
+                     f"{ms:.6f} ms ({how}), plain {plain_ms:.3f} ms (host "
+                     f"clock, in {DS_PLAIN_COLS}-column blocks), bound "
+                     f"{bound:.6f} ms ({by}; bound / time {bound / ms:.4g}), "
+                     f"f32 x @ w yardstick {lib_ms:.6f} ms; bit-equal")
+    for name, r, src, rep, n in (
+            ("quant_matmul", qm_rows, QM_SOURCE, REPLACES["quant_matmul"],
+             launches["quant_matmul"]),
+            ("bbm_dot_scaled", b2_rows, MMA_SOURCE,
+             REPLACES["bbm_dot_scaled"], launches["bbm_dot_scaled"])):
+        mean = lambda f: sum(x[f] for x in r) / len(r)  # noqa: E731
+        entry(f"{name} (whisper encoder)", src, rep, n,
+              max(x["err"] for x in r), mean("ms"), mean("plain_ms"),
+              mean("bound"), r[0]["by"], None,
+              ", ".join(sorted({x["how"] for x in r})),
+              matmul_ms=mean("lib_ms"))
+    # normal_draw with its epilogue at the encoder's widest product
+    shape = (WH_BATCH, cfg.encoder_len, cfg.d_ff)
+    k = prng.layer_keys(0, cfg.n_layers)[0]
+    c1, c2 = nm.noise_consts(rt_noise.amm.mu, rt_noise.amm.sigma,
+                             cfg.d_model)
+    acc = torch.randn(shape, generator=gen, device=dev)
+    ms, how = launch_ms(torch, lambda: nm.normal_draw(
+        k, shape, acc=acc, c1=c1, c2=c2), 20, NORMAL_KERNEL)
+    plain_ms = cuda_ms(torch, lambda: prng.normal_plain(
+        k, shape, acc=acc, c1=c1, c2=c2), 3)
+    got = nm.normal_draw(k, shape, acc=acc.clone(), c1=c1, c2=c2)
+    want = prng.normal_plain(k, shape, acc=acc, c1=c1, c2=c2)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"normal_draw at {shape} differs from its plain version")
+    randn_ms, randn_how = launch_ms(torch, lambda: torch.randn(
+        shape, device=dev), 20, ("distribution", "normal_kernel"))
+    bound, by = normal_bound_ms(prng, k, shape, True)
+    entry("normal_draw (whisper encoder)", NORMAL_SOURCE, NORMAL_REPLACES,
+          launches["normal_draw"], 0.0, ms, plain_ms, bound, by, None, how,
+          randn_ms=randn_ms)
+    lines.append(f"normal_draw with its epilogue at whisper's encoder "
+                 f"{shape}: {ms:.6f} ms ({how}), plain {plain_ms:.6f} ms, "
+                 f"bound {bound:.6f} ms ({by}; bound / time "
+                 f"{bound / ms:.4g}), torch.randn {randn_ms:.6f} ms "
+                 f"({randn_how}; not the same function); bit-equal")
+    del acc, got, want
+    # the batched coded entry at the encoder's chunked pair
+    rng = np.random.default_rng(95)
+    bt = WH_BATCH * cfg.n_kv_heads
+    e = cfg.encoder_len
+    coded = []
+    for name, (a, s_a, b, s_b, per) in prefill_operands(
+            torch, rng, dev, bt=bt, m=min(512, e), skv=min(1024, e),
+            d=cfg.resolved_head_dim).items():
+        kw = dict(wl=16, vbl=13, kind=0, per=per, block=b.shape[-1])
+        run = lambda: tb.bbm_dot_coded_batched(  # noqa: E731
+            a, s_a, b, s_b, **kw)
+        ms, how = launch_ms(torch, run, 20, CODED_KERNEL)
+        plain_ms = cuda_ms(torch, lambda: tb.bbm_dot_coded_batched_plain(
+            a, s_a, b, s_b, **kw), 2)
+        err = float((run() - tb.bbm_dot_coded_batched_plain(
+            a, s_a, b, s_b, **kw)).abs().max())
+        if err != 0:
+            fail(f"bbm_dot_coded_batched at whisper's encoder {name} "
+                 f"differs from its plain version by {err}")
+        m_, k_ = a.shape[2:]
+        n_ = b.shape[-1]
+        af = a.reshape(bt, m_, k_).float()
+        bf = b.reshape(bt, k_, n_).float().contiguous()
+        bmm_ms = cuda_ms(torch, lambda: torch.bmm(af, bf), 20)
+        bound, by = dense_coded_bound_ms(bt, m_, k_, n_)
+        coded.append(dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by,
+                          lib_ms=bmm_ms, err=err, how=how))
+        lines.append(f"bbm_dot_coded_batched at whisper's encoder {name} "
+                     f"({bt} slices of ({m_}, {k_}) x ({k_}, {n_}), route "
+                     f"{tb.bbm_coded_route(16, 13, 0, per, n_)}): {ms:.6f} "
+                     f"ms ({how}), plain {plain_ms:.6f} ms, bound "
+                     f"{bound:.6f} ms ({by}; bound / time {bound / ms:.4g}), "
+                     f"f32 torch.bmm yardstick {bmm_ms:.6f} ms; bit-equal")
+    mean = lambda f: sum(x[f] for x in coded) / len(coded)  # noqa: E731
+    entry("bbm_dot_coded_batched (whisper encoder)", CODED_SOURCE,
+          CODED_REPLACES, launches["bbm_dot_coded_batched"],
+          max(x["err"] for x in coded), mean("ms"), mean("plain_ms"),
+          mean("bound"), coded[0]["by"], None,
+          ", ".join(sorted({x["how"] for x in coded})), bmm_ms=mean("lib_ms"))
+    # both flash kernels at the encoder's and the cross-attention's shapes
+    amm_rows = num_corr_rows(16, 13)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    d = cfg.resolved_head_dim
+    for name, sq, skv, causal, _ in wh_flash_cases(cfg)[:2]:
+        q, k_, v = wh_flash_operands(torch, gen, dev, cfg, sq, skv)
+        bh = WH_TRAIN_BATCH * cfg.n_heads
+        pairs = bh * (sq * (sq + 1) // 2 if causal else sq * skv)
+        for kern in ("flash_attention", "flash_attention_amm"):
+            if kern == "flash_attention":
+                ms = flash_raw_ms(torch, q, k_, v, causal=causal)
+                how = "CUDA events, the kernel's C entry"
+                plain_ms = cuda_ms(torch, lambda: tf.flash_attention_plain(
+                    q, k_, v, causal=causal), 3)
+                lib_ms = cuda_ms(torch, lambda: sdpa(q, k_, v,
+                                                     is_causal=causal), 20)
+                err = float((tf.flash_attention(q, k_, v, causal=causal)
+                             - tf.flash_attention_plain(q, k_, v,
+                                                        causal=causal))
+                            .abs().max())
+                t_ops = flash_bound_ms(pairs, d, skv)
+                nbytes = 4 * d * bh * (2 * sq + 2 * skv)
+            else:
+                run = lambda: tf.flash_attention_amm(  # noqa: E731
+                    q, k_, v, wl=16, vbl=13, kind=0, causal=causal)
+                ms = kernel_device_ms(torch, run, 10,
+                                      TRAIN_KERNELS[kern], per_call=1)
+                how = "profiler"
+                if ms is None:
+                    ms, how = cuda_ms(torch, run, 10), "CUDA events, wrapper"
+                plain_ms = cuda_ms(torch, lambda: tf.flash_amm_plain(
+                    tf.flash_amm_operands(q, k_, v, wl=16), wl=16, vbl=13,
+                    kind=0, causal=causal), 2)
+                lib_ms = None
+                err = flash_amm_check(torch, tf, q, k_, v, kind=0,
+                                      causal=causal,
+                                      what=f"at whisper's {name}")["max_err"]
+                t_ops = flash_bound_ms(pairs, d, skv, amm_rows)
+                nbytes = 4 * d * bh * (2 * sq + 2 * skv) \
+                    + 2 * d * bh * (sq + 2 * skv)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            bound = max(t_ops, t_bytes)
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            if causal:      # the cross shape is a check: no main-path launch
+                entry(f"{kern} (whisper {name})", TRAIN_SOURCES[kern],
+                      REPLACES[kern], launches[kern], err, ms, plain_ms,
+                      bound, by, lib_ms, how)
+            lines.append(
+                f"{kern} at whisper's {name} ({tuple(q.shape)} x {skv} keys, "
+                f"causal={causal}): {ms:.6f} ms ({how}), plain "
+                f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; bound / "
+                f"time {bound / ms:.4g}), max abs error {err!r}"
+                + ("" if lib_ms is None else
+                   f", scaled_dot_product_attention {lib_ms:.6f} ms"))
+        del q, k_, v
+    return lines, entries
+
+
+def whisper_phase(torch, dev, tb, tf, qm, nm, card: str) -> tuple:
+    """Slice 9: whisper-base at full width and depth served through
+    ``make_serve_fns`` (noise on the fused kernel, noise on the plain
+    branch, bitexact with apply_to="all" on the float cache) and trained
+    through ``launch.train`` (T1's and T2's settings on the launcher's
+    zero embeddings, then one step on seeded embeddings); the card
+    against the CPU; the flash kernels at whisper's shapes; the kernels
+    at the new shapes.  Returns (printed lines, kernel entries)."""
+    import repro_torch.models.attention as attn
+    import repro_torch.models.common as common
+    from repro_torch.core import prng
+    from repro_torch.models import ModelRuntime, lm_init
+    lines, entries = [], []
+    counters = {"quant_matmul": qm.quant_matmul,
+                "bbm_dot_scaled": tb.bbm_dot_scaled,
+                "bbm_dot_coded_batched": tb.bbm_dot_coded_batched,
+                "normal_draw": nm.normal_draw,
+                "flash_attention": tf.flash_attention,
+                "flash_attention_amm": tf.flash_attention_amm}
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        lines.append(f"  ({what}: {now - t_lap[0]:.1f} s)")
+        t_lap[0] = now
+
+    cfg = whisper_config(DS_NOISE)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm_init(cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    n_enc = sum(v.numel() for v in _leaves(params["encoder"]))
+    n_all = sum(v.numel() for v in _leaves(params))
+    lines.append(f"{cfg.name} at full width and depth ({cfg.n_encoder_layers}"
+                 f" encoder + {cfg.n_layers} decoder layers): {n_all} "
+                 f"parameters ({n_enc} in the encoder), "
+                 f"{4 * n_all / 1e9:.2f} GB in f32, seeded on the card")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(90)
+    enc = torch.randn((WH_BATCH, cfg.encoder_len, cfg.d_model),
+                      generator=gen, device=dev)
+    rng = np.random.default_rng(90)
+    prompts = rng.integers(0, cfg.vocab, (WH_BATCH, WH_PROMPT)).tolist()
+
+    # serving, three modes; the first call's kernel calls checked
+    served, rts = {}, {}
+    for mode, amm in WH_MODES.items():
+        cfg_m = whisper_config(amm)
+        rt = rts[mode] = ModelRuntime.build(cfg_m)
+        want = wh_want(cfg_m, mode, counters)
+        with KernelCapture(common) as cap, NormalCapture(common) as ncap:
+            box = {}
+
+            def start():
+                cap.calls, ncap.on = [], True
+
+            def stop():
+                ncap.on = False
+                box["calls"] = cap.take()
+            res = wh_serve(torch, cfg_m, rt, params, enc, prompts, counters,
+                           want, capture=(start, stop))
+            captured = box["calls"]
+            if mode == "noise":
+                n_chk, worst, err = qm_capture_check(torch, qm, captured)
+                chk = (f"{n_chk} quant_matmul calls within the bound of the "
+                       f"plain version (worst error/bound {worst:.3g}, max "
+                       f"abs error {err!r})")
+            elif mode == "noise plain":
+                n_chk, err = ncap.check(torch, prng)
+                chk = (f"{n_chk} normal_draw calls bit-equal to the plain "
+                       f"version (max abs error {err!r})")
+            else:
+                n_chk, err = ds_b2_capture_check(
+                    torch, tb, captured, np.random.default_rng(96),
+                    cols=WH_SAMPLE_COLS, slices=WH_SAMPLE_SLICES,
+                    coded_on=dev)
+                chk = (f"{n_chk} B2 calls bit-equal to their plain versions "
+                       f"on sampled columns and slices (max abs error "
+                       f"{err!r})")
+        per_call = want(WH_PROMPT)
+        if n_chk != sum(per_call.values()):
+            fail(f"whisper {mode}: the first call's capture checked {n_chk} "
+                 f"calls of {per_call}")
+        res["check"], res["err"] = chk, err
+        enc_ms = wh_encoder_ms(torch, cfg_m, rt, params, enc)
+        steps = res["step_ms"]
+        p50, p90 = steps[len(steps) // 2], steps[int(len(steps) * 0.9)]
+        res.update(p50=p50, p90=p90, enc_ms=enc_ms)
+        lines.append(
+            f"{cfg.name} {mode} ({amm}): {WH_BATCH} sequences, prompts of "
+            f"{WH_PROMPT}, max_len {WH_LEN}: a prefill "
+            f"({res['prefill_ms']:.3f} ms, the first call's capture in it) "
+            f"and {len(steps)} decode steps, {res['tokens']} tokens "
+            f"generated in {res['wall_s']:.3f} s: "
+            f"{res['tokens'] / res['wall_s']:.6g} generated tokens/s; decode "
+            f"step ms p50 {p50:.3f}, p90 {p90:.3f}; launches "
+            f"{ {k: v for k, v in res['launches'].items() if v} } over "
+            f"{res['calls']} lm_apply calls, each call as predicted "
+            f"({ {k: v for k, v in per_call.items() if v} } a prefill, "
+            f"{ {k: v for k, v in want(1).items() if v} } a decode); all "
+            f"logits finite; the first call's {chk}; the encoder alone "
+            f"{enc_ms:.3f} ms, {enc_ms / p50:.4f} of a decode step (every "
+            f"call recomputes it: ROADMAP C15)")
+        kern = {"noise": ("quant_matmul", QM_KERNELS),
+                "noise plain": ("normal_draw", (NORMAL_KERNEL,)),
+                "bitexact": ("bbm_dot_scaled",
+                             TRAIN_KERNELS["bbm_dot_scaled"])}[mode]
+        forbid = {"noise": (NORMAL_KERNEL,) + TRAIN_KERNELS["bbm_dot_scaled"],
+                  "noise plain": QM_KERNELS
+                  + TRAIN_KERNELS["bbm_dot_scaled"],
+                  "bitexact": QM_KERNELS + (NORMAL_KERNEL,)}[mode]
+        res["batch"].want = None      # the timing runs launched more
+        win, idle = decode_window(torch, res["batch"], kern[0], kern[1],
+                                  prefills=1, forbid=forbid)
+        res["idle"] = idle
+        lines.extend(f"{cfg.name} {mode} " + ln.lstrip() for ln in win)
+        res.pop("batch")
+        served[mode] = res
+        lap(f"whisper {mode} served")
+    chk = wh_cpu_serve_check(torch, params, enc, prompts)
+    lines.append(f"{cfg.name} card vs CPU port (exact, {WH_CPU_SEQS} "
+                 f"sequences, full depth): {chk['calls']} calls teacher-forced"
+                 f" from the card's tokens, logits within {chk['worst']:.4g} "
+                 f"of the card's largest (tolerance {LOGIT_RTOL}; CPU "
+                 f"{chk['cpu_s']:.1f} s)")
+    lap("whisper card vs CPU (serving)")
+
+    # training: the launcher on its zero embeddings, then live embeddings
+    tcount = dict(counters, **{"bbm_dot_scaled (tensor cores)":
+                               MmaLaunches(tb.bbm_dot_scaled)})
+    mlp = 3 * (cfg.n_encoder_layers + cfg.n_layers)
+    flash_calls = cfg.n_encoder_layers + cfg.n_layers
+    none = {k: 0 for k in tcount}
+    want_t1 = dict(none, bbm_dot_scaled=mlp, flash_attention_amm=flash_calls,
+                   bbm_dot_coded_batched=2 * cfg.n_layers * wh_blocks(
+                       WH_TRAIN_SEQ, cfg.encoder_len),
+                   **{"bbm_dot_scaled (tensor cores)": mlp})
+    want_t2 = dict(none, flash_attention=flash_calls)
+    t1 = train_run(torch, WH_T1, tcount, batch=WH_TRAIN_BATCH,
+                   seq=WH_TRAIN_SEQ)
+    check_train_run("whisper T1", t1, want_t1)
+    t2 = train_run(torch, WH_T2, tcount, batch=WH_TRAIN_BATCH,
+                   seq=WH_TRAIN_SEQ)
+    check_train_run("whisper T2", t2, want_t2)
+    for name, res in (("T1 (bitexact, --amm-attn --flash-attn)", t1),
+                      ("T2 (amm off, --flash-attn)", t2)):
+        walls = sorted(st["wall"] for st in res["steps"][1:])
+        tok = WH_TRAIN_BATCH * WH_TRAIN_SEQ
+        lines.append(
+            f"{cfg.name} training {name}, batch {WH_TRAIN_BATCH} x seq "
+            f"{WH_TRAIN_SEQ}, the launcher's zero frame embeddings: losses "
+            f"{[round(h['loss'], 6) for h in res['hist']]}, step ms "
+            f"{[round(st['wall'] * 1e3, 3) for st in res['steps']]} "
+            f"({tok / walls[0]:.6g} trained tokens/s at the fastest later "
+            f"step); launches a step "
+            f"{ {k: v for k, v in res['steps'][0]['launches'].items() if v} }"
+            f" as predicted; the last step profiled: device busy "
+            f"{res['busy_ms']:.3f} ms of {res['prof_wall_ms']:.3f} ms (idle "
+            f"share {1 - res['busy_ms'] / res['prof_wall_ms']:.4f})")
+        for t, count, key in res["by_kernel"][:6]:
+            lines.append(f"  whisper train step device time: {t:.4f} ms in "
+                         f"{count} launches of {key[:90]}")
+    live = wh_train_step(torch, dev, counters)
+    want_live = {k: v for k, v in want_t1.items() if k in counters}
+    if live["launches"] != want_live or not np.isfinite(live["loss"]):
+        fail(f"whisper's step on seeded embeddings launched "
+             f"{live['launches']} (expected {want_live}), loss "
+             f"{live['loss']!r}")
+    lines.append(f"{cfg.name} one make_train_step step on seeded frame "
+                 f"embeddings (T1's settings): loss {live['loss']!r}, "
+                 f"{live['ms']:.3f} ms, launches as predicted")
+    chk = wh_train_cpu_check(torch, dev)
+    lines.append(f"{cfg.name} train card vs CPU ({WH_CPU_LAYERS} + "
+                 f"{WH_CPU_LAYERS} layers, full width, {WH_TRAIN_SEQ} tokens, "
+                 f"seeded embeddings, T2): loss {chk['card']!r} on the card, "
+                 f"{chk['cpu']!r} on the CPU (tolerance {TRAIN_LOSS_RTOL} "
+                 f"relative); every gradient leaf within "
+                 f"{chk['grad_worst']:.3g} of its largest element (tolerance "
+                 f"{TRAIN_GRAD_RTOL}; CPU {chk['cpu_s']:.1f} s)")
+    lap("whisper trained")
+
+    lines += wh_flash_checks(torch, tf, attn, dev, cfg, rts["bitexact"].amm)
+    lap("whisper flash checks")
+    launches = {"quant_matmul": served["noise"]["launches"]["quant_matmul"],
+                "normal_draw":
+                    served["noise plain"]["launches"]["normal_draw"],
+                "bbm_dot_scaled":
+                    served["bitexact"]["launches"]["bbm_dot_scaled"],
+                "bbm_dot_coded_batched":
+                    served["bitexact"]["launches"]["bbm_dot_coded_batched"],
+                "flash_attention": t2["totals"]["flash_attention"],
+                "flash_attention_amm": t1["totals"]["flash_attention_amm"]}
+    k_lines, k_entries = wh_kernel_timing(
+        torch, dev, tb, tf, qm, nm, prng, cfg, rts["noise"], rts["bitexact"],
+        params, launches)
+    lines += k_lines
+    idle = {"quant_matmul": served["noise"]["idle"],
+            "normal_draw": served["noise plain"]["idle"],
+            "bbm_dot": served["bitexact"]["idle"],
+            "flash_attention_amm":
+                1 - t1["busy_ms"] / t1["prof_wall_ms"],
+            "flash_attention": 1 - t2["busy_ms"] / t2["prof_wall_ms"]}
+    for e in k_entries:
+        key = next((k for k in sorted(idle, key=len, reverse=True)
+                    if e["name"].startswith(k)), None)
+        if key is not None:
+            e["idle_share"] = idle[key]
+    entries += k_entries
+    lap("whisper kernels at the new shapes")
+    lines.append(f"{cfg.name} peak allocated "
+                 f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    del params, enc
+    lines.append(f"slice 9 phase on {card}")
     return lines, entries
 
 
@@ -4830,8 +5785,14 @@ def main() -> None:
           f"calls, quant_matmul 0; nothing failed; all logits finite; "
           f"{NORMAL_MOMENT_N} draws: mean {mean!r}, std {std!r}")
     t0 = time.perf_counter()
-    chk = lm_cpu_check(torch, dev, p_cfg, p_rt, params)
-    print(f"noise plain branch card vs CPU: {chk['calls']} lm_apply calls "
+    # the replay on a depth cut: the CPU's plain normal draw emulates each
+    # fused multiply-add exactly, in float64, and dominated the phase
+    import dataclasses
+    chk = lm_cpu_check(torch, dev, dataclasses.replace(
+        p_cfg, n_layers=NOISE_CPU_LAYERS), p_rt,
+        first_layers(params, NOISE_CPU_LAYERS))
+    print(f"noise plain branch card vs CPU (cut to {NOISE_CPU_LAYERS} "
+          f"layers): {chk['calls']} lm_apply calls "
           f"of two requests replayed on the CPU port, teacher-forced: worst "
           f"|logit error| / max|logit| {chk['worst']:.4g} (tolerance "
           f"{LOGIT_RTOL}), greedy tokens equal at all {chk['checked']} "
@@ -4890,6 +5851,16 @@ def main() -> None:
     for line in lines:
         print(line)
     print(f"slice 8 phase: {time.perf_counter() - t0:.1f} s")
+    kernels += entries
+
+    # ---------------------- slice 9: whisper-base (the encoder-decoder)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines, entries = whisper_phase(torch, dev, tb, tf, qm, nm, gpu_line())
+    for line in lines:
+        print(line)
+    print(f"slice 9 phase: {time.perf_counter() - t0:.1f} s")
     kernels += entries
 
     print(f"gpu: {gpu_line()}")

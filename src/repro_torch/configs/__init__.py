@@ -1,8 +1,7 @@
 """Configurations: the LM architectures and the paper's FIR testbed.
 
-``get_arch`` knows every name the reference registry has; the ones whose
-model family is not ported yet raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+``get_arch`` knows every name the reference registry has and raises
+``KeyError`` for any other.
 """
 import importlib
 
@@ -18,19 +17,13 @@ _PORTED = {
     "mamba2-370m": "mamba2_370m",
     "zamba2-2.7b": "zamba2_2_7b",
     "chameleon-34b": "chameleon_34b",
-}
-_NOT_PORTED = {
-    "whisper-base": "A12 (encoder-decoder)",
+    "whisper-base": "whisper_base",
 }
 
-ARCH_NAMES = sorted(_PORTED.keys() | _NOT_PORTED.keys())
+ARCH_NAMES = sorted(_PORTED)
 
 
 def get_arch(name: str) -> ArchConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet (ROADMAP item "
-            f"{_NOT_PORTED[name]})")
     if name not in _PORTED:
         raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
     return importlib.import_module(f".{_PORTED[name]}", __package__).CONFIG

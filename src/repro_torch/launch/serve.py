@@ -35,6 +35,10 @@ a continuous-mode prompt longer than ``ssm_chunk`` that is not a
 multiple of it fails its request, as in the reference (ROADMAP C11).
 The reference's ``--flash-attn`` is left out: under the Scheduler every
 call carries a cache, so it changes nothing there (ROADMAP C3).
+``--arch whisper-base`` is refused: an encoder-decoder model needs its
+frame embeddings in every call, which the Scheduler does not pass (the
+reference's launcher reaches ``lm_apply``'s assert); serve it through
+``serve.make_serve_fns`` with ``encoder_embeds``.
 """
 from __future__ import annotations
 
@@ -91,6 +95,12 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     cfg = get_arch(args.arch)
+    if cfg.is_encoder_decoder:
+        ap.error(f"--arch {args.arch} is an encoder-decoder model: every "
+                 f"call needs its frame embeddings, which the Scheduler "
+                 f"does not pass (the reference's launcher fails lm_apply's "
+                 f"assert on it); serve it through make_serve_fns with "
+                 f"encoder_embeds")
     if args.reduced:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(

@@ -17,13 +17,16 @@ calibrated noise: bare, an f32 matmul of the codes and
 parameters are random, from a seeded generator.  Data and checkpoints as
 in the reference: the deterministic synthetic pipeline, a checkpoint
 directory that the loop resumes from (pass a fresh ``--ckpt-dir`` to
-start over).  A mesh other than 1 x 1 is the parallel item, ROADMAP A13;
-a MoE arch (its auxiliary and MTP losses) is ROADMAP A16.
+start over).  An encoder-decoder arch (``whisper-base``) is fed the
+reference's frame embeddings: zeros, f32, (batch, encoder_len, d_model),
+at every step.  A mesh other than 1 x 1 is the parallel item, ROADMAP
+A13; a MoE arch (its auxiliary and MTP losses) is ROADMAP A16.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import tempfile
 
@@ -108,6 +111,10 @@ def main(argv=None):
                     global_batch=args.batch)
     lc = LoopConfig(total_steps=args.steps, ckpt_every=args.ckpt_every,
                     ckpt_dir=args.ckpt_dir)
+    if cfg.is_encoder_decoder:
+        enc = torch.zeros((args.batch, cfg.encoder_len, cfg.d_model),
+                          dtype=torch.float32, device=dev)
+        step_fn = functools.partial(step_fn, encoder_embeds=enc)
 
     def data_iter(start):
         for toks, labels, step in batches(dc, start):

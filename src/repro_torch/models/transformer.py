@@ -1,4 +1,5 @@
-"""Decoder-only LM over the dense, VLM, MoE, SSM and hybrid families:
+"""The LM over the dense, VLM, MoE, SSM, hybrid and encoder-decoder
+families:
 
   * dense / vlm: [attention + gated MLP] x L (a VLM's image tokens are
     ordinary vocabulary entries);
@@ -7,11 +8,15 @@
   * ssm:         [Mamba2] x L;
   * hybrid:      groups of ``shared_attn_every`` Mamba2 layers, each
                  group followed by one weight-shared attention + MLP
-                 block (Zamba2), whose KV cache is stacked per group.
+                 block (Zamba2), whose KV cache is stacked per group;
+  * encdec:      an encoder of [attention + gated MLP] x n_encoder_layers
+                 over precomputed frame embeddings, then a decoder of
+                 [self-attention + cross-attention + gated MLP] x L
+                 (Whisper; the audio frontend is a stub).
 
-Counterpart of ``repro.models.transformer`` without its encoder-decoder
-branch: ``ModelRuntime``, ``lm_table``/``lm_init``, ``init_cache``,
-``lm_amm_planes`` and ``lm_apply`` in train, prefill and decode modes.
+Counterpart of ``repro.models.transformer``: ``ModelRuntime``,
+``lm_table``/``lm_init``, ``init_cache``, ``lm_amm_planes`` and
+``lm_apply`` in train, prefill and decode modes.
 The reference scans its layers with ``jax.lax.scan``; here a Python loop
 walks the layer-stacked parameters.  A MoE model's first
 ``first_k_dense`` layers are a list of unstacked dense layers
@@ -26,11 +31,23 @@ history is promoted by the f32 projection), so a cache's ``conv`` leaf
 changes dtype with its first decode, and a caller rebinds the caches it
 gets back (ROADMAP C12).
 
+The encoder-decoder family follows the reference's quirks: every call
+needs ``encoder_embeds`` and runs the whole encoder again, decode
+included; the cross-attention reads that call's f32 keys and values and
+writes their bf16 casts into the ``xk``/``xv`` cache leaves, which
+nothing reads (ROADMAP C15).  The encoder's self-attention is causal
+(C13), every encoder layer's MLP takes the root key (C14), and the
+cross-attention takes the chunked schedule whatever
+``use_pallas_attention`` says (C16): only the encoder's and the
+decoder's self-attention can run on the flash kernels.
+
 The bitexact datapath's weight side is precoded once for fixed weights
 (``lm_amm_planes``, ``ModelRuntime.build_planes``) and threaded through
 ``lm_apply(amm_planes=)``; the caches are the float cache
 (``init_cache``) or the int-code cache (``serve.kv_cache``), which the
-attention layer tells apart by their leaves.
+attention layer tells apart by their leaves.  The encoder-decoder family
+caches no planes: its MLPs precode their weights in every call, as the
+reference's do.
 
 The noise follows the reference's key chain: ``lm_apply`` starts from
 ``jax.random.key(rng)`` (``rng`` defaults to 0, as the reference's
@@ -42,11 +59,11 @@ from it; the fused kernel takes ``randint(layer key)`` as its seed).
 
 In the hybrid, the shared block of each group takes the group's key: one
 split of the chain per group, after its Mamba2 layers, which take none.
+In the encoder-decoder family the decoder's layers split the chain from
+the root key; the encoder's layers take the root key itself.
 
-The encoder-decoder family is ROADMAP item A12 and raises
-``NotImplementedError``.  ``lm_loss`` is the training loss of the
-cacheless train mode; the MoE family's (its auxiliary and MTP terms) is
-item A16.
+``lm_loss`` is the training loss of the cacheless train mode; the MoE
+family's (its auxiliary and MTP terms) is item A16.
 """
 from __future__ import annotations
 
@@ -56,11 +73,13 @@ from typing import Any, Dict
 import torch
 
 from ..configs.base import ArchConfig
+from ..core import prng
 from ..core.prng import layer_keys
 from ..device import pin_fp32, resolve_device
-from .attention import attention, attn_table, mla_attention, mla_table
-from .common import (AmmRuntime, Spec, cross_entropy_loss, init_params,
-                     rmsnorm)
+from .attention import (_expand_f32, attention, attn_table, mla_attention,
+                        mla_table)
+from .common import (AmmRuntime, Spec, apply_rope, cross_entropy_loss,
+                     init_params, rmsnorm)
 from .mamba2 import mamba_apply, mamba_table
 from .moe import mlp_apply, mlp_table, moe_apply, moe_table
 
@@ -95,18 +114,18 @@ class ModelRuntime:
 
 
 def _family(cfg: ArchConfig) -> str:
-    """The ported family of ``cfg``: "dense" (a VLM's stack is the dense
-    one), "moe", "ssm" or "hybrid"; the encoder-decoder family raises the
-    ROADMAP item that ports it."""
-    if cfg.family in ("dense", "vlm") and not cfg.is_encoder_decoder \
-            and not cfg.use_mla:
-        return "dense"
+    """The stack ``cfg`` runs: "dense" (a VLM's stack, and an audio
+    config's without an encoder, are the dense one), "encdec" (the dense
+    and audio families with ``is_encoder_decoder``), "moe", "ssm" or
+    "hybrid"."""
+    if cfg.family in ("dense", "vlm", "audio") and not cfg.use_mla:
+        return "encdec" if cfg.is_encoder_decoder else "dense"
     if cfg.family in ("moe", "ssm", "hybrid"):
         return cfg.family
-    raise NotImplementedError(
-        f"model family {cfg.family!r} of {cfg.name!r} is not ported yet "
-        f"(ROADMAP item A12); the dense, VLM, MoE, SSM and hybrid "
-        f"families are")
+    raise ValueError(
+        f"model family {cfg.family!r} of {cfg.name!r} (use_mla="
+        f"{cfg.use_mla}) is not one the reference's registry runs: the "
+        f"dense, VLM, audio, MoE, SSM and hybrid families are")
 
 
 def _stack(table: Dict, n: int) -> Dict:
@@ -162,6 +181,15 @@ def lm_table(cfg: ArchConfig) -> Dict[str, Any]:
     if family == "dense":
         t["layers"] = _stack(_dense_layer_table(cfg), cfg.n_layers)
         return t
+    if family == "encdec":
+        t["encoder"] = {
+            "layers": _stack(_dense_layer_table(cfg), cfg.n_encoder_layers),
+            "norm": Spec((d,), ("embed",), "ones")}
+        dec = _dense_layer_table(cfg)
+        dec["xattn_norm"] = Spec((d,), ("embed",), "ones")
+        dec["xattn"] = attn_table(cfg)
+        t["layers"] = _stack(dec, cfg.n_layers)
+        return t
     if family == "ssm":
         t["layers"] = _stack(_ssm_layer_table(cfg), cfg.n_layers)
         return t
@@ -204,11 +232,15 @@ def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):
     (the routed experts are not approximated); for the hybrid
     ``{"shared_block": {"mlp": ...}}``, once for every group.  None when
     the mode caches nothing (not bitexact, or a non-Booth family), when
-    no MLP product is approximated (``apply_to="attn"``), or for the SSM
-    family, which has no approximated product."""
+    no MLP product is approximated (``apply_to="attn"``), for the SSM
+    family, which has no approximated product, and for the
+    encoder-decoder family, whose MLPs precode their weights in every
+    call, as the reference's do."""
     if not (amm.cacheable and amm.mlp_active):
         return None
     family = _family(cfg)
+    if family in ("ssm", "encdec"):
+        return None
 
     def mlp(p):
         return {k: amm.precode(p[k]) for k in ("w_gate", "w_up", "w_down")}
@@ -216,8 +248,6 @@ def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):
         return {"layers": {"mlp": mlp(params["layers"]["mlp"])}}
     if family == "hybrid":
         return {"shared_block": {"mlp": mlp(params["shared_block"]["mlp"])}}
-    if family == "ssm":
-        return None
     planes = {"dense_prefix": [{"mlp": mlp(p["mlp"])}
                                for p in params["dense_prefix"]]}
     if cfg.n_shared_experts:
@@ -233,7 +263,9 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
     the SSM family the scan state ``ssm`` (L, B, H, P, N) f32 and the
     conv history ``conv`` (L, B, conv - 1, conv_dim) in ``dtype``; for the
     hybrid the same with (groups, per) for L, and k, v stacked over the
-    groups (one shared-block call each)."""
+    groups (one shared-block call each); for the encoder-decoder family
+    k, v and the cross-attention's ``xk``, ``xv`` (L, B, encoder_len, KV,
+    head_dim)."""
     family = _family(cfg)
     dev = resolve_device(device)
     if family in ("ssm", "hybrid"):
@@ -257,8 +289,14 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
              cfg.kv_lora_rank + cfg.qk_rope_dim), dtype=dtype, device=dev)}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    c = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+         "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    if family == "encdec":
+        xshape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_kv_heads,
+                  cfg.resolved_head_dim)
+        c["xk"] = torch.zeros(xshape, dtype=dtype, device=dev)
+        c["xv"] = torch.zeros(xshape, dtype=dtype, device=dev)
+    return c
 
 
 def _attn_block(p, h, cfg, rt, *, positions, cache=None, pos=None):
@@ -309,7 +347,7 @@ def _layer(tree, i: int):
 
 def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
              mode: str = "train", caches=None, pos=None,
-             rng=None, amm_planes=None):
+             rng=None, encoder_embeds=None, amm_planes=None):
     """Forward pass.
 
     tokens: (B, S) integer tokens (S == 1 to decode against caches).
@@ -325,7 +363,10 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
     cacheless causal schedule (train and prefill), or the flash kernels
     with ``rt.use_pallas_attention``.  rng: the key the noise seeds derive
     from, as an int seed (``jax.random.key(rng)``; default 0) or a
-    ``core.prng`` key.  amm_planes: an optional ``lm_amm_planes`` cache,
+    ``core.prng`` key.  encoder_embeds: (B, encoder_len, d_model) frame
+    embeddings, which the encoder-decoder family needs in every call
+    (``ValueError`` without them; the reference asserts) and the other
+    families ignore.  amm_planes: an optional ``lm_amm_planes`` cache,
     bit-identical to none.
     Returns (logits f32 (B, S, vocab), aux losses, caches).
     """
@@ -352,6 +393,16 @@ def lm_apply(params, cfg: ArchConfig, rt: ModelRuntime, tokens, *,
         h, new_caches = _hybrid_stack(params, h, cfg, rt, caches, root,
                                       amm_planes, positions=positions,
                                       pos=pos)
+    elif family == "encdec":
+        if encoder_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             f"lm_apply needs encoder_embeds (B, "
+                             f"{cfg.encoder_len}, {cfg.d_model})")
+        enc_out = _encoder(params["encoder"], encoder_embeds, cfg, rt, root,
+                           b, h.dtype)
+        h = _decoder_stack(params["layers"], h, enc_out, cfg, rt, caches,
+                           root, positions=positions, pos=pos)
+        new_caches = caches if caches is not None else {}
     else:
         h, aux["moe_aux"] = _attn_stack(params, h, cfg, rt, caches, root,
                                         amm_planes, positions=positions,
@@ -416,6 +467,73 @@ def _hybrid_stack(params, h, cfg, rt, caches, root, amm_planes, *,
                    conv=torch.stack(new_c).reshape(lead + new_c[0].shape))
 
 
+def _encoder(p_enc, embeds, cfg, rt, root, b: int, dtype):
+    """The encoder stack over the frame embeddings, cast to the residual
+    stream's dtype, then its final norm.  As in the reference, its
+    self-attention is causal (``_attn_block`` without ``causal=False``:
+    ROADMAP C13) and every layer's MLP takes the root key unsplit (C14)."""
+    dev = p_enc["norm"].device
+    e = torch.as_tensor(embeds, device=dev).to(dtype)
+    epos = _positions(e.shape[1], b, dev)
+    key = tuple(root) if isinstance(root, tuple) else prng.key(root)
+    for i in range(cfg.n_encoder_layers):
+        p_l = _layer(p_enc["layers"], i)
+        e, _ = _attn_block(p_l, e, cfg, rt, positions=epos)
+        y = mlp_apply(p_l["mlp"], rmsnorm(e, p_l["mlp_norm"], cfg.norm_eps),
+                      rt.amm, key)
+        e = e + y.to(e.dtype)
+    return rmsnorm(e, p_enc["norm"], cfg.norm_eps)
+
+
+def _positions(s: int, b: int, dev) -> torch.Tensor:
+    """Positions 0..s-1 for each of ``b`` rows, (b, s) int32."""
+    return (torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+            * torch.ones((b, 1), dtype=torch.int32, device=dev))
+
+
+def _cross_kv(p, enc_out, enc_pos, cfg):
+    """The cross-attention's keys and values from the encoder output, as
+    the reference forms them: ``wk`` and ``wv`` products in the operands'
+    common dtype, ``bk`` added under ``qkv_bias`` (``bv`` never), rope at
+    the encoder positions on the keys alone."""
+    ek = _expand_f32(enc_out, p["wk"], "bsd,dhk->bshk")
+    ev = _expand_f32(enc_out, p["wv"], "bsd,dhk->bshk")
+    if cfg.qkv_bias:
+        ek = ek + p["bk"]
+    return apply_rope(ek, enc_pos, cfg.rope_theta), ev
+
+
+def _decoder_stack(p_stack, h, enc_out, cfg, rt, caches, root, *, positions,
+                   pos):
+    """The decoder: per layer self-attention (on the ``k``/``v`` caches
+    when given), cross-attention over this call's encoder output
+    (non-causal, the chunked schedule: ROADMAP C16) and the MLP on the
+    layer's key.  With caches, the cross keys and values are written
+    into ``xk``/``xv`` as their casts, which nothing reads (C15)."""
+    keys = layer_keys(root, cfg.n_layers)
+    xamm = rt.amm if rt.amm.attn_active else None
+    enc_pos = _positions(enc_out.shape[1], h.shape[0], h.device)
+    for i in range(cfg.n_layers):
+        p_l = _layer(p_stack, i)
+        cache_self = (None if caches is None
+                      else {"k": caches["k"][i], "v": caches["v"][i]})
+        h, _ = _attn_block(p_l, h, cfg, rt, positions=positions,
+                           cache=cache_self, pos=pos)
+        ek, ev = _cross_kv(p_l["xattn"], enc_out, enc_pos, cfg)
+        xn, _ = attention(p_l["xattn"],
+                          rmsnorm(h, p_l["xattn_norm"], cfg.norm_eps), cfg,
+                          positions=positions, kv=(ek, ev), causal=False,
+                          amm=xamm)
+        h = h + xn.to(h.dtype)
+        y = mlp_apply(p_l["mlp"], rmsnorm(h, p_l["mlp_norm"], cfg.norm_eps),
+                      rt.amm, keys[i])
+        if caches is not None:
+            caches["xk"][i].copy_(ek.detach())
+            caches["xv"][i].copy_(ev.detach())
+        h = h + y.to(h.dtype)
+    return h
+
+
 def _attn_stack(params, h, cfg, rt, caches, root, amm_planes, *, positions,
                 pos):
     """The dense and MoE stacks; returns (h, the MoE auxiliary loss)."""
@@ -453,17 +571,19 @@ def _attn_stack(params, h, cfg, rt, caches, root, amm_planes, *, positions,
 
 
 def lm_loss(params, cfg: ArchConfig, rt: ModelRuntime, tokens, labels, *,
-            rng=None, moe_aux_weight: float = 1e-2):
+            rng=None, encoder_embeds=None, moe_aux_weight: float = 1e-2):
     """Training loss: next-token cross entropy (with the z-loss) plus the
     MoE auxiliary loss, which the other families leave at 0.  Returns
-    (total, {"ce", "moe_aux"}).  The MoE family's loss (its auxiliary
-    term and the MTP head's) is ROADMAP item A16 and raises."""
+    (total, {"ce", "moe_aux"}).  ``encoder_embeds``: the encoder-decoder
+    family's frame embeddings (``lm_apply``'s).  The MoE family's loss
+    (its auxiliary term and the MTP head's) is ROADMAP item A16 and
+    raises."""
     if _family(cfg) == "moe":
         raise NotImplementedError(
             f"training the MoE family ({cfg.name!r}: the moe_aux and MTP "
             f"terms of lm_loss) is not ported yet (ROADMAP item A16)")
     logits, aux, _ = lm_apply(params, cfg, rt, tokens, mode="train",
-                              rng=rng)
+                              rng=rng, encoder_embeds=encoder_embeds)
     labels = torch.as_tensor(labels, device=logits.device)
     loss = cross_entropy_loss(logits, labels)
     total = loss + moe_aux_weight * aux["moe_aux"]

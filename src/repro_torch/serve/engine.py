@@ -6,8 +6,13 @@ Counterpart of ``repro.serve.engine``.
 (PyTorch runs eagerly: there is no ``jit`` to carry over), with the
 bitexact datapath's weight precode (``lm_amm_planes``) baked in:
 
-  prefill(params, tokens, caches)        -> (logits_last, caches)
-  decode(params, tokens_1, caches, pos)  -> (logits, caches)
+  prefill(params, tokens, caches[, encoder_embeds])       -> (logits, caches)
+  decode(params, tokens_1, caches, pos[, encoder_embeds]) -> (logits, caches)
+
+An encoder-decoder model (whisper-base) is served through them alone,
+with its frame embeddings passed to every call, prefill and decode: the
+reference's ``Scheduler`` passes none and cannot serve it, so the port's
+refuses it.
 
 With ``kv_codes=True`` the caches are the int-code KV cache
 (``serve.kv_cache``): wl-bit codes frozen at write time plus per-block
@@ -64,8 +69,8 @@ def cache_logical_axes(cfg: ArchConfig, *,
     dense family's k and v; the MoE family's MLA latent, or its k and v
     without MLA; the SSM family's scan state and conv history; the
     hybrid's, under a group axis that puts the batch at depth 2, beside
-    its k and v), or with ``kv_codes=True`` of
-    ``serve.kv_cache.init_code_cache``."""
+    its k and v; the encoder-decoder family's k, v, xk and xv), or with
+    ``kv_codes=True`` of ``serve.kv_cache.init_code_cache``."""
     if kv_codes:
         return code_cache_logical_axes(cfg)
     if cfg.family == "ssm":
@@ -81,6 +86,8 @@ def cache_logical_axes(cfg: ArchConfig, *,
     if cfg.use_mla:
         return {"latent": ("layers", "batch", "seq_model", "kv_latent")}
     kvax = ("layers", "batch", "seq", "kv_heads", "head_dim")
+    if cfg.is_encoder_decoder:
+        return {"k": kvax, "v": kvax, "xk": kvax, "xv": kvax}
     return {"k": kvax, "v": kvax}
 
 
@@ -95,21 +102,26 @@ def make_serve_fns(cfg: ArchConfig, rt: ModelRuntime, *, amm_planes=None,
     (serving weights are fixed: the bitexact weight precode happens once,
     not in every step).  kv_codes: the functions serve the int-code cache
     (checked here: it needs an active Booth-family bitexact attention
-    lowering on ``rt``; the cache itself is the caller's)."""
+    lowering on ``rt``; the cache itself is the caller's).
+    ``encoder_embeds``: the frame embeddings (B, encoder_len, d_model) an
+    encoder-decoder model needs in every call, as in the reference."""
     if kv_codes and rt.amm.attn_lowering is None:
         raise ValueError("kv_codes serving requires an active Booth-family "
                          "bitexact amm attention lowering")
 
-    def prefill(params, tokens, caches):
+    def prefill(params, tokens, caches, encoder_embeds=None):
         logits, _, new_caches = lm_apply(params, cfg, rt, tokens,
                                          mode="decode", caches=caches, pos=0,
+                                         encoder_embeds=encoder_embeds,
                                          amm_planes=amm_planes)
         return logits[:, -1], new_caches
 
-    def decode(params, tokens, caches, pos):
+    def decode(params, tokens, caches, pos, encoder_embeds=None):
         logits, _, new_caches = lm_apply(params, cfg, rt, tokens,
                                          mode="decode", caches=caches,
-                                         pos=pos, amm_planes=amm_planes)
+                                         pos=pos,
+                                         encoder_embeds=encoder_embeds,
+                                         amm_planes=amm_planes)
         return logits[:, -1], new_caches
 
     return prefill, decode
@@ -333,7 +345,10 @@ class Scheduler:
     (``self.amm_planes``) for its own step functions.
 
     ``device``: where the caches live and the steps run (the GPU unless
-    told otherwise); ``params`` must already be there.  The default step
+    told otherwise); ``params`` must already be there.  An
+    encoder-decoder config raises ``ValueError``: its calls need frame
+    embeddings, which the reference's scheduler never passes (serve it
+    through ``make_serve_fns``).  The default step
     functions update the attention caches in place; a retry rewrites the
     same positions from the same inputs (the SSM state is returned anew,
     so a failed step leaves it as it was).  A supplied ``decode_fn`` counts as
@@ -349,6 +364,13 @@ class Scheduler:
                  guard: Optional[GuardConfig] = None, max_retries: int = 0,
                  backoff: float = 0.0, backoff_cap: float = 1.0,
                  device=None):
+        if cfg.is_encoder_decoder:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder model: every call needs "
+                f"its frame embeddings, which the Scheduler does not pass "
+                f"(the reference's cannot serve it either); serve it "
+                f"through make_serve_fns' prefill and decode with "
+                f"encoder_embeds")
         if kv_codes:
             if not rt.amm.attn_active or rt.amm.attn_lowering is None:
                 raise ValueError(

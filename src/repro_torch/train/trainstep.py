@@ -34,9 +34,10 @@ def _key(rng) -> prng.Key:
     return prng.key(0 if rng is None else int(rng))
 
 
-def _value_and_grad(params, cfg, rt, tokens, labels, key):
+def _value_and_grad(params, cfg, rt, tokens, labels, key, enc):
     leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-    loss, metrics = lm_loss(leaves, cfg, rt, tokens, labels, rng=key)
+    loss, metrics = lm_loss(leaves, cfg, rt, tokens, labels, rng=key,
+                            encoder_embeds=enc)
     grads = torch.autograd.grad(loss, tree_leaves(leaves))
     it = iter(grads)
     grads = tree_map(lambda _: next(it), params)
@@ -45,13 +46,17 @@ def _value_and_grad(params, cfg, rt, tokens, labels, key):
 
 
 def loss_and_grads(params, cfg: ArchConfig, rt: ModelRuntime, tokens,
-                   labels, rng, *, microbatches: int = 1):
+                   labels, rng, *, microbatches: int = 1,
+                   encoder_embeds=None):
     """Mean loss and gradients over ``microbatches`` equal slices of the
-    batch, each with its own key (``prng.split(rng, microbatches)``), the
-    gradients summed in f32 and scaled once, as the reference's scan.
-    Returns (loss, grads, metrics of the last microbatch)."""
+    batch, each with its own key (``prng.split(rng, microbatches)``) and
+    its slice of ``encoder_embeds`` (an encoder-decoder model's frame
+    embeddings), the gradients summed in f32 and scaled once, as the
+    reference's scan.  Returns (loss, grads, metrics of the last
+    microbatch)."""
     if microbatches == 1:
-        return _value_and_grad(params, cfg, rt, tokens, labels, rng)
+        return _value_and_grad(params, cfg, rt, tokens, labels, rng,
+                               encoder_embeds)
     b = tokens.shape[0]
     if b % microbatches:
         raise ValueError(f"batch {b} does not split into {microbatches} "
@@ -66,7 +71,8 @@ def loss_and_grads(params, cfg: ArchConfig, rt: ModelRuntime, tokens,
     for i in range(microbatches):
         sl = slice(i * mb, (i + 1) * mb)
         loss, grads, metrics = _value_and_grad(
-            params, cfg, rt, tokens[sl], labels[sl], keys[i])
+            params, cfg, rt, tokens[sl], labels[sl], keys[i],
+            None if encoder_embeds is None else encoder_embeds[sl])
         grad_acc = tree_map(lambda a, g: a + g.to(a.dtype), grad_acc, grads)
         loss_sum = loss_sum + loss
     inv = 1.0 / microbatches
@@ -74,12 +80,14 @@ def loss_and_grads(params, cfg: ArchConfig, rt: ModelRuntime, tokens,
 
 
 def make_train_step(cfg: ArchConfig, rt: ModelRuntime, tc: TrainConfig):
-    """``step(params, opt_state, tokens, labels, rng) -> (params,
-    opt_state, metrics)`` on the device the parameters live on."""
-    def step(params, opt_state, tokens, labels, rng):
+    """``step(params, opt_state, tokens, labels, rng, encoder_embeds=None)
+    -> (params, opt_state, metrics)`` on the device the parameters live
+    on; ``encoder_embeds``: an encoder-decoder model's frame
+    embeddings."""
+    def step(params, opt_state, tokens, labels, rng, encoder_embeds=None):
         loss, grads, metrics = loss_and_grads(
             params, cfg, rt, tokens, labels, rng,
-            microbatches=tc.microbatches)
+            microbatches=tc.microbatches, encoder_embeds=encoder_embeds)
         new_params, new_opt, opt_metrics = apply_updates(
             params, grads, opt_state, tc.opt)
         return new_params, new_opt, dict(metrics, **opt_metrics, loss=loss)

@@ -311,8 +311,11 @@ def test_unported_parts_name_their_roadmap_item(tmp_path):
     from repro_torch.models.attention import attention, attn_table
     from repro_torch.models.common import AmmRuntime
     from repro_torch.configs.base import AmmConfig
-    with pytest.raises(NotImplementedError, match="A12"):
-        get_arch("whisper-base")
+    # the encoder-decoder family is ported: get_arch returns whisper-base
+    whisper = get_arch("whisper-base")
+    assert whisper.is_encoder_decoder and whisper.encoder_len == 1500
+    with pytest.raises(KeyError):
+        get_arch("whisper-tiny")
     # --kv-codes takes the reference's parse-time rules (bitexact, a Booth
     # family, --amm-attn): each missing piece is an argparse error
     for flag in (["--kv-codes"], ["--kv-codes", "--amm", "bitexact"],

@@ -409,15 +409,14 @@ def test_lm_amm_planes_tree_matches_the_reference():
 def test_registry_ports_the_moe_and_dense_configs():
     for name in ("deepseek-v3-671b", "grok-1-314b", "qwen1.5-110b",
                  "llama3.2-3b", "yi-34b", "qwen2-0.5b", "mamba2-370m",
-                 "zamba2-2.7b", "chameleon-34b"):
+                 "zamba2-2.7b", "chameleon-34b", "whisper-base"):
         want = dataclasses.asdict(j_get(name))
         got = dataclasses.asdict(t_get(name))
         assert got == want, name
         assert dataclasses.asdict(t_reduced(t_get(name))) \
             == dataclasses.asdict(j_reduced(j_get(name))), name
     assert "whisper-base" in ARCH_NAMES
-    with pytest.raises(NotImplementedError, match="A12"):
-        t_get("whisper-base")
+    assert t_get("whisper-base").is_encoder_decoder
     _, t_cfg = _cfgs("deepseek-v3-671b")
     tp = _weights("deepseek-v3-671b")[1]
     toks = torch.zeros((1, 4), dtype=torch.int64)
@@ -427,10 +426,19 @@ def test_registry_ports_the_moe_and_dense_configs():
     with pytest.raises(NotImplementedError, match="A16"):
         t_train.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
                       "cpu", "--steps", "1"])
+    # the audio family is ported: without an encoder it is the dense
+    # stack, with one the encoder-decoder stack, which needs embeddings
+    from repro_torch.models import lm_table as t_table
     for fam in ("audio",):
         cfg = dataclasses.replace(t_cfg, family=fam, use_mla=False)
-        with pytest.raises(NotImplementedError, match="A12"):
-            t_apply(tp, cfg, TRT.build(cfg), toks)
+        assert set(t_table(cfg)) == {"embed", "final_norm", "lm_head",
+                                     "layers"}
+        w_cfg = t_reduced(t_get("whisper-base"))
+        assert w_cfg.family == fam
+        assert {"encoder", "layers"} <= set(t_table(w_cfg))
+        with pytest.raises(ValueError, match="encoder_embeds"):
+            t_apply({"embed": torch.zeros((w_cfg.vocab, w_cfg.d_model))},
+                    w_cfg, TRT.build(w_cfg), toks)
 
 
 # ------------------------------------------------------ A7: dense configs
