@@ -50,7 +50,7 @@ of the JAX package.  Phases, each of which fails the run:
   7. LM main path: qwen2-0.5b at full width (random weights from a seeded
      generator, on the card) in noise mode (bbm0, WL 16, VBL 13, the
      fused kernel) served by the continuous ``Scheduler``: 8 slots,
-     max_len 512, 32 requests with prompts of 32-256 tokens and 64 new
+     max_len 512, 32 requests with prompts of 32-256 tokens and 32 new
      tokens each.  The launch count is zeroed just before and read just
      after; it must be 72 (3 MLP products x 24 layers) per ``lm_apply``
      call (decode steps plus prefills), nothing may fail, every logit
@@ -161,7 +161,7 @@ of the JAX package.  Phases, each of which fails the run:
      full-width
      qwen2-0.5b bitexact (bbm0 WL 16 VBL 13, ``apply_to="all"``,
      ``kv_codes``) through the continuous ``Scheduler``: 8 slots,
-     max_len 512, 32 requests of 32-256 prompt tokens and 64 new tokens
+     max_len 512, 32 requests of 32-256 prompt tokens and 32 new tokens
      each, the weights precoded once; the counts zeroed just before and
      every ``lm_apply`` call held to exactly 72 ``bbm_dot_scaled`` and 48
      ``bbm_dot_coded_batched`` launches, prefills and decodes alike;
@@ -186,7 +186,7 @@ of the JAX package.  Phases, each of which fails the run:
  21. noise serving on the plain branch: full-width qwen2-0.5b in noise
      mode (bbm0, WL 16, VBL 13) without the fused kernel through the
      continuous ``Scheduler`` (8 slots, max_len 512, 24 requests of
-     32-256 prompt tokens and 64 new tokens); the counts zeroed just
+     32-256 prompt tokens and 32 new tokens); the counts zeroed just
      before and read just after: 72 ``normal_draw`` launches per
      ``lm_apply`` call and no ``quant_matmul``; nothing failed, every logit
      finite; decode p50 / p90 and tokens/s beside the fused kernel's path
@@ -254,6 +254,23 @@ of the JAX package.  Phases, each of which fails the run:
      flash kernels and their gradients at whisper's shapes (Sq != Skv,
      one query against 1,500 keys, all-zero K and V); each kernel at the
      encoder's shapes against its bound and a PyTorch call.
+ 26. slice 10, training the MoE family (``moe_train_phase``): both flash
+     kernels at head dims 80 and 128 against their plain versions at
+     every such config's training shape (4 x 512, GQA repeated as
+     ``attention`` repeats it; causal and not, a ragged 200, a cross
+     shape; 3xTF32 against float64) and timed beside
+     ``scaled_dot_product_attention``; grok-1-314b at full width cut to
+     1 layer (6.53 G parameters) through ``loss_and_grads`` in T1 (one
+     ``flash_attention_amm`` a call at head dim 128) and T2 (one
+     ``flash_attention``), the peak printed; the launcher's loop on
+     grok-1 cut to 2 routed experts and a 16,384 vocabulary (AdamW's
+     functional update holds about ten copies of the parameters): 3
+     steps and the final checkpoint; deepseek-v3-671b at full width cut to 2 layers and 16
+     routed experts with its MTP block, T1 (exactly 9 ``bbm_dot_scaled``
+     and 6 ``bbm_dot_coded_batched`` a call) and T2 (none), its ce,
+     moe_aux and mtp; both against the CPU port on 2-layer cuts (T2, 64
+     tokens, the CPU on the card's routing); deepseek-v3's T1 kernel
+     calls at their training shapes against their bounds.
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -299,8 +316,8 @@ REPLACES = {"fir_bank_rows": "src/repro/kernels/fir_kernel.py:106",
 MMA_SOURCE = "src/repro_torch/kernels/csrc/bbm_mma.cuh"
 TRAIN_SOURCES = {
     "bbm_dot_scaled": MMA_SOURCE,
-    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
-    "flash_attention_amm": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cuh",
+    "flash_attention_amm": "src/repro_torch/kernels/csrc/flash_attention.cuh"}
 # profiler (demangled) names: the tensor-core route's kernel (and the
 # planes' packing pass), the tile's kernel
 MMA_KERNEL = "bbm_mma::bbm_mma_kernel"
@@ -861,6 +878,12 @@ def qm_capture_check(torch, qm, calls) -> tuple:
     return n, worst, max_err
 
 
+# new tokens a request in qwen2-0.5b's serving runs (noise fused, bitexact
+# from the code cache, noise plain): the decode loops are host-bound, and
+# their length is the smoke's largest cost on a slow host
+SERVE_NEW = 32
+
+
 def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
     """Serve the workload through the continuous Scheduler; check it."""
     from repro_torch.serve import Request, Scheduler, make_serve_fns
@@ -869,7 +892,8 @@ def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
     sched = Scheduler(cfg, rt, params, 8, 512, decode_fn=rec.decode,
                       prefill_fn=rec.prefill, continuous=True, device=dev)
     reqs = [Request(rid=i, prompt=rng.integers(
-        0, cfg.vocab, int(rng.integers(32, 257))).tolist(), max_new=64)
+        0, cfg.vocab, int(rng.integers(32, 257))).tolist(),
+        max_new=SERVE_NEW)
         for i in range(32)]
     for r in reqs:
         sched.submit(r)
@@ -905,7 +929,7 @@ def lm_main_path(torch, dev, cfg, rt, params, qm) -> dict:
              f"prefills): expected {per_call * calls}")
     if st["failed"] or st["deadline_expired"] or st["completed"] != len(reqs):
         fail(f"the Scheduler did not serve every request: {st}")
-    if any(r.error or len(r.out) != 64 for r in reqs):
+    if any(r.error or len(r.out) != SERVE_NEW for r in reqs):
         fail("a request ended early or failed")
     if int(rec.bad) != 0:
         fail(f"{int(rec.bad)} non-finite logits on the main path")
@@ -1842,7 +1866,7 @@ def conv1d_ms(torch, c: int, n: int, taps: int, dev) -> float:
 
 
 # the fewest keys at which the exact kernel's error model
-# (csrc/flash_attention.cu) admits 3xTF32 for P V inside flash_tolerance's
+# (csrc/flash_attention.cuh) admits 3xTF32 for P V inside flash_tolerance's
 # sum term: (30 + Skv / 8) u <= (Skv + 8) u
 PV_3XTF32_MIN_SKV = 26
 
@@ -1875,7 +1899,7 @@ def flash_bound_ms(pairs: int, d: int, skv: int, amm_rows: int = 0) -> float:
 # 512, 64) causal
 FLASH_BEFORE_MS = {"flash_attention": 0.237485,
                    "flash_attention_amm": 5.544544}
-# the kernels' tiles (csrc/flash_attention.cu): exact 64 x 64, amm 128 x 128
+# the kernels' tiles (csrc/flash_attention.cuh): exact 64 x 64, amm 128 x 128
 FLASH_TILES = {"flash_attention": (64, 64), "flash_attention_amm": (128, 128)}
 # bbm_dot_scaled on the CUDA-core tile before the redesign (PERF.md's
 # kernel table, PR 14 call 2, CUDA events)
@@ -1888,9 +1912,9 @@ def flash_raw_ms(torch, q, k, v, reps: int = 50,
     over back-to-back launches through its C entry point: the wrapper's
     host work (checks, layout, about 20 us of Python) exceeds the
     kernel's time, so timing wrapper calls measures the host."""
-    from repro_torch.kernels._build import library
-    lib = library("flash_attention")
+    from repro_torch.kernels.flash_attention import _library
     b, h, s_len, d = q.shape
+    lib = _library(d)
     skv = k.shape[2]
     qc = q.reshape(b * h, s_len, d).contiguous()
     kc, vc = (t.reshape(b * h, skv, d).contiguous() for t in (k, v))
@@ -2727,8 +2751,8 @@ class LaunchRecorder(Recorder):
 
 def serve_bitexact(torch, dev, cfg, params, tb) -> dict:
     """The bitexact kv-codes workload through the continuous Scheduler:
-    8 slots, max_len 512, 32 requests of 32-256 prompt tokens and 64 new
-    tokens each; every call's launches checked."""
+    8 slots, max_len 512, 32 requests of 32-256 prompt tokens and
+    ``SERVE_NEW`` new tokens each; every call's launches checked."""
     from repro_torch.models import ModelRuntime
     from repro_torch.serve import Request, Scheduler, make_serve_fns
     rt = ModelRuntime.build(cfg)
@@ -2748,7 +2772,8 @@ def serve_bitexact(torch, dev, cfg, params, tb) -> dict:
                       continuous=True, kv_codes=True, device=dev)
     rng = np.random.default_rng(3)
     reqs = [Request(rid=i, prompt=rng.integers(
-        0, cfg.vocab, int(rng.integers(32, 257))).tolist(), max_new=64)
+        0, cfg.vocab, int(rng.integers(32, 257))).tolist(),
+        max_new=SERVE_NEW)
         for i in range(32)]
     for r in reqs:
         sched.submit(r)
@@ -2775,7 +2800,7 @@ def serve_bitexact(torch, dev, cfg, params, tb) -> dict:
              f" its stats say {calls}")
     if st["failed"] or st["deadline_expired"] or st["completed"] != len(reqs):
         fail(f"the Scheduler did not serve every request: {st}")
-    if any(r.error or len(r.out) != 64 for r in reqs):
+    if any(r.error or len(r.out) != SERVE_NEW for r in reqs):
         fail("a request ended early or failed")
     if int(rec.bad) != 0:
         fail(f"{int(rec.bad)} non-finite logits on the bitexact path")
@@ -3096,7 +3121,8 @@ def noise_plain_path(torch, dev, cfg, rt, params, nm, qm) -> dict:
     sched = Scheduler(cfg, rt, params, 8, 512, decode_fn=rec.decode,
                       prefill_fn=rec.prefill, continuous=True, device=dev)
     reqs = [Request(rid=i, prompt=rng.integers(
-        0, cfg.vocab, int(rng.integers(32, 257))).tolist(), max_new=64)
+        0, cfg.vocab, int(rng.integers(32, 257))).tolist(),
+        max_new=SERVE_NEW)
         for i in range(24)]
     for r in reqs:
         sched.submit(r)
@@ -3126,7 +3152,7 @@ def noise_plain_path(torch, dev, cfg, rt, params, nm, qm) -> dict:
              f"{qm.quant_matmul.launches} (expected 0)")
     if st["failed"] or st["deadline_expired"] or st["completed"] != len(reqs):
         fail(f"the Scheduler did not serve every request: {st}")
-    if any(r.error or len(r.out) != 64 for r in reqs):
+    if any(r.error or len(r.out) != SERVE_NEW for r in reqs):
         fail("a request ended early or failed")
     if int(rec.bad) != 0:
         fail(f"{int(rec.bad)} non-finite logits on the plain noise branch")
@@ -4801,7 +4827,6 @@ def wh_kernel_timing(torch, dev, tb, tf, qm, nm, prng, cfg, rt_noise,
     (the same function for the exact flash kernel:
     ``scaled_dot_product_attention``; a yardstick otherwise).  Returns
     (printed lines, kernel JSON entries)."""
-    from repro_torch.kernels.booth_rows import num_corr_rows
     from repro_torch.kernels.ref import amm_scale
     gen = torch.Generator(device=dev)
     gen.manual_seed(94)
@@ -4953,59 +4978,24 @@ def wh_kernel_timing(torch, dev, tb, tf, qm, nm, prng, cfg, rt_noise,
           mean("bound"), coded[0]["by"], None,
           ", ".join(sorted({x["how"] for x in coded})), bmm_ms=mean("lib_ms"))
     # both flash kernels at the encoder's and the cross-attention's shapes
-    amm_rows = num_corr_rows(16, 13)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    d = cfg.resolved_head_dim
     for name, sq, skv, causal, _ in wh_flash_cases(cfg)[:2]:
         q, k_, v = wh_flash_operands(torch, gen, dev, cfg, sq, skv)
-        bh = WH_TRAIN_BATCH * cfg.n_heads
-        pairs = bh * (sq * (sq + 1) // 2 if causal else sq * skv)
         for kern in ("flash_attention", "flash_attention_amm"):
-            if kern == "flash_attention":
-                ms = flash_raw_ms(torch, q, k_, v, causal=causal)
-                how = "CUDA events, the kernel's C entry"
-                plain_ms = cuda_ms(torch, lambda: tf.flash_attention_plain(
-                    q, k_, v, causal=causal), 3)
-                lib_ms = cuda_ms(torch, lambda: sdpa(q, k_, v,
-                                                     is_causal=causal), 20)
-                err = float((tf.flash_attention(q, k_, v, causal=causal)
-                             - tf.flash_attention_plain(q, k_, v,
-                                                        causal=causal))
-                            .abs().max())
-                t_ops = flash_bound_ms(pairs, d, skv)
-                nbytes = 4 * d * bh * (2 * sq + 2 * skv)
-            else:
-                run = lambda: tf.flash_attention_amm(  # noqa: E731
-                    q, k_, v, wl=16, vbl=13, kind=0, causal=causal)
-                ms = kernel_device_ms(torch, run, 10,
-                                      TRAIN_KERNELS[kern], per_call=1)
-                how = "profiler"
-                if ms is None:
-                    ms, how = cuda_ms(torch, run, 10), "CUDA events, wrapper"
-                plain_ms = cuda_ms(torch, lambda: tf.flash_amm_plain(
-                    tf.flash_amm_operands(q, k_, v, wl=16), wl=16, vbl=13,
-                    kind=0, causal=causal), 2)
-                lib_ms = None
-                err = flash_amm_check(torch, tf, q, k_, v, kind=0,
-                                      causal=causal,
-                                      what=f"at whisper's {name}")["max_err"]
-                t_ops = flash_bound_ms(pairs, d, skv, amm_rows)
-                nbytes = 4 * d * bh * (2 * sq + 2 * skv) \
-                    + 2 * d * bh * (sq + 2 * skv)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            bound = max(t_ops, t_bytes)
-            by = "operations" if t_ops >= t_bytes else "bytes"
+            r = flash_kernel_timing(torch, tf, kern, q, k_, v, causal,
+                                    f"at whisper's {name}")
             if causal:      # the cross shape is a check: no main-path launch
                 entry(f"{kern} (whisper {name})", TRAIN_SOURCES[kern],
-                      REPLACES[kern], launches[kern], err, ms, plain_ms,
-                      bound, by, lib_ms, how)
+                      REPLACES[kern], launches[kern], r["err"], r["ms"],
+                      r["plain_ms"], r["bound"], r["by"], r["lib_ms"],
+                      r["how"])
             lines.append(
                 f"{kern} at whisper's {name} ({tuple(q.shape)} x {skv} keys, "
-                f"causal={causal}): {ms:.6f} ms ({how}), plain "
-                f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}; bound / "
-                f"time {bound / ms:.4g}), max abs error {err!r}"
-                + ("" if lib_ms is None else
-                   f", scaled_dot_product_attention {lib_ms:.6f} ms"))
+                f"causal={causal}): {r['ms']:.6f} ms ({r['how']}), plain "
+                f"{r['plain_ms']:.6f} ms, bound {r['bound']:.6f} ms "
+                f"({r['by']}; bound / time {r['bound'] / r['ms']:.4g}), max "
+                f"abs error {r['err']!r}"
+                + ("" if r["lib_ms"] is None else
+                   f", scaled_dot_product_attention {r['lib_ms']:.6f} ms"))
         del q, k_, v
     return lines, entries
 
@@ -5227,6 +5217,686 @@ def whisper_phase(torch, dev, tb, tf, qm, nm, card: str) -> tuple:
     return lines, entries
 
 
+def flash_kernel_timing(torch, tf, kern: str, q, k, v, causal: bool,
+                        what: str) -> dict:
+    """One flash kernel on (B, H, Sq, D) operands against Skv keys: its
+    device ms (the exact kernel by its C entry between CUDA events; the
+    amm kernel by the profiler, else CUDA events around the wrapper), its
+    plain version's ms, ``scaled_dot_product_attention``'s beside the
+    exact one, the max abs error against the plain version (the amm
+    kernel held by ``flash_amm_check``), and the bound: the operations
+    over the live (query, key) pairs against the bytes of q, k, v and the
+    output, in f32, and the amm kernel's int16 codes."""
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    bh = b * h
+    pairs = bh * (sq * (sq + 1) // 2 if causal else sq * skv)
+    if kern == "flash_attention":
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        ms = flash_raw_ms(torch, q, k, v, causal=causal)
+        how = "CUDA events, the kernel's C entry"
+        plain_ms = cuda_ms(torch, lambda: tf.flash_attention_plain(
+            q, k, v, causal=causal), 3)
+        lib_ms = cuda_ms(torch, lambda: sdpa(q, k, v, is_causal=causal), 20)
+        err = float((tf.flash_attention(q, k, v, causal=causal)
+                     - tf.flash_attention_plain(q, k, v, causal=causal))
+                    .abs().max())
+        t_ops = flash_bound_ms(pairs, d, skv)
+        nbytes = 4 * d * bh * (2 * sq + 2 * skv)
+    else:
+        run = lambda: tf.flash_attention_amm(  # noqa: E731
+            q, k, v, wl=16, vbl=13, kind=0, causal=causal)
+        ms = kernel_device_ms(torch, run, 10, TRAIN_KERNELS[kern],
+                              per_call=1)
+        how = "profiler"
+        if ms is None:
+            ms, how = cuda_ms(torch, run, 10), "CUDA events, wrapper"
+        plain_ms = cuda_ms(torch, lambda: tf.flash_amm_plain(
+            tf.flash_amm_operands(q, k, v, wl=16), wl=16, vbl=13, kind=0,
+            causal=causal), 2)
+        lib_ms = None
+        err = flash_amm_check(torch, tf, q, k, v, kind=0, causal=causal,
+                              what=what)["max_err"]
+        t_ops = flash_bound_ms(pairs, d, skv, num_corr_rows(16, 13))
+        nbytes = 4 * d * bh * (2 * sq + 2 * skv) \
+            + 2 * d * bh * (sq + 2 * skv)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return dict(ms=ms, how=how, plain_ms=plain_ms, lib_ms=lib_ms, err=err,
+                bound=max(t_ops, t_bytes),
+                by="operations" if t_ops >= t_bytes else "bytes")
+
+
+# ------------------------------------------------------------ slice 10
+# the flash kernels' new head dims, at the training shapes (batch 4 x 512)
+HD_BATCH, HD_SEQ = 4, 512
+HD_DIMS = (80, 128)
+HD_RAGGED = 200                   # a ragged query and key length
+
+
+def hd_flash_configs() -> list:
+    """(name, heads, kv heads, head dim) of every registered config whose
+    attention can take the flash kernels at a head dim of ``HD_DIMS``
+    (MLA never takes them)."""
+    from repro_torch.configs import ARCH_NAMES, get_arch
+    out = []
+    for name in ARCH_NAMES:
+        cfg = get_arch(name)
+        if not cfg.use_mla and cfg.n_heads \
+                and cfg.resolved_head_dim in HD_DIMS:
+            out.append((name, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim))
+    return out
+
+
+def hd_operands(torch, gen, dev, heads: int, kv: int, d: int, sq: int,
+                skv: int):
+    """q (B, H, Sq, D) and k, v (B, H, Skv, D) drawn as (B, S, heads, D)
+    and (B, S, kv, D), the KV heads repeated over their query groups as
+    ``models.attention.attention`` repeats them before a flash call."""
+    q = torch.randn((HD_BATCH, sq, heads, d), generator=gen, device=dev)
+    k, v = (torch.randn((HD_BATCH, skv, kv, d), generator=gen, device=dev)
+            for _ in range(2))
+    groups = heads // kv
+    rep = lambda t: torch.repeat_interleave(t, groups, dim=2)  # noqa: E731
+    return q.transpose(1, 2), rep(k).transpose(1, 2), rep(v).transpose(1, 2)
+
+
+def hd_flash_phase(torch, dev, tf) -> tuple:
+    """Both flash kernels at head dims 80 and 128 against their plain
+    versions (``flash_tolerance``; ``flash_amm_compare``) at every such
+    config's training shape, causal and not, kind 0 (kind 1 at the first
+    config of each head dim), a ragged Sq = Skv = 200 and a cross shape
+    (Sq 200 against 512 keys, not causal); the exact kernel's error
+    against float64 attention within ``PRECISION_FACTOR`` times its plain
+    version's; each config's causal shape timed against its bound, its
+    plain version and ``scaled_dot_product_attention``.  Returns (lines,
+    kernel entries, checked cases)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(100)
+    lines, timed = [], {"flash_attention": [], "flash_attention_amm": []}
+    cases, first = 0, set()
+    worst = {"flash_attention": 0.0, "flash_attention_amm": 0.0}
+    moved = [0, 0]
+    for name, heads, kv, d in hd_flash_configs():
+        shapes = [(HD_SEQ, HD_SEQ, True), (HD_SEQ, HD_SEQ, False)]
+        if d not in first:
+            shapes += [(HD_RAGGED, HD_RAGGED, True),
+                       (HD_RAGGED, HD_RAGGED, False),
+                       (HD_RAGGED, HD_SEQ, False)]
+        for sq, skv, causal in shapes:
+            q, k, v = hd_operands(torch, gen, dev, heads, kv, d, sq, skv)
+            what = (f"at {name}'s {tuple(q.shape)} x {skv} keys "
+                    f"causal={causal}")
+            worst["flash_attention"] = max(
+                worst["flash_attention"],
+                flash_exact_check(torch, tf, q, k, v, causal=causal,
+                                  what=what))
+            cases += 1
+            for kind in ((0, 1) if d not in first and sq == HD_SEQ
+                         else (0,)):
+                rep = flash_amm_check(torch, tf, q, k, v, kind=kind,
+                                      causal=causal, what=what)
+                worst["flash_attention_amm"] = max(
+                    worst["flash_attention_amm"], rep["worst_ratio"])
+                moved[0] += rep["codes_moved"]
+                moved[1] += rep["codes"]
+                cases += 1
+            if d not in first and sq == skv == HD_SEQ and causal:
+                # 3xTF32 at this head dim: the kernel's error against
+                # float64 within PRECISION_FACTOR times its plain version's
+                want = attention_f64(torch, q, k, v)
+                e_k = float((tf.flash_attention(q, k, v).double() - want)
+                            .abs().max())
+                e_p = float((tf.flash_attention_plain(q, k, v).double()
+                             - want).abs().max())
+                if not e_k <= PRECISION_FACTOR * e_p:
+                    fail(f"flash_attention's error against float64 {e_k!r} "
+                         f"{what} exceeds {PRECISION_FACTOR} x its plain "
+                         f"version's {e_p!r}")
+                lines.append(f"flash_attention precision {what}: max error "
+                             f"against float64 {e_k!r}, plain version (f32) "
+                             f"{e_p!r}, limit {PRECISION_FACTOR} x plain")
+            if sq == skv == HD_SEQ and causal:
+                for kern in timed:
+                    r = flash_kernel_timing(torch, tf, kern, q, k, v, True,
+                                            what)
+                    timed[kern].append(dict(
+                        config=name, shape=list(q.shape), ms=r["ms"],
+                        plain_ms=r["plain_ms"], bound_ms=r["bound"],
+                        bound_by=r["by"], library_ms=r["lib_ms"],
+                        timed_by=r["how"], max_abs_err=r["err"]))
+                    lines.append(
+                        f"{kern} at {name}'s training shape {tuple(q.shape)} "
+                        f"causal ({heads} / {kv} heads, head dim {d}): "
+                        f"{r['ms']:.6f} ms ({r['how']}), plain "
+                        f"{r['plain_ms']:.6f} ms, bound {r['bound']:.6f} ms "
+                        f"({r['by']}; bound / time {r['bound'] / r['ms']:.4g}"
+                        f"), max abs error {r['err']!r}"
+                        + ("" if r["lib_ms"] is None else
+                           f", scaled_dot_product_attention "
+                           f"{r['lib_ms']:.6f} ms"))
+            del q, k, v
+        first.add(d)
+    lines.insert(0, f"flash kernels at head dims {HD_DIMS}: {cases} cases "
+                    f"over {[c[0] for c in hd_flash_configs()]} within their "
+                    f"bounds (worst error/bound: flash_attention "
+                    f"{worst['flash_attention']:.3g}, flash_attention_amm "
+                    f"{worst['flash_attention_amm']:.3g}; {moved[0]} of "
+                    f"{moved[1]} P codes moved by float rounding)")
+    return lines, timed, cases
+
+
+# the training phase of slice 10: full width, T1's and T2's settings
+MT_T1 = dict(mode="bitexact", mul="bbm0", wl=16, param=13, apply_to="all")
+MT_T2 = dict(mode="off")
+MT_LOOP_STEPS, MT_LOOP_EXPERTS, MT_LOOP_VOCAB = 3, 2, 16384
+MT_DS_EXPERTS = 16
+MT_CPU_LAYERS, MT_CPU_SEQ = 2, 64
+
+
+def grok_config(amm: dict, layers: int = 1, experts=None, vocab=None):
+    """grok-1-314b at full width (d_model 6144, 48 query and 8 KV heads of
+    128, 8 experts of width 32,768, top-2, vocab 131,072), cut to
+    ``layers``; ``experts`` and ``vocab`` cut its width (the loop's)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import AmmConfig
+    kw = dict(n_layers=layers, amm=AmmConfig(**amm))
+    if experts is not None:
+        kw["n_experts"] = experts
+    if vocab is not None:
+        kw["vocab"] = vocab
+    return dataclasses.replace(get_arch("grok-1-314b"), **kw)
+
+
+def ds_train_config(amm: dict, layers: int = 2, experts=MT_DS_EXPERTS):
+    """deepseek-v3-671b at full width with its MTP block, cut to
+    ``layers`` (the first dense, the rest MoE) and ``experts`` routed
+    experts (top-8 kept)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import AmmConfig
+    return dataclasses.replace(get_arch("deepseek-v3-671b"), n_layers=layers,
+                               first_k_dense=1, n_experts=experts,
+                               amm=AmmConfig(**amm))
+
+
+def mt_batch(torch, dev, cfg, batch: int = TRAIN_BATCH,
+             seq: int = TRAIN_SEQ):
+    from repro_torch.data.pipeline import DataConfig, global_batch
+    toks, labels = global_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                           global_batch=batch), 0)
+    return (torch.from_numpy(toks).to(dev), torch.from_numpy(labels).to(dev))
+
+
+def mt_loss_and_grads(torch, dev, cfg, params, counters, *, capture=None,
+                      keep_grads=False) -> dict:
+    """``loss_and_grads`` of ``cfg`` at batch 4 x 512 on the card, twice
+    (the second timed warm); each call's launches of every counted
+    kernel, the loss terms, the peak allocated bytes.  Fails on a
+    non-finite loss, term or gradient.  ``capture``: a ``KernelCapture``
+    that records the first call's kernel calls."""
+    from repro_torch.core import prng
+    from repro_torch.models import ModelRuntime
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainstep import loss_and_grads
+    rt = ModelRuntime.build(cfg, use_pallas=True)
+    toks, labels = mt_batch(torch, dev, cfg)
+    out = {"launches": [], "ms": []}
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(2):
+        if capture is not None and i == 0:
+            capture.calls = []
+        for f in counters.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, metrics = loss_and_grads(params, cfg, rt, toks, labels,
+                                              prng.key(42))
+        loss = float(loss)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append({n: f.launches for n, f in counters.items()})
+        if capture is not None and i == 0:
+            out["calls"] = capture.take()
+        terms = {k: float(v) for k, v in metrics.items()}
+        if not (np.isfinite(loss) and all(np.isfinite(v)
+                                          for v in terms.values())):
+            fail(f"{cfg.name}: a non-finite loss {loss!r} or term {terms}")
+        bad = sum(int((~torch.isfinite(g)).sum()) for g in tree_leaves(grads))
+        if bad:
+            fail(f"{cfg.name}: {bad} non-finite gradient elements")
+        out["loss"], out["terms"] = loss, terms
+        if keep_grads and i == 1:
+            out["grads"] = grads
+        del grads
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def mt_check_launches(name: str, res: dict, want: dict) -> None:
+    for i, got in enumerate(res["launches"]):
+        if got != want:
+            fail(f"{name}: loss_and_grads call {i} launched {got}, "
+                 f"predicted {want}")
+
+
+class ForcedRoutes:
+    """While on, each MoE call of ``models.transformer`` records its router
+    logits (f32, on the CPU) and its top-k decisions; given ``use``, a
+    list of decisions from another run, the calls take those in order
+    instead (gate weights from their own router), so two runs compare
+    on one routing."""
+
+    def __init__(self, torch, use=None):
+        import repro_torch.models.moe as moe
+        import repro_torch.models.transformer as tr
+        self.torch, self.moe, self.tr = torch, moe, tr
+        self.logits, self.idx = [], []
+        self.use = None if use is None else iter(use)
+        self.orig_apply, self.orig_top = tr.moe_apply, moe._top_k
+        tr.moe_apply, moe._top_k = self._apply, self._top_k
+
+    def _apply(self, p, x, cfg, **kw):
+        xf = x.detach().reshape(-1, x.shape[-1]).float()
+        self.logits.append((xf @ p["router"].detach().float()).cpu())
+        return self.orig_apply(p, x, cfg, **kw)
+
+    def _top_k(self, probs, k):
+        vals, idx = self.orig_top(probs, k)
+        if self.use is not None:
+            idx = next(self.use).to(probs.device)
+            vals = probs.gather(-1, idx)
+        self.idx.append(idx.cpu())
+        return vals, idx
+
+    def close(self):
+        self.tr.moe_apply, self.moe._top_k = self.orig_apply, self.orig_top
+
+
+def mt_cpu_check(torch, dev, cfg, seed: int) -> dict:
+    """The card against the CPU port on ``cfg`` (a depth cut at full width,
+    T2's settings: the exact flash kernel where the config takes it), one
+    sequence of ``MT_CPU_SEQ`` tokens: the card's router logits held by a
+    ``RouteLedger`` against the CPU's, the CPU run on the card's top-k
+    decisions; the loss and each term within ``TRAIN_LOSS_RTOL``, each
+    gradient leaf within ``TRAIN_GRAD_RTOL`` of its largest element."""
+    from repro_torch.core import prng
+    from repro_torch.models import ModelRuntime, lm_init
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.trainstep import loss_and_grads
+    rt = ModelRuntime.build(cfg, use_pallas=True)
+    params = lm_init(cfg, seed, device=dev)
+    toks, labels = mt_batch(torch, dev, cfg, 1, MT_CPU_SEQ)
+    rec = ForcedRoutes(torch)
+    try:
+        card, card_g, card_m = loss_and_grads(params, cfg, rt, toks, labels,
+                                              prng.key(7))
+        card = float(card)
+    finally:
+        rec.close()
+    cpu_params = _to_cpu(params)
+    del params
+    t0 = time.perf_counter()
+    forced = ForcedRoutes(torch, use=rec.idx)
+    try:
+        cpu, cpu_g, cpu_m = loss_and_grads(cpu_params, cfg, rt, toks.cpu(),
+                                           labels.cpu(), prng.key(7))
+        cpu = float(cpu)
+    finally:
+        forced.close()
+    cpu_s = time.perf_counter() - t0
+    ledger = RouteLedger(LOGIT_RTOL)
+    rows, pos = np.zeros(MT_CPU_SEQ, int), np.arange(MT_CPU_SEQ)
+    for a, b in zip(rec.logits, forced.logits):
+        ledger.layer(a.numpy(), b.numpy(), rows, pos, cfg.top_k)
+    if not (np.isfinite(card) and abs(card - cpu) <= TRAIN_LOSS_RTOL
+            * abs(cpu)):
+        fail(f"{cfg.name}: the card's loss {card!r} is off the CPU port's "
+             f"{cpu!r}")
+    for k, v in cpu_m.items():
+        if not abs(float(card_m[k]) - float(v)) <= TRAIN_LOSS_RTOL \
+                * abs(float(v)):
+            fail(f"{cfg.name}: the card's {k} {float(card_m[k])!r} is off "
+                 f"the CPU port's {float(v)!r}")
+    worst = 0.0
+    for g, w in zip(tree_leaves(card_g), tree_leaves(cpu_g)):
+        # on the card, in f32: its rounding of the difference is far below
+        # the tolerance, and float64 copies of the embedding's 0.9 G
+        # elements on the host cost minutes
+        w = w.to(dev)
+        ratio = float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+        if not ratio <= TRAIN_GRAD_RTOL:
+            fail(f"{cfg.name}: a gradient leaf {tuple(w.shape)} on the card "
+                 f"is off the CPU port's by {ratio} of its largest element")
+        worst = max(worst, ratio)
+    return {"card": card, "cpu": cpu, "cpu_s": cpu_s, "grad_worst": worst,
+            "terms": {k: (float(card_m[k]), float(v))
+                      for k, v in cpu_m.items()},
+            "flips": ledger.flips, "tokens": ledger.tokens}
+
+
+def mt_loop(torch, counters) -> dict:
+    """``launch.train.main`` on grok-1 cut to 1 layer, ``MT_LOOP_EXPERTS``
+    routed experts and a vocabulary of ``MT_LOOP_VOCAB`` (its config
+    handed in through the launcher's ``get_arch``), T1's flags, batch 4 x
+    512, ``MT_LOOP_STEPS`` steps and the final checkpoint (18.5 GB of
+    parameters and AdamW's moments; the periodic one and the restore are
+    the CPU tests').  Each step's launches and wall, the history, the
+    checkpoint's step."""
+    import shutil
+    import repro_torch.launch.train as launch
+    from repro_torch.train import checkpoint
+    cfg = grok_config(MT_T1, experts=MT_LOOP_EXPERTS, vocab=MT_LOOP_VOCAB)
+    ckpt = ROOT / "build" / "chip_smoke_moe_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    steps = []
+    make, get_arch = launch.make_train_step, launch.get_arch
+
+    def counted_make(cfg_, rt, tc):
+        step = make(cfg_, rt, tc)
+
+        def counted(*args, **kw):
+            for f in counters.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args, **kw)
+            float(out[2]["loss"])
+            torch.cuda.synchronize()
+            steps.append({"wall": time.perf_counter() - t0, "launches": {
+                n: f.launches for n, f in counters.items()}})
+            return out
+        return counted
+
+    launch.make_train_step = counted_make
+    launch.get_arch = lambda name: cfg
+    flags = T1_FLAGS + ["--arch", "grok-1-314b", "--batch", str(TRAIN_BATCH),
+                        "--seq", str(TRAIN_SEQ), "--ckpt-dir", str(ckpt),
+                        "--ckpt-every", "0", "--steps", str(MT_LOOP_STEPS)]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        hist = launch.main(flags)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        at = checkpoint.latest_step(str(ckpt))
+    finally:
+        launch.make_train_step, launch.get_arch = make, get_arch
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return {"cfg": cfg, "hist": hist, "steps": steps, "run_s": run_s,
+            "peak_gb": peak, "ckpt_step": at}
+
+
+def mt_kernel_timing(torch, tb, calls, launches) -> tuple:
+    """deepseek-v3's T1 kernel calls at their training shapes: each
+    distinct (kernel, shape) of the recorded calls on its own inputs,
+    device ms (``launch_ms``), its plain version on a sample
+    (``DS_SAMPLE_COLS`` columns, ``DS_SAMPLE_SLICES`` slices, on the card)
+    bit-equal, timed on that sample, the bound of the whole call, an f32
+    PyTorch product of the same shapes as a yardstick.  Returns (lines,
+    kernel entries)."""
+    rng = np.random.default_rng(101)
+    seen, rows = set(), {"bbm_dot_scaled": [], "bbm_dot_coded_batched": []}
+    lines = []
+    for name, args, kw, out in calls:
+        shape = (name, tuple(args[0].shape), tuple(args[2 if name
+                 == "bbm_dot_coded_batched" else 1].shape))
+        if shape in seen:
+            continue
+        seen.add(shape)
+        if name == "bbm_dot_scaled":
+            x, w = args
+            m, k = x.shape
+            n = w.shape[1]
+            run = lambda: tb.bbm_dot_scaled(x, w, **kw)  # noqa: E731
+            ms, how = launch_ms(torch, run, 5, TRAIN_KERNELS[name])
+            pick = torch.as_tensor(np.sort(rng.choice(
+                n, min(DS_SAMPLE_COLS, n), replace=False)), device=w.device)
+            ws = w[:, pick].contiguous()
+            plain = lambda: tb.bbm_dot_scaled_plain(x, ws, **kw)  # noqa
+            want = plain()
+            err = float((out[:, pick] - want).abs().max())
+            plain_ms = cuda_ms(torch, plain, 1)
+            xf, wf = x.float(), w.float()
+            lib_ms = cuda_ms(torch, lambda: xf @ wf, 5)
+            bound, by = dot_scaled_bound_ms(m, k, n)
+            what = f"({m}, {k}) x ({k}, {n})"
+            sample = f"{len(pick)} of {n} columns"
+        else:
+            a, s_a, b, s_b = args
+            bt, _, m, k = a.shape
+            n = b.shape[-1]
+            run = lambda: tb.bbm_dot_coded_batched(  # noqa: E731
+                a, s_a, b, s_b, **kw)
+            ms, how = launch_ms(torch, run, 5, CODED_KERNEL)
+            sl = torch.as_tensor(np.sort(rng.choice(
+                bt, min(DS_SAMPLE_SLICES, bt), replace=False)),
+                device=a.device)
+            kw_s = {k_: (v[sl] if torch.is_tensor(v) else v)
+                    for k_, v in kw.items()}
+            plain = lambda: tb.bbm_dot_coded_batched_plain(  # noqa: E731
+                *(t[sl] for t in (a, s_a, b, s_b)), **kw_s)
+            want = plain()
+            err = float((out[sl] - want).abs().max())
+            plain_ms = cuda_ms(torch, plain, 1)
+            af = a.float().reshape(bt, m, k)
+            bf = b.float().reshape(bt, k, n)
+            lib_ms = cuda_ms(torch, lambda: torch.bmm(af, bf), 5)
+            bound, by = dense_coded_bound_ms(bt, m, k, n)
+            what = f"{bt} slices of ({m}, {k}) x ({k}, {n})"
+            sample = f"{len(sl)} of {bt} slices"
+        if err != 0:
+            fail(f"{name} at deepseek-v3's training shape {what} differs "
+                 f"from its plain version by {err}")
+        rows[name].append(dict(what=what, ms=ms, how=how, plain_ms=plain_ms,
+                               sample=sample, bound=bound, by=by,
+                               lib_ms=lib_ms, err=err))
+        lines.append(
+            f"{name} at deepseek-v3's T1 training shape {what}: {ms:.6f} ms "
+            f"({how}), bound {bound:.6f} ms ({by}; bound / time "
+            f"{bound / ms:.4g}), plain version on {sample} {plain_ms:.6f} ms "
+            f"(bit-equal there), f32 PyTorch product of the same shapes "
+            f"{lib_ms:.6f} ms (a yardstick, not the same function)")
+    entries = []
+    for name, src in (("bbm_dot_scaled", MMA_SOURCE),
+                      ("bbm_dot_coded_batched", CODED_SOURCE)):
+        r = rows[name]
+        mean = lambda f: sum(x[f] for x in r) / len(r)  # noqa: E731
+        entries.append({
+            "name": f"{name} (deepseek-v3 T1 training)", "route": "cuda",
+            "source": src, "replaces": REPLACES["bbm_dot_scaled"]
+            if name == "bbm_dot_scaled" else CODED_REPLACES,
+            "launches": launches[name], "max_abs_err": max(x["err"]
+                                                            for x in r),
+            "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+            "plain_on": "a sample of each call: " + "; ".join(
+                x["sample"] for x in r),
+            "bound_ms": mean("bound"), "bound_by": r[0]["by"],
+            "library_ms": None, "matmul_ms": mean("lib_ms"),
+            "timed_by": ", ".join(sorted({x["how"] for x in r})),
+            "per_shape": [{k2: x[k2] for k2 in ("what", "ms", "bound",
+                                                  "plain_ms", "lib_ms")}
+                          for x in r]})
+    return lines, entries
+
+
+def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
+    """Slice 10: the flash kernels at head dims 80 and 128
+    (``hd_flash_phase``); grok-1 at full width cut to 1 layer through
+    ``loss_and_grads`` in T1 (``flash_attention_amm`` at head dim 128) and
+    T2 (``flash_attention``); the launcher's loop on grok-1 cut in width
+    (``mt_loop``); deepseek-v3 at full width cut to 2 layers and 16 routed
+    experts with its MTP block, T1 and T2; the card against the CPU port
+    on 2-layer cuts; deepseek-v3's T1 kernels at their training shapes.
+    Returns (printed lines, kernel entries)."""
+    import gc
+    import repro_torch.models.common as common
+    from repro_torch.models import lm_init
+    lines, entries = [], []
+    counters = {"quant_matmul": qm.quant_matmul,
+                "normal_draw": nm.normal_draw,
+                "bbm_dot_scaled": tb.bbm_dot_scaled,
+                "bbm_dot_coded_batched": tb.bbm_dot_coded_batched,
+                "flash_attention": tf.flash_attention,
+                "flash_attention_amm": tf.flash_attention_amm}
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        lines.append(f"  ({what}: {now - t_lap[0]:.1f} s)")
+        t_lap[0] = now
+
+    def predicted(**kw):
+        return dict({n: 0 for n in counters}, **kw)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    hd_lines, timed, _ = hd_flash_phase(torch, dev, tf)
+    lines += hd_lines
+    lap("flash kernels at head dims 80 and 128")
+
+    # grok-1 at full width, 1 layer: T1 and T2
+    runs = {}
+    for tag, amm in (("T1", MT_T1), ("T2", MT_T2)):
+        cfg = grok_config(amm)
+        free()
+        params = lm_init(cfg, 0, device=dev)
+        n_params = sum(v.numel() for v in _leaves(params))
+        res = mt_loss_and_grads(torch, dev, cfg, params, counters)
+        del params
+        want = predicted(**({"flash_attention_amm": cfg.n_layers}
+                            if tag == "T1" else
+                            {"flash_attention": cfg.n_layers}))
+        mt_check_launches(f"grok-1 {tag}", res, want)
+        runs[tag] = res
+        lines.append(
+            f"grok-1-314b at full width cut to {cfg.n_layers} layer "
+            f"({n_params} parameters, {4 * n_params / 1e9:.2f} GB in f32), "
+            f"{tag} ({'bitexact bbm0 WL 16 VBL 13 apply_to=all, ' if tag == 'T1' else 'amm off, '}"
+            f"the flash kernels), loss_and_grads at {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}: loss {res['loss']!r}, terms {res['terms']}, "
+            f"{res['ms'][0]:.1f} ms cold and {res['ms'][1]:.1f} ms warm, "
+            f"launches per call {res['launches'][0]} as predicted, peak "
+            f"{res['peak_gb']:.2f} GB allocated")
+    lap("grok-1 T1 and T2")
+
+    # the launcher's loop on grok-1 cut in width
+    free()
+    loop = mt_loop(torch, counters)
+    cfg = loop["cfg"]
+    hist = loop["hist"]
+    if [h["step"] for h in hist] != list(range(MT_LOOP_STEPS)) \
+            or len(loop["steps"]) != MT_LOOP_STEPS:
+        fail(f"the grok-1 loop ran {[h['step'] for h in hist]}")
+    if not all(np.isfinite(h["loss"]) and np.isfinite(h["moe_aux"])
+               for h in hist):
+        fail(f"the grok-1 loop's history is not finite: {hist}")
+    want = predicted(flash_attention_amm=cfg.n_layers)
+    for i, st in enumerate(loop["steps"]):
+        if st["launches"] != want:
+            fail(f"grok-1 loop step {i} launched {st['launches']}, "
+                 f"predicted {want}")
+    if loop["ckpt_step"] != MT_LOOP_STEPS - 1:
+        fail(f"the loop's checkpoint holds step {loop['ckpt_step']}")
+    lines.append(
+        f"grok-1-314b through launch.train (T1 flags), cut to 1 layer, "
+        f"{cfg.n_experts} routed experts (of 8) and a vocabulary of "
+        f"{cfg.vocab} (of 131,072): {MT_LOOP_STEPS} steps at {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, losses {[round(h['loss'], 6) for h in hist]}, "
+        f"moe_aux {[round(h['moe_aux'], 6) for h in hist]}, step walls "
+        f"{[round(st['wall'] * 1e3, 1) for st in loop['steps']]} ms, "
+        f"launches per step {want['flash_attention_amm']} "
+        f"flash_attention_amm as predicted, run {loop['run_s']:.1f} s with "
+        f"its final checkpoint (step {loop['ckpt_step']}), peak "
+        f"{loop['peak_gb']:.2f} GB")
+    del loop
+    lap("the grok-1 loop")
+
+    # deepseek-v3 at full width, 2 layers, 16 routed experts, the MTP block
+    ds = {}
+    for tag, amm in (("T1", MT_T1), ("T2", MT_T2)):
+        cfg = ds_train_config(amm)
+        free()
+        params = lm_init(cfg, 0, device=dev)
+        n_params = sum(v.numel() for v in _leaves(params))
+        cap = KernelCapture(common) if tag == "T1" else None
+        try:
+            res = mt_loss_and_grads(torch, dev, cfg, params, counters,
+                                    capture=cap)
+        finally:
+            if cap is not None:
+                cap.close()
+        del params
+        # MLA on the chunked schedule: one (q block, KV block) pair at 512
+        # tokens, a score and a value product in each of the three
+        # attention layers (the dense one, the MoE one, the MTP block's);
+        # the dense MLP and the two shared experts on bbm_dot_scaled
+        want = predicted(bbm_dot_scaled=9, bbm_dot_coded_batched=6) \
+            if tag == "T1" else predicted()
+        mt_check_launches(f"deepseek-v3 {tag}", res, want)
+        ds[tag] = res
+        lines.append(
+            f"deepseek-v3-671b at full width cut to {cfg.n_layers} layers "
+            f"(1 dense, 1 MoE) with the MTP block and {cfg.n_experts} routed "
+            f"experts (of 256; top-{cfg.top_k}), {n_params} parameters "
+            f"({4 * n_params / 1e9:.2f} GB in f32), {tag}, loss_and_grads at "
+            f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss {res['loss']!r}, ce "
+            f"{res['terms']['ce']!r}, moe_aux {res['terms']['moe_aux']!r}, "
+            f"mtp {res['terms']['mtp']!r}, {res['ms'][0]:.1f} ms cold and "
+            f"{res['ms'][1]:.1f} ms warm, launches per call "
+            f"{ {k: v for k, v in res['launches'][0].items() if v} } as "
+            f"predicted, peak {res['peak_gb']:.2f} GB allocated")
+    lap("deepseek-v3 T1 and T2")
+
+    # the card against the CPU port on 2-layer cuts (T2)
+    free()
+    for name, cfg, seed in (
+            ("grok-1-314b", grok_config(MT_T2, layers=MT_CPU_LAYERS,
+                                        experts=MT_LOOP_EXPERTS), 3),
+            ("deepseek-v3-671b", ds_train_config(MT_T2), 4)):
+        chk = mt_cpu_check(torch, dev, cfg, seed)
+        free()
+        lines.append(
+            f"{name} card vs CPU ({cfg.n_layers} layers at full width, "
+            f"{cfg.n_experts} routed experts, 1 x {MT_CPU_SEQ} tokens, T2): "
+            f"loss {chk['card']!r} on the card, {chk['cpu']!r} on the CPU "
+            f"(tolerance {TRAIN_LOSS_RTOL} relative), terms (card, CPU) "
+            f"{chk['terms']}; router logits within {LOGIT_RTOL} of their "
+            f"largest, {chk['flips']} top-k flips at near-ties of "
+            f"{chk['tokens']} token decisions (the CPU ran the card's "
+            f"routing); every gradient leaf within {chk['grad_worst']:.3g} of "
+            f"its largest element (tolerance {TRAIN_GRAD_RTOL}; CPU "
+            f"{chk['cpu_s']:.1f} s)")
+    lap("card against CPU")
+
+    # the kernels at the training shapes
+    k_lines, k_entries = mt_kernel_timing(torch, tb, ds["T1"]["calls"],
+                                          ds["T1"]["launches"][0])
+    lines += k_lines
+    entries += k_entries
+    del ds
+    free()
+    for kern, run in (("flash_attention", runs["T2"]),
+                      ("flash_attention_amm", runs["T1"])):
+        rows = timed[kern]
+        main = next(r for r in rows if r["config"] == "grok-1-314b")
+        entries.append({
+            "name": f"{kern} (head dim 128, grok-1 training)", "route": "cuda",
+            "source": TRAIN_SOURCES[kern], "replaces": REPLACES[kern],
+            "launches": run["launches"][0][kern] + run["launches"][1][kern],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "timed_by": main["timed_by"],
+            "per_config": rows})
+    lap("kernel timing")
+    return lines, entries
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -5266,7 +5936,8 @@ def main() -> None:
           + ", ".join(f"{lib} " + ("no report" if r is None else
                                    f"{r[0]} regs {r[1]} B")
                       for lib, r in mma.items()))
-    flash = ptxas_kernels(_build.BUILD_LOGS.get("flash_attention", ""))
+    flash = ptxas_kernels(_build.BUILD_LOGS.get("flash_attention", "")
+                          + _build.BUILD_LOGS.get("flash_attention_wide", ""))
     print("flash_attention per kernel (registers, spill stores): " + (
         ", ".join(f"{k} {r} regs {sp} B" for k, r, sp in flash)
         or "no report"))
@@ -5861,6 +6532,16 @@ def main() -> None:
     for line in lines:
         print(line)
     print(f"slice 9 phase: {time.perf_counter() - t0:.1f} s")
+    kernels += entries
+
+    # ------------- slice 10: training the MoE family, head dims 80 and 128
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines, entries = moe_train_phase(torch, dev, tb, tf, qm, nm)
+    for line in lines:
+        print(line)
+    print(f"slice 10 phase: {time.perf_counter() - t0:.1f} s")
     kernels += entries
 
     print(f"gpu: {gpu_line()}")

@@ -1,19 +1,31 @@
-"""Host-side runtime guards for the serving datapath.
+"""Runtime guards for the serving datapath.
 
-Counterpart of the engine-facing half of ``repro.core.guards``: the
-guard configuration, the structured per-flush verdict, and the per-row
-finite / error-budget checks the filterbank engine runs on every flush.
-All of it is numpy on the host.  (The reference's in-jit checkify guards
-come with the faults-and-guards item of the port.)
+Counterpart of ``repro.core.guards``.  The engine-facing half: the guard
+configuration, the structured per-flush verdict, and the per-row finite
+/ error-budget checks the filterbank engine runs on every flush, numpy
+on the host.  The envelope half: ``code_range_check`` and
+``scaled_bound_check``, which the reference writes as ``checkify``
+checks inside a jitted function, are eager checks here, reduced on the
+tensor's device and raised on the host as ``GuardError`` (a
+``ValueError``, as the reference's ``JaxRuntimeError`` is) with the
+reference's messages.  Outside ``checkify_call`` each check reads its
+verdict at once; inside, the verdicts stay on the device until the
+function returns, and the first that tripped is raised then (one
+synchronization for all of them), as ``checkify``'s error value is.
+No hot path calls them.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["GuardConfig", "GuardReport", "finite_rows", "guard_rows"]
+__all__ = ["GuardConfig", "GuardError", "GuardReport", "checkify_call",
+           "code_range_check", "finite_rows", "guard_rows",
+           "scaled_bound_check"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +104,65 @@ def guard_rows(y, cfg: GuardConfig, *, y_exact=None) -> GuardReport:
             rep.trip("budget")
             rep.row_ok &= ~over
     return rep
+
+
+# ------------------------------------------------------- envelope checks
+class GuardError(ValueError):
+    """An envelope check tripped; the message is the reference's."""
+
+
+# the verdicts (ok, message) deferred by the innermost checkify_call of
+# this thread or task, or None outside one
+_deferred: contextvars.ContextVar = contextvars.ContextVar("deferred",
+                                                          default=None)
+
+
+def _check(ok: torch.Tensor, msg: str) -> None:
+    msg = f"{msg} (`check` failed)"
+    checks = _deferred.get()
+    if checks is not None:
+        checks.append((ok, msg))
+    elif not bool(ok):
+        raise GuardError(msg)
+
+
+def code_range_check(codes: torch.Tensor, wl: int,
+                     what: str = "codes") -> None:
+    """Every quantized code inside the signed wl-bit range.  The quantizer
+    clips, so a trip means the datapath was handed codes it never
+    produced: a corrupted cache entry, a fault injection's overreach, an
+    integration bug."""
+    lim = 1 << (wl - 1)
+    _check(torch.all((codes >= -lim) & (codes < lim)),
+           f"{what} outside the signed {wl}-bit envelope "
+           f"[{-lim}, {lim - 1}]")
+
+
+def scaled_bound_check(acc: torch.Tensor, bound: int,
+                       what: str = "accumulator") -> None:
+    """|scaled partial| within the dot form's int32 bound (``booth_rows
+    .dotform_scaled_bound``, or any caller bound): the runtime
+    counterpart of the static envelope assertion, catching what static
+    analysis cannot (faulted planes, corrupted codes)."""
+    _check(torch.max(torch.abs(acc)) <= bound,
+           f"{what} left the int32 envelope (bound {int(bound)})")
+
+
+def checkify_call(fn, *args, **kwargs):
+    """Run ``fn``, which may call the checks above, and raise the first
+    check that tripped, in call order, on the host once ``fn`` returns
+    (its verdicts read in one transfer).  Returns ``fn``'s
+    output when no check trips."""
+    checks = []
+    token = _deferred.set(checks)
+    try:
+        out = fn(*args, **kwargs)
+    finally:
+        _deferred.reset(token)
+    if checks:
+        dev = checks[0][0].device
+        oks = torch.stack([ok.to(dev) for ok, _ in checks]).tolist()
+        for good, (_, msg) in zip(oks, checks):
+            if not good:
+                raise GuardError(msg)
+    return out

@@ -33,6 +33,7 @@ SOURCES = {"fir_bank": CSRC / "fir_bank.cu",
            "bbm_dot": CSRC / "bbm_dot.cu",
            "bbm_matmul": CSRC / "bbm_matmul.cu",
            "flash_attention": CSRC / "flash_attention.cu",
+           "flash_attention_wide": CSRC / "flash_attention_wide.cu",
            "normal": CSRC / "normal.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,6 +91,9 @@ _SIGNATURES = {
         "normal_error_string": ([_I], ctypes.c_char_p),
     },
 }
+
+# the head dims 80 and 128 of the flash kernels: the same entry points
+_SIGNATURES["flash_attention_wide"] = _SIGNATURES["flash_attention"]
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()

@@ -1,6 +1,6 @@
 // The folded dot form of one Broken-Booth product, as device functions.
 //
-// Shared by bbm_dot.cu (the contracted matmul) and flash_attention.cu (the
+// Shared by bbm_dot.cu (the contracted matmul) and flash_attention.cuh (the
 // score and value products of flash attention on the amm datapath), so the
 // integer arithmetic exists once.  For a signed multiplicand a and a wl-bit
 // multiplier code b with radix-4 digits d_r (sign bit neg_r = b_{2r+1}),

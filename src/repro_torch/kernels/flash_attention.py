@@ -1,8 +1,10 @@
 """Flash attention, exact and on the Broken-Booth datapath.
 
 Counterpart of ``repro.kernels.flash_attention``.  Two hand-written CUDA
-kernels (``csrc/flash_attention.cu``), each with a plain PyTorch version
-of the same function beside it:
+kernels (``csrc/flash_attention.cuh``; the library ``flash_attention``
+holds head dims 16, 32 and 64, ``flash_attention_wide`` 80 and 128, so
+that nvcc builds the two sources side by side), each with a plain
+PyTorch version of the same function beside it:
 
   ``flash_attention``      replaces the Pallas kernel
       ``repro/kernels/flash_attention.py::_attn_kernel``: the exact
@@ -48,13 +50,18 @@ takes the longest blocks in its first wave.  K and V tiles arrive by
 kernel double-buffers them, so the next tile's copy runs under the
 current tile's products; the amm kernel, whose tiles fill its shared
 memory, copies V while P is formed and quantized and the next K while
-the P V epilogue runs.
+the P V epilogue runs.  At head dim 128 a whole f32 tile with its codes
+does not fit beside Q, P and P's codes, so the amm kernel streams K in
+four slices of 32 keys and V in four slices of 32 columns through one
+buffer; every product's sum still runs whole, in the same order, inside
+one slice.
 
 Arithmetic and bounds.  The exact kernel forms Q K^T on the tensor cores
 in 3xTF32 (each f32 operand split into a TF32 high and low part, hi*hi +
 hi*lo + lo*hi with the f32 accumulator drained into f32 registers after
 every 8-term step; the error model is in the CUDA source and stays
-inside ``flash_tolerance``'s score term at d <= 64) and P V with FFMA on
+inside ``flash_tolerance``'s score term at every head dim the kernel
+takes) and P V with FFMA on
 the CUDA cores.  By the same error model 3xTF32 would also fit the
 tolerance's sum term for P V from 26 keys on, so on this card the
 function is bounded by both products at the 3xTF32 rate there (and by
@@ -113,7 +120,10 @@ FLASH_AMM_BK = 128
 
 _U = 2.0 ** -24               # unit roundoff of f32
 _EXP_REL = 2.0 ** -21         # two f32 exps of one argument: a few ulps
-_HEAD_DIMS = (16, 32, 64)     # the kernels' instantiations
+# the kernels' instantiations: every head dim a registered config runs
+# through them (whisper-base 64; zamba2-2.7b 80; grok-1-314b,
+# llama3.2-3b, yi-34b, qwen1.5-110b, chameleon-34b 128) and 16, 32
+_HEAD_DIMS = (16, 32, 64, 80, 128)
 _MAX_TILE = 128
 
 
@@ -159,6 +169,12 @@ def _stream(dev: torch.device):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _library(d: int):
+    """The built library of the kernels at head dim ``d``."""
+    from ._build import library
+    return library("flash_attention" if d <= 64 else "flash_attention_wide")
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous at a 16-byte aligned address (the kernels copy
     rows with 16-byte ``cp.async``)."""
@@ -177,7 +193,7 @@ def live_kv_tiles(sq: int, skv: int, bq: int, bk: int, *, causal: bool,
     ``kv_len`` and, under causal, not past the block's last row.  Both
     conditions bound the key from above, so the live tiles are the first
     ``n[i]``, and ``n`` never decreases with ``i``.  The kernels compute
-    the same count in ``csrc/flash_attention.cu`` (``live_tiles``).
+    the same count in ``csrc/flash_attention.cuh`` (``live_tiles``).
     """
     kv_len = skv if kv_len is None else kv_len
     n_valid = min(-(-skv // bk), -(-kv_len // bk))
@@ -238,7 +254,8 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     runs on CPU tensors.  The kernel takes its own, 64 query rows by 64
     keys: rows are independent, so the row tile changes no bit, and the
     KV tile moves only the rounding of the sums, within
-    ``flash_tolerance``.
+    ``flash_tolerance``.  The kernel takes head dims 16, 32, 64, 80 and
+    128; the plain version any.
     """
     _check_qkv(q, k, v, "flash_attention")
     if not q.is_cuda:
@@ -248,12 +265,12 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     _tiles(sq, skv, bq, bk)
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention's kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {d}")
+                         f"{_HEAD_DIMS} (every registered config's), got "
+                         f"{d}")
     qc, kc, vc = (_aligned(t.to(torch.float32).reshape(b * h, t.shape[2], d))
                   for t in (q, k, v))
     out = torch.empty((b * h, sq, d), dtype=torch.float32, device=q.device)
-    from ._build import library
-    lib = library("flash_attention")
+    lib = _library(d)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
@@ -449,7 +466,8 @@ def _amm_launch(ops: dict, *, wl: int, vbl: int, kind: int, causal: bool,
     bh, sqp, d = ops["qf"].shape
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention_amm's kernel takes head_dim in "
-                         f"{_HEAD_DIMS}, got {d}")
+                         f"{_HEAD_DIMS} (every registered config's), got "
+                         f"{d}")
     skvp = ops["kf"].shape[1]
     bq, bk = ops["bq"], ops["bk"]
     dev = ops["qf"].device
@@ -469,8 +487,7 @@ def _amm_launch(ops: dict, *, wl: int, vbl: int, kind: int, causal: bool,
     tiles = [_aligned(ops[n]) for n in ("qf", "kf", "vf", "qc", "kc",
                                         "vc")] + [
         ops[n].contiguous() for n in ("qs", "ks", "vs")]
-    from ._build import library
-    lib = library("flash_attention")
+    lib = _library(d)
     with torch.cuda.device(dev):
         err = lib.flash_attention_amm_launch(
             *(t.data_ptr() for t in tiles),
@@ -493,7 +510,8 @@ def flash_attention_amm(q, k, v, *, wl: int, vbl: int, kind: int,
 
     q: (B, H, Sq, D); k, v: (B, H, Skv, D) with matched head counts.
     wl/vbl/kind: the dot-form lowering (``AmmRuntime.attn_lowering``).
-    ``residuals``: also return the dict of what every tile formed: the
+    The kernel takes head dims 16, 32, 64, 80 and 128; the plain version
+    any.  ``residuals``: also return the dict of what every tile formed: the
     approximate score products ``s`` (B*H, Sq_pad, Skv_pad), P's codes
     ``pc`` (int16, the same shape) and scales ``ps`` (B*H, nq, nk), the
     approximate P V products ``pv`` (B*H, nk, Sq_pad, D), and the tiling

@@ -19,8 +19,9 @@ in the reference: the deterministic synthetic pipeline, a checkpoint
 directory that the loop resumes from (pass a fresh ``--ckpt-dir`` to
 start over).  An encoder-decoder arch (``whisper-base``) is fed the
 reference's frame embeddings: zeros, f32, (batch, encoder_len, d_model),
-at every step.  A mesh other than 1 x 1 is the parallel item, ROADMAP
-A13; a MoE arch (its auxiliary and MTP losses) is ROADMAP A16.
+at every step.  A MoE arch (grok-1-314b, deepseek-v3-671b) trains on
+``lm_loss``'s load-balance term and, for deepseek-v3, its MTP block.  A
+mesh other than 1 x 1 is the parallel item, ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -90,10 +91,6 @@ def main(argv=None):
     dev = resolve_device(args.device)
 
     cfg = get_arch(args.arch)
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"training {args.arch!r} (the MoE family's moe_aux and MTP "
-            f"losses) is not ported yet (ROADMAP item A16)")
     if args.reduced:
         cfg = reduced(cfg)
     cfg = dataclasses.replace(

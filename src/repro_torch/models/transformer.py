@@ -62,8 +62,8 @@ split of the chain per group, after its Mamba2 layers, which take none.
 In the encoder-decoder family the decoder's layers split the chain from
 the root key; the encoder's layers take the root key itself.
 
-``lm_loss`` is the training loss of the cacheless train mode; the MoE
-family's (its auxiliary and MTP terms) is item A16.
+``lm_loss`` is the training loss of the cacheless train mode, with the
+MoE family's load-balance term and DeepSeek-V3's MTP block.
 """
 from __future__ import annotations
 
@@ -203,8 +203,8 @@ def lm_table(cfg: ArchConfig) -> Dict[str, Any]:
     t["layers"] = _stack(_moe_layer_table(cfg),
                          cfg.n_layers - cfg.first_k_dense)
     if cfg.mtp_depth:
-        # the multi-token-prediction block: its parameters only (serving
-        # never reads it; its loss term is ROADMAP item A16)
+        # the multi-token-prediction block (serving never reads it; its
+        # loss term is lm_loss's)
         mtp = _moe_layer_table(cfg)
         mtp["proj"] = Spec((2 * d, d), (None, "embed"))
         mtp["norm"] = Spec((d,), ("embed",), "ones")
@@ -571,20 +571,54 @@ def _attn_stack(params, h, cfg, rt, caches, root, amm_planes, *, positions,
 
 
 def lm_loss(params, cfg: ArchConfig, rt: ModelRuntime, tokens, labels, *,
-            rng=None, encoder_embeds=None, moe_aux_weight: float = 1e-2):
-    """Training loss: next-token cross entropy (with the z-loss) plus the
-    MoE auxiliary loss, which the other families leave at 0.  Returns
-    (total, {"ce", "moe_aux"}).  ``encoder_embeds``: the encoder-decoder
-    family's frame embeddings (``lm_apply``'s).  The MoE family's loss
-    (its auxiliary term and the MTP head's) is ROADMAP item A16 and
-    raises."""
-    if _family(cfg) == "moe":
-        raise NotImplementedError(
-            f"training the MoE family ({cfg.name!r}: the moe_aux and MTP "
-            f"terms of lm_loss) is not ported yet (ROADMAP item A16)")
+            rng=None, encoder_embeds=None, moe_aux_weight: float = 1e-2,
+            mtp_weight: float = 0.1):
+    """Training loss: next-token cross entropy (with the z-loss), plus
+    ``moe_aux_weight`` times the MoE family's summed Switch load-balance
+    loss (0 for the other families), plus, with a multi-token-prediction
+    block (``cfg.mtp_depth`` and ``params["mtp"]``), ``mtp_weight`` times
+    its cross entropy.  Returns (total, {"ce", "moe_aux"} and "mtp" with
+    the block).  ``encoder_embeds``: the encoder-decoder family's frame
+    embeddings (``lm_apply``'s).
+
+    The MTP block follows the reference line by line, which reads the
+    token embeddings where DeepSeek-V3's reads the main stack's last
+    hidden state (ROADMAP C17): its input is ``rmsnorm(embed[tokens])``
+    beside ``embed[labels]`` (both bf16) times ``proj``, an f32 residual
+    through one MoE block keyed by ``rng`` (``key(1)`` without one; the
+    block's own load-balance term is dropped), the final norm and the
+    head in f32, and the cross entropy against the labels rolled by one
+    more position, the last position left out."""
     logits, aux, _ = lm_apply(params, cfg, rt, tokens, mode="train",
                               rng=rng, encoder_embeds=encoder_embeds)
-    labels = torch.as_tensor(labels, device=logits.device)
+    labels = torch.as_tensor(labels, device=logits.device).to(torch.int64)
     loss = cross_entropy_loss(logits, labels)
     total = loss + moe_aux_weight * aux["moe_aux"]
-    return total, {"ce": loss, "moe_aux": aux["moe_aux"]}
+    metrics = {"ce": loss, "moe_aux": aux["moe_aux"]}
+    if cfg.mtp_depth and "mtp" in params:
+        p_m, embed = params["mtp"], params["embed"]
+        toks = torch.as_tensor(tokens, device=embed.device).to(torch.int64)
+        h_in = embed[toks].to(torch.bfloat16)
+        emb_next = embed[labels].to(torch.bfloat16)
+        normed = rmsnorm(h_in, p_m["norm"], cfg.norm_eps)
+        h_m = torch.cat([normed, emb_next.to(normed.dtype)],
+                        dim=-1) @ p_m["proj"]
+        b, s = toks.shape
+        positions = torch.arange(s, dtype=torch.int32, device=embed.device
+                                 )[None, :] * torch.ones(
+            (b, 1), dtype=torch.int32, device=embed.device)
+        if rng is None:
+            mtp_key = prng.key(1)
+        else:
+            mtp_key = tuple(rng) if isinstance(rng, tuple) \
+                else prng.key(int(rng))
+        h_m, _, _ = _moe_block(p_m, h_m, cfg, rt, mtp_key,
+                               positions=positions)
+        head = embed.T if cfg.tie_embeddings else params["lm_head"]
+        logits_m = (rmsnorm(h_m, params["final_norm"], cfg.norm_eps)
+                    @ head.to(h_m.dtype)).to(torch.float32)
+        labels2 = torch.roll(labels, -1, dims=-1)
+        mtp_loss = cross_entropy_loss(logits_m[:, :-1], labels2[:, :-1])
+        total = total + mtp_weight * mtp_loss
+        metrics["mtp"] = mtp_loss
+    return total, metrics

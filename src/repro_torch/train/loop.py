@@ -57,6 +57,11 @@ class StragglerMonitor:
         return slow
 
 
+# the step's loss terms a history entry carries beside its loss: the cross
+# entropy, the MoE load-balance term and the MTP head's cross entropy
+_METRICS = ("ce", "moe_aux", "mtp")
+
+
 def train_loop(step_fn: Callable, params, opt_state, data_iter,
                cfg: LoopConfig, *, rng,
                failure_hook: Optional[Callable[[int], None]] = None,
@@ -68,7 +73,9 @@ def train_loop(step_fn: Callable, params, opt_state, data_iter,
     key.  failure_hook(step): test injection point, raising inside it
     simulates a node failure at that step; a failure restores the last
     checkpoint, or the initial state when there is none yet.  Returns
-    (params, opt_state, history).
+    (params, opt_state, history): a dict per step with its step, loss,
+    seconds (``dt``), straggler flag, and the loss terms among ``ce``,
+    ``moe_aux`` and ``mtp`` that its metrics hold.
     """
     state_tree = {"params": params, "opt": opt_state}
     restored, at = ckpt.restore(state_tree, cfg.ckpt_dir)
@@ -116,8 +123,10 @@ def train_loop(step_fn: Callable, params, opt_state, data_iter,
         slow = monitor.observe(dt)
         if slow:
             log_fn(f"[loop] step {step}: straggler flagged ({dt*1e3:.1f} ms)")
-        history.append({"step": step, "loss": loss, "dt": dt,
-                        "straggler": slow})
+        history.append(dict({"step": step, "loss": loss, "dt": dt,
+                             "straggler": slow},
+                            **{k: float(metrics[k]) for k in _METRICS
+                               if k in metrics}))
         if step % cfg.log_every == 0:
             log_fn(f"[loop] step {step} loss {loss:.4f} ({dt*1e3:.1f} ms)")
         if cfg.ckpt_every and step % cfg.ckpt_every == 0 and step > start:

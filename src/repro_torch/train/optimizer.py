@@ -1,7 +1,8 @@
 """Optimizers (AdamW, Adafactor-lite) and the warmup-cosine schedule.
 
 Counterpart of ``repro.train.optimizer`` on parameter trees of tensors
-(nested dicts, leaves in sorted-key order as JAX flattens them).  The
+(nested dicts and lists, leaves in sorted-key order as JAX flattens
+them).  The
 update is functional, as the reference's: ``apply_updates`` returns new
 parameter and state tensors.  The scalars (step, learning rate, bias
 corrections) are f32 tensors computed with the reference's expressions.
@@ -49,12 +50,16 @@ def tree_leaves(tree) -> list:
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of ``tree`` and the matching nodes of
-    ``rest``; a node of ``rest`` under a leaf of ``tree`` is passed whole
-    (Adafactor's factored (row, col) pairs)."""
+    """``fn`` over the leaves of ``tree`` (nested dicts and lists: a MoE
+    model's ``dense_prefix`` is a list of layers) and the matching nodes
+    of ``rest``; a node of ``rest`` under a leaf of ``tree`` is passed
+    whole (Adafactor's factored (row, col) pairs)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest))
+                for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 

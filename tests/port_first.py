@@ -12,10 +12,22 @@ crashes inside ``backend_compile_and_load`` around the module's sixth or
 seventh test, as the file usually does when run alone.  Collected first,
 the port's tests leave the reference suite's tail the chunks it is
 handed without them.  The reference tests keep their relative order.
+
+It also runs the port's PyTorch operations on one thread in every
+process that loads it.  Each xdist worker would otherwise start an
+intra-op pool of one thread per core: six workers on eight cores spin
+those pools against each other and against XLA's, and the port's small
+CPU operations ran 3 to 20 times slower inside the suite than alone
+(``tests/test_torch_flash.py`` took 228 s under ``-n 6``, 82 s with one
+thread a worker).  The tests check the same things on one thread.
 """
 from __future__ import annotations
 
+import torch
+
 PORT_FILES = "test_torch_"
+
+torch.set_num_threads(1)
 
 
 def pytest_collection_modifyitems(items):

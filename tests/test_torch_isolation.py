@@ -738,6 +738,45 @@ def test_flash_kernels_within_bound_of_plain_versions_on_the_card(causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("heads,kv,d", [(32, 32, 80), (48, 8, 128)])
+def test_flash_kernels_at_head_dims_80_and_128_on_the_card(heads, kv, d,
+                                                           causal):
+    """Both flash kernels at zamba2's head dim (80) and grok-1's (128,
+    48 / 8 heads, the KV heads repeated as ``attention`` repeats them), a
+    ragged 200 positions, within their bounds of their plain versions;
+    one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import importlib
+    t_fa = importlib.import_module("repro_torch.kernels.flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q = torch.randn((1, 200, heads, d), generator=g, device="cuda")
+    k, v = (torch.repeat_interleave(
+        torch.randn((1, 200, kv, d), generator=g, device="cuda"),
+        heads // kv, dim=2).transpose(1, 2) for _ in range(2))
+    q = q.transpose(1, 2)
+    before = (t_fa.flash_attention.launches,
+              t_fa.flash_attention_amm.launches)
+    got = t_fa.flash_attention(q, k, v, causal=causal)
+    want = t_fa.flash_attention_plain(q, k, v, causal=causal)
+    assert bool(((got.double() - want.double()).abs()
+                 <= t_fa.flash_tolerance(q, k, v)).all())
+    got, res = t_fa.flash_attention_amm(q, k, v, wl=16, vbl=13, kind=0,
+                                        causal=causal, residuals=True)
+    ops = t_fa.flash_amm_operands(q, k, v, wl=16)
+    want, wres = t_fa.flash_amm_plain(ops, wl=16, vbl=13, kind=0,
+                                      causal=causal, residuals=True)
+    rep = t_fa.flash_amm_compare(
+        ops, dict(res, out=got.reshape(heads, 200, d)),
+        dict(wres, out=want[:, :200]), wl=16, vbl=13, causal=causal)
+    assert rep["ok"], rep
+    assert (t_fa.flash_attention.launches,
+            t_fa.flash_attention_amm.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+
+
+@pytest.mark.cuda
 def test_chunked_amm_attention_on_the_card_matches_the_cpu():
     """The chunked amm path (no flash) runs every block's products on the
     batched ``bbm_dot_coded_batched`` kernel, one launch per product over
@@ -1007,7 +1046,7 @@ def test_build_directory_is_git_ignored():
     assert any(rel == p or rel.startswith(p + "/") for p in ignored), rel
     assert "chiprun_out" in ignored
     for name in ("fir_bank", "quant_matmul", "bbm_dot", "bbm_matmul",
-                 "flash_attention"):
+                 "flash_attention", "flash_attention_wide"):
         assert _build.SOURCES[name].is_file()
         assert _build.SOURCES[name].relative_to(PKG).as_posix() \
             == f"kernels/csrc/{name}.cu"

@@ -406,7 +406,7 @@ def test_lm_amm_planes_tree_matches_the_reference():
 
 
 # ------------------------------------------------------------- registry
-def test_registry_ports_the_moe_and_dense_configs():
+def test_registry_ports_the_moe_and_dense_configs(tmp_path):
     for name in ("deepseek-v3-671b", "grok-1-314b", "qwen1.5-110b",
                  "llama3.2-3b", "yi-34b", "qwen2-0.5b", "mamba2-370m",
                  "zamba2-2.7b", "chameleon-34b", "whisper-base"):
@@ -420,12 +420,18 @@ def test_registry_ports_the_moe_and_dense_configs():
     _, t_cfg = _cfgs("deepseek-v3-671b")
     tp = _weights("deepseek-v3-671b")[1]
     toks = torch.zeros((1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="A16"):
-        t_loss(tp, t_cfg, TRT.build(t_cfg), toks, toks)
+    # the MoE family trains: the loss has its load-balance and MTP terms,
+    # and the launcher takes a step of either MoE arch
+    total, metrics = t_loss(tp, t_cfg, TRT.build(t_cfg), toks, toks)
+    assert set(metrics) == {"ce", "moe_aux", "mtp"}
+    assert all(bool(torch.isfinite(v)) for v in (total, *metrics.values()))
     from repro_torch.launch import train as t_train
-    with pytest.raises(NotImplementedError, match="A16"):
-        t_train.main(["--arch", "deepseek-v3-671b", "--reduced", "--device",
-                      "cpu", "--steps", "1"])
+    for arch in MOE_ARCHS:
+        hist = t_train.main(["--arch", arch, "--reduced", "--device", "cpu",
+                             "--steps", "1", "--batch", "2", "--seq", "8",
+                             "--ckpt-dir", str(tmp_path / arch)])
+        assert [h["step"] for h in hist] == [0]
+        assert np.isfinite(hist[0]["loss"]) and "moe_aux" in hist[0]
     # the audio family is ported: without an encoder it is the dense
     # stack, with one the encoder-decoder stack, which needs embeddings
     from repro_torch.models import lm_table as t_table
