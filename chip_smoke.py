@@ -314,6 +314,7 @@ REPLACES = {"fir_bank_rows": "src/repro/kernels/fir_kernel.py:106",
                 "src/repro/kernels/flash_attention.py:209",
             "normal_draw": "src/repro/models/common.py:264"}
 MMA_SOURCE = "src/repro_torch/kernels/csrc/bbm_mma.cuh"
+WIDE_FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_wide.cuh"
 TRAIN_SOURCES = {
     "bbm_dot_scaled": MMA_SOURCE,
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cuh",
@@ -323,8 +324,11 @@ TRAIN_SOURCES = {
 MMA_KERNEL = "bbm_mma::bbm_mma_kernel"
 MMA_PACK = "bbm_pack_triplets_kernel"
 TRAIN_KERNELS = {"bbm_dot_scaled": (MMA_KERNEL, "bbm_dot_kernel"),
-                 "flash_attention": ("flash_exact_kernel",),
-                 "flash_attention_amm": ("flash_amm_kernel",)}
+                 "flash_attention": ("flash_exact_kernel",
+                                     "flash_exact_wgmma_kernel"),
+                 "flash_attention_amm": ("flash_amm_kernel",
+                                         "flash_amm_mma_kernel",
+                                         "flash_amm_tile_kernel")}
 QM_SOURCE = "src/repro_torch/kernels/csrc/quant_matmul.cu"
 F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12          # TF32 on the tensor cores, dense
@@ -358,11 +362,11 @@ def ptxas_kernels(log: str) -> list:
     example ``flash_exact_kernel<64>``)."""
     out = []
     for block in log.split("Compiling entry function")[1:]:
-        name = re.search(r"\d([a-z_]+_kernel)I((?:Li\d+E)+)E", block)
+        name = re.search(r"\d([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", block)
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         if name and regs:
-            args = ", ".join(re.findall(r"Li(\d+)E", name.group(2)))
+            args = ", ".join(re.findall(r"L[ib](\d+)E", name.group(2)))
             out.append((f"{name.group(1)}<{args}>",
                         int(regs.group(1)),
                         int(spill.group(1)) if spill else 0))
@@ -1374,24 +1378,38 @@ def b2_sweep(torch, tb, dev) -> tuple:
 
 
 def flash_amm_check(torch, tf, q, k, v, *, kind, causal, what,
-                    want_res=False):
+                    want_res=False, wl=16, vbl=13, plain_cpu=False):
     """The amm kernel against its plain version on the same inputs, held
     by ``flash_amm_compare``: score products bit-equal, P's codes and
     scales within what float rounding moves, P V products bit-equal where
     P's codes agree, the output within the bound of the codes that moved.
+    ``plain_cpu``: the operands formed and the plain version run on CPU
+    copies (an operating point with no f32 envelope: its int32
+    contraction runs on the CPU only), the kernel on their card copies.
     Returns the report (and the kernel's residuals with ``want_res``)."""
     b, h, s_len, d = q.shape
-    ops = tf.flash_amm_operands(q, k, v, wl=16)
-    got, res = tf.flash_attention_amm(q, k, v, wl=16, vbl=13, kind=kind,
-                                      causal=causal, residuals=True)
-    want, wres = tf.flash_amm_plain(ops, wl=16, vbl=13, kind=kind,
+    if plain_cpu:
+        ops = tf.flash_amm_operands(q.cpu(), k.cpu(), v.cpu(), wl=wl)
+        got, res = tf._amm_launch(
+            {n: t.to(q.device) if torch.is_tensor(t) else t
+             for n, t in ops.items()}, wl=wl, vbl=vbl, kind=kind,
+            causal=causal, residuals=True)
+        got = got[:, :s_len].cpu()
+        res = {n: t.cpu() if torch.is_tensor(t) else t
+               for n, t in res.items()}
+    else:
+        ops = tf.flash_amm_operands(q, k, v, wl=wl)
+        got, res = tf.flash_attention_amm(q, k, v, wl=wl, vbl=vbl,
+                                          kind=kind, causal=causal,
+                                          residuals=True)
+    want, wres = tf.flash_amm_plain(ops, wl=wl, vbl=vbl, kind=kind,
                                     causal=causal, residuals=True)
     rep = tf.flash_amm_compare(
         ops, dict(res, out=got.reshape(b * h, s_len, d)),
-        dict(wres, out=want[:, :s_len]), wl=16, vbl=13, causal=causal)
+        dict(wres, out=want[:, :s_len]), wl=wl, vbl=vbl, causal=causal)
     if not rep["ok"]:
         fail(f"flash_attention_amm disagrees with its plain version {what} "
-             f"kind={kind}: {rep}")
+             f"kind={kind} wl={wl} vbl={vbl}: {rep}")
     return (rep, res) if want_res else rep
 
 
@@ -1865,13 +1883,14 @@ def conv1d_ms(torch, c: int, n: int, taps: int, dev) -> float:
         return spin_ms(torch, lambda: F.conv1d(x, w, groups=c), 20)
 
 
-# the fewest keys at which the exact kernel's error model
-# (csrc/flash_attention.cuh) admits 3xTF32 for P V inside flash_tolerance's
-# sum term: (30 + Skv / 8) u <= (Skv + 8) u
+# the fewest keys at which the exact kernels' error model
+# (csrc/flash_attention_wide.cuh) admits 3xTF32 for P V inside
+# flash_tolerance's sum term (kernels/flash_attention.py keeps the same
+# constant for its route rule)
 PV_3XTF32_MIN_SKV = 26
 
 
-def flash_bound_ms(pairs: int, d: int, skv: int, amm_rows: int = 0) -> float:
+def flash_bound_ms(pairs: int, d: int, skv: int, amm=None) -> float:
     """Operations bound (ms) of one flash call over ``pairs`` live
     (query, key) pairs (the causal triangle counted, not the full grid)
     and ``d`` head dims, for KV length ``skv``.  The exact function, at
@@ -1879,18 +1898,29 @@ def flash_bound_ms(pairs: int, d: int, skv: int, amm_rows: int = 0) -> float:
     ``PV_3XTF32_MIN_SKV`` keys on both products in 3xTF32, 3 x 4 pairs d
     TF32 operations over 495 TFLOP/s; below it the score product so and
     P V's 2 pairs d f32 operations over 67 TFLOP/s, on different pipes,
-    so the larger.  The amm kernel: 4 pairs d f32 operations (both
-    products' multiply-adds) and 2 Broken-Booth products per pair and
-    dim, ``1 + 3 R`` int32 instructions each, over the int32 peak.  The
-    caller compares it with the bytes of its shapes (q, k, v, out in
+    so the larger.  The amm function (``amm`` = (wl, vbl, kind)): its two
+    f32 products, 4 pairs d operations, beside its 2 pairs d Broken-Booth
+    products, which where ``bbm_dot_route`` says "mma" are the contracted
+    form's ``dot_byte_products`` int8 byte products (2 operations each)
+    over the int8 tensor-core peak, else ``1 + 3 R`` int32 instructions
+    over the int32 peak; the larger, since they run on different pipes.
+    The caller compares it with the bytes of its shapes (q, k, v, out in
     f32, codes)."""
-    if not amm_rows:
+    if amm is None:
         if skv >= PV_3XTF32_MIN_SKV:
             return 12 * pairs * d / TF32_OPS_PER_S * 1e3
         return max(6 * pairs * d / TF32_OPS_PER_S,
                    2 * pairs * d / F32_OPS_PER_S) * 1e3
+    from repro_torch.kernels.bbm_matmul import bbm_dot_route
+    from repro_torch.kernels.booth_rows import num_corr_rows
+    wl, vbl, kind = amm
     t_f32 = 4 * pairs * d / F32_OPS_PER_S
-    t_int = 2 * pairs * d * (1 + 3 * amm_rows) / INT32_OPS_PER_S
+    if bbm_dot_route(wl, vbl, kind) == "mma":
+        t_int = 2 * 2 * pairs * d * dot_byte_products(wl, vbl, kind) \
+            / INT8_OPS_PER_S
+    else:
+        t_int = 2 * pairs * d * (1 + 3 * num_corr_rows(wl, vbl)) \
+            / INT32_OPS_PER_S
     return max(t_f32, t_int) * 1e3
 
 
@@ -1907,15 +1937,19 @@ B2_BEFORE_MS = {(2048, 896, 4864): 15.095584, (2048, 4864, 896): 17.864314}
 
 
 def flash_raw_ms(torch, q, k, v, reps: int = 50,
-                 causal: bool = True) -> float:
+                 causal: bool = True, route=None) -> float:
     """ms per launch of the exact flash kernel alone, between CUDA events
     over back-to-back launches through its C entry point: the wrapper's
     host work (checks, layout, about 20 us of Python) exceeds the
-    kernel's time, so timing wrapper calls measures the host."""
-    from repro_torch.kernels.flash_attention import _library
+    kernel's time, so timing wrapper calls measures the host.  ``route``:
+    the P V route (default the wrapper's rule, ``flash_exact_route``)."""
+    from repro_torch.kernels.flash_attention import (_EXACT_ROUTES,
+                                                     _library,
+                                                     flash_exact_route)
     b, h, s_len, d = q.shape
     lib = _library(d)
     skv = k.shape[2]
+    rt = _EXACT_ROUTES[route or flash_exact_route(d, skv)]
     qc = q.reshape(b * h, s_len, d).contiguous()
     kc, vc = (t.reshape(b * h, skv, d).contiguous() for t in (k, v))
     out = torch.empty_like(qc)
@@ -1924,7 +1958,8 @@ def flash_raw_ms(torch, q, k, v, reps: int = 50,
 
     def launch():
         err = lib.flash_attention_launch(*ptrs, b * h, s_len, skv, d,
-                                         int(causal), 1.0 / d ** 0.5, stream)
+                                         int(causal), 1.0 / d ** 0.5, rt,
+                                         stream)
         if err:
             fail(f"flash_attention_launch returned {err}")
     return cuda_ms(torch, launch, reps)
@@ -1935,7 +1970,6 @@ def train_timing(torch, dev, tb, tf) -> tuple:
     for the exact flash kernel its bare launch between CUDA events),
     wrapper ms, plain ms, bound, max abs error against the plain
     version, and SDPA beside the exact flash kernel."""
-    from repro_torch.kernels.booth_rows import num_corr_rows
     rng = np.random.default_rng(9)
     lines, entries = [], {}
     b2 = []
@@ -2020,8 +2054,7 @@ def train_timing(torch, dev, tb, tf) -> tuple:
             plain = lambda: tf.flash_amm_plain(  # noqa: E731
                 tf.flash_amm_operands(q, k, v, wl=16), wl=16, vbl=13,
                 kind=0, causal=True).reshape(q.shape)
-            t_ops = flash_bound_ms(pairs, 64, TRAIN_SEQ,
-                                   num_corr_rows(16, 13))
+            t_ops = flash_bound_ms(pairs, 64, TRAIN_SEQ, amm=(16, 13, 0))
             nbytes = 22 * bh * TRAIN_SEQ * 64    # f32 q k v out, int16 codes
         dev_ms = kernel_device_ms(torch, run, 20, TRAIN_KERNELS[name],
                                   per_call=1)
@@ -5217,17 +5250,33 @@ def whisper_phase(torch, dev, tb, tf, qm, nm, card: str) -> tuple:
     return lines, entries
 
 
+def flash_amm_route_ms(torch, tf, q, k, v, route=None,
+                       causal: bool = True) -> tuple:
+    """(device ms, how measured) of one amm kernel launch at kind 0, wl
+    16, vbl 13 on operands formed beforehand (``flash_amm_operands``: the
+    quantization is the wrapper's, not the kernel's), on ``route`` ("mma"
+    or "tile", forced through ``_amm_launch``; None: the rule's): the
+    profiler's reading, else CUDA events around the launch."""
+    ops = tf.flash_amm_operands(q, k, v, wl=16)
+    run = lambda: tf._amm_launch(ops, wl=16, vbl=13, kind=0,  # noqa: E731
+                                 causal=causal, route=route)
+    ms = kernel_device_ms(torch, run, 5, TRAIN_KERNELS["flash_attention_amm"],
+                          per_call=1)
+    if ms is None:
+        return cuda_ms(torch, run, 5), "CUDA events, the launch alone"
+    return ms, "profiler"
+
+
 def flash_kernel_timing(torch, tf, kern: str, q, k, v, causal: bool,
                         what: str) -> dict:
     """One flash kernel on (B, H, Sq, D) operands against Skv keys: its
     device ms (the exact kernel by its C entry between CUDA events; the
-    amm kernel by the profiler, else CUDA events around the wrapper), its
+    amm kernel by ``flash_amm_route_ms``, its operands formed before), its
     plain version's ms, ``scaled_dot_product_attention``'s beside the
     exact one, the max abs error against the plain version (the amm
     kernel held by ``flash_amm_check``), and the bound: the operations
     over the live (query, key) pairs against the bytes of q, k, v and the
     output, in f32, and the amm kernel's int16 codes."""
-    from repro_torch.kernels.booth_rows import num_corr_rows
     b, h, sq, d = q.shape
     skv = k.shape[2]
     bh = b * h
@@ -5245,20 +5294,14 @@ def flash_kernel_timing(torch, tf, kern: str, q, k, v, causal: bool,
         t_ops = flash_bound_ms(pairs, d, skv)
         nbytes = 4 * d * bh * (2 * sq + 2 * skv)
     else:
-        run = lambda: tf.flash_attention_amm(  # noqa: E731
-            q, k, v, wl=16, vbl=13, kind=0, causal=causal)
-        ms = kernel_device_ms(torch, run, 10, TRAIN_KERNELS[kern],
-                              per_call=1)
-        how = "profiler"
-        if ms is None:
-            ms, how = cuda_ms(torch, run, 10), "CUDA events, wrapper"
+        ms, how = flash_amm_route_ms(torch, tf, q, k, v, causal=causal)
         plain_ms = cuda_ms(torch, lambda: tf.flash_amm_plain(
             tf.flash_amm_operands(q, k, v, wl=16), wl=16, vbl=13, kind=0,
             causal=causal), 2)
         lib_ms = None
         err = flash_amm_check(torch, tf, q, k, v, kind=0, causal=causal,
                               what=what)["max_err"]
-        t_ops = flash_bound_ms(pairs, d, skv, num_corr_rows(16, 13))
+        t_ops = flash_bound_ms(pairs, d, skv, amm=(16, 13, 0))
         nbytes = 4 * d * bh * (2 * sq + 2 * skv) \
             + 2 * d * bh * (sq + 2 * skv)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -5272,6 +5315,17 @@ def flash_kernel_timing(torch, tf, kern: str, q, k, v, causal: bool,
 HD_BATCH, HD_SEQ = 4, 512
 HD_DIMS = (80, 128)
 HD_RAGGED = 200                   # a ragged query and key length
+HD_SHORT_KV = 20                  # below PV_3XTF32_MIN_SKV: the FFMA P V
+HD_TILE_VBL = 3                   # wl 16 / vbl 3: the amm "tile" route
+# the wide kernels' ms before their redesign (PERF.md's kernel table, PR
+# 26 call 7, an NVIDIA H100 80GB HBM3 at 700.00 W): (exact, amm) at each
+# config's (4, H, 512, D) causal shape
+HD_BEFORE_MS = {"grok-1-314b": (0.554449, 21.476349),
+                "llama3.2-3b": (0.281333, 11.386592),
+                "yi-34b": (0.644632, 24.473795),
+                "qwen1.5-110b": (0.732156, 28.582788),
+                "chameleon-34b": (0.736502, 28.57995),
+                "zamba2-2.7b": (0.288981, 9.319193)}
 
 
 def hd_flash_configs() -> list:
@@ -5302,28 +5356,58 @@ def hd_operands(torch, gen, dev, heads: int, kv: int, d: int, sq: int,
     return q.transpose(1, 2), rep(k).transpose(1, 2), rep(v).transpose(1, 2)
 
 
+def attention_f64_p_tf32(torch, q, k, v):
+    """``attention_f64`` with P rounded to TF32 before P V: a P V product
+    that lost P's low TF32 part, with that rounding as its only error."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s = (q @ k.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    s_len = s.shape[-1]
+    dead = torch.ones((s_len, s_len), dtype=torch.bool,
+                      device=s.device).triu(1)
+    p = torch.softmax(s.masked_fill(dead, float("-inf")), dim=-1)
+    return tf32_round(torch, p.float()).double() @ v
+
+
+def route_counts(tf) -> dict:
+    """Each flash wrapper's launches per route so far."""
+    fa, fm = tf.flash_attention, tf.flash_attention_amm
+    return {"flash_attention": {"tf32": fa.mma_launches,
+                                "ffma": fa.launches - fa.mma_launches},
+            "flash_attention_amm": {"mma": fm.mma_launches,
+                                    "tile": fm.launches - fm.mma_launches}}
+
+
 def hd_flash_phase(torch, dev, tf) -> tuple:
     """Both flash kernels at head dims 80 and 128 against their plain
     versions (``flash_tolerance``; ``flash_amm_compare``) at every such
     config's training shape, causal and not, kind 0 (kind 1 at the first
-    config of each head dim), a ragged Sq = Skv = 200 and a cross shape
-    (Sq 200 against 512 keys, not causal); the exact kernel's error
-    against float64 attention within ``PRECISION_FACTOR`` times its plain
-    version's; each config's causal shape timed against its bound, its
-    plain version and ``scaled_dot_product_attention``.  Returns (lines,
-    kernel entries, checked cases)."""
+    config of each head dim), a ragged Sq = Skv = 200, a cross shape
+    (Sq 200 against 512 keys, not causal) and a short KV length
+    (``HD_SHORT_KV`` keys, the exact kernel's FFMA P V route), and the
+    amm kernel's CUDA-core route (wl 16 / vbl 3) at the ragged shape of
+    head dim 128; the exact kernel's error against float64 attention
+    within ``PRECISION_FACTOR`` times its plain version's, and a score
+    product or a P V below f32 precision beyond that limit; each config's
+    causal shape timed against its bound, its plain version,
+    ``scaled_dot_product_attention`` and the time before the redesign,
+    and at grok-1's the amm kernel's CUDA-core route on the same inputs.
+    Returns (lines, kernel entries, checked cases, launches per
+    route)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(100)
     lines, timed = [], {"flash_attention": [], "flash_attention_amm": []}
     cases, first = 0, set()
     worst = {"flash_attention": 0.0, "flash_attention_amm": 0.0}
     moved = [0, 0]
+    for f in (tf.flash_attention, tf.flash_attention_amm):
+        f.launches = f.mma_launches = 0
     for name, heads, kv, d in hd_flash_configs():
         shapes = [(HD_SEQ, HD_SEQ, True), (HD_SEQ, HD_SEQ, False)]
         if d not in first:
             shapes += [(HD_RAGGED, HD_RAGGED, True),
                        (HD_RAGGED, HD_RAGGED, False),
-                       (HD_RAGGED, HD_SEQ, False)]
+                       (HD_RAGGED, HD_SEQ, False),
+                       (HD_RAGGED, HD_SHORT_KV, False)]
         for sq, skv, causal in shapes:
             q, k, v = hd_operands(torch, gen, dev, heads, kv, d, sq, skv)
             what = (f"at {name}'s {tuple(q.shape)} x {skv} keys "
@@ -5342,49 +5426,97 @@ def hd_flash_phase(torch, dev, tf) -> tuple:
                 moved[0] += rep["codes_moved"]
                 moved[1] += rep["codes"]
                 cases += 1
+            if d == max(HD_DIMS) and d not in first \
+                    and (sq, skv, causal) == (HD_RAGGED, HD_RAGGED, False):
+                # the CUDA-core route (chunks of 7 products at wl 16 / vbl
+                # 3) on one batch row's first 4 heads, its plain version
+                # on the CPU
+                cut = [t[:1, :4].contiguous() for t in (q, k, v)]
+                rep = flash_amm_check(torch, tf, *cut, kind=0,
+                                      causal=causal,
+                                      what=f"{what} (1 x 4 heads)",
+                                      vbl=HD_TILE_VBL, plain_cpu=True)
+                worst["flash_attention_amm"] = max(
+                    worst["flash_attention_amm"], rep["worst_ratio"])
+                cases += 1
             if d not in first and sq == skv == HD_SEQ and causal:
                 # 3xTF32 at this head dim: the kernel's error against
-                # float64 within PRECISION_FACTOR times its plain version's
+                # float64 within PRECISION_FACTOR times its plain version's,
+                # and each product below f32 precision beyond it
                 want = attention_f64(torch, q, k, v)
-                e_k = float((tf.flash_attention(q, k, v).double() - want)
-                            .abs().max())
-                e_p = float((tf.flash_attention_plain(q, k, v).double()
-                             - want).abs().max())
-                if not e_k <= PRECISION_FACTOR * e_p:
+                err = lambda out: float(  # noqa: E731
+                    (out.double() - want).abs().max())
+                e_k = err(tf.flash_attention(q, k, v))
+                e_p = err(tf.flash_attention_plain(q, k, v))
+                limit = PRECISION_FACTOR * e_p
+                if not e_k <= limit:
                     fail(f"flash_attention's error against float64 {e_k!r} "
                          f"{what} exceeds {PRECISION_FACTOR} x its plain "
                          f"version's {e_p!r}")
-                lines.append(f"flash_attention precision {what}: max error "
-                             f"against float64 {e_k!r}, plain version (f32) "
-                             f"{e_p!r}, limit {PRECISION_FACTOR} x plain")
+                qt, kt = tf32_round(torch, q), tf32_round(torch, k)
+                controls = {
+                    "1xTF32 scores": err(attention_f64(torch, qt, kt, v)),
+                    "V in TF32": err(attention_f64(
+                        torch, q, k, tf32_round(torch, v))),
+                    "P in TF32": err(attention_f64_p_tf32(torch, q, k, v))}
+                for c_name, e in controls.items():
+                    if not e > limit:
+                        fail(f"a product with {c_name} errs {e!r} {what}, "
+                             f"within the limit {limit!r}: the check could "
+                             f"not tell it from f32")
+                lines.append(
+                    f"flash_attention precision {what}: max error against "
+                    f"float64 {e_k!r}, plain version (f32) {e_p!r}, limit "
+                    f"{PRECISION_FACTOR} x plain; controls beyond it "
+                    + ", ".join(f"{c} {e:.4g}" for c, e in controls.items()))
             if sq == skv == HD_SEQ and causal:
                 for kern in timed:
                     r = flash_kernel_timing(torch, tf, kern, q, k, v, True,
                                             what)
-                    timed[kern].append(dict(
-                        config=name, shape=list(q.shape), ms=r["ms"],
-                        plain_ms=r["plain_ms"], bound_ms=r["bound"],
-                        bound_by=r["by"], library_ms=r["lib_ms"],
-                        timed_by=r["how"], max_abs_err=r["err"]))
+                    before = HD_BEFORE_MS[name][kern == "flash_attention_amm"]
+                    row = dict(config=name, shape=list(q.shape), ms=r["ms"],
+                               plain_ms=r["plain_ms"], bound_ms=r["bound"],
+                               bound_by=r["by"], library_ms=r["lib_ms"],
+                               timed_by=r["how"], max_abs_err=r["err"],
+                               before_ms=before)
+                    extra = ""
+                    if kern == "flash_attention_amm" \
+                            and name == "grok-1-314b":
+                        t_ms, t_how = flash_amm_route_ms(torch, tf, q, k, v,
+                                                         "tile")
+                        row.update(tile_route_ms=t_ms, tile_timed_by=t_how)
+                        extra = (f", the CUDA-core route on the same inputs "
+                                 f"{t_ms:.6f} ms ({t_how})")
+                    timed[kern].append(row)
                     lines.append(
                         f"{kern} at {name}'s training shape {tuple(q.shape)} "
                         f"causal ({heads} / {kv} heads, head dim {d}): "
-                        f"{r['ms']:.6f} ms ({r['how']}), plain "
-                        f"{r['plain_ms']:.6f} ms, bound {r['bound']:.6f} ms "
-                        f"({r['by']}; bound / time {r['bound'] / r['ms']:.4g}"
-                        f"), max abs error {r['err']!r}"
+                        f"{r['ms']:.6f} ms ({r['how']}), before the redesign "
+                        f"{before} ms (PR 26), plain {r['plain_ms']:.6f} ms, "
+                        f"bound {r['bound']:.6f} ms ({r['by']}; bound / time "
+                        f"{r['bound'] / r['ms']:.4g}), max abs error "
+                        f"{r['err']!r}"
                         + ("" if r["lib_ms"] is None else
                            f", scaled_dot_product_attention "
-                           f"{r['lib_ms']:.6f} ms"))
+                           f"{r['lib_ms']:.6f} ms (time / SDPA "
+                           f"{r['ms'] / r['lib_ms']:.4g})") + extra)
             del q, k, v
         first.add(d)
+    routes = route_counts(tf)
+    for kern, want in (("flash_attention", ("tf32", "ffma")),
+                       ("flash_attention_amm", ("mma", "tile"))):
+        missing = [r for r in want if not routes[kern][r]]
+        if missing:
+            fail(f"{kern}'s routes {missing} never ran at head dims "
+                 f"{HD_DIMS}: {routes[kern]}")
     lines.insert(0, f"flash kernels at head dims {HD_DIMS}: {cases} cases "
                     f"over {[c[0] for c in hd_flash_configs()]} within their "
                     f"bounds (worst error/bound: flash_attention "
                     f"{worst['flash_attention']:.3g}, flash_attention_amm "
                     f"{worst['flash_attention_amm']:.3g}; {moved[0]} of "
-                    f"{moved[1]} P codes moved by float rounding)")
-    return lines, timed, cases
+                    f"{moved[1]} P codes moved by float rounding); launches "
+                    f"per route {routes}")
+    return lines, timed, cases, routes
 
 
 # the training phase of slice 10: full width, T1's and T2's settings
@@ -5755,7 +5887,7 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
 
-    hd_lines, timed, _ = hd_flash_phase(torch, dev, tf)
+    hd_lines, timed, _, hd_routes = hd_flash_phase(torch, dev, tf)
     lines += hd_lines
     lap("flash kernels at head dims 80 and 128")
 
@@ -5886,12 +6018,16 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
         main = next(r for r in rows if r["config"] == "grok-1-314b")
         entries.append({
             "name": f"{kern} (head dim 128, grok-1 training)", "route": "cuda",
-            "source": TRAIN_SOURCES[kern], "replaces": REPLACES[kern],
+            "source": WIDE_FLASH_SOURCE, "replaces": REPLACES[kern],
             "launches": run["launches"][0][kern] + run["launches"][1][kern],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "timed_by": main["timed_by"],
+            "before_ms": main["before_ms"],
+            "routes": {"main path": "tf32" if kern == "flash_attention"
+                       else "mma",
+                       "launches at head dims 80 and 128": hd_routes[kern]},
             "per_config": rows})
     lap("kernel timing")
     return lines, entries

@@ -4,7 +4,12 @@ Each source under ``csrc/`` compiles into one shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -split-compile=0 -o <lib>.so
+         csrc/<name>.cu
+
+(``-split-compile=0`` optimizes a source's kernels on every core: the
+flash library of head dims 80 and 128, the slowest source, holds ten
+heavy kernels, and ``chip_smoke.py`` prints the whole build's time.)
 
 Libraries land in ``build/repro_torch_kernels/`` at the repository root
 (git-ignored), named by a hash of the source, the shared headers
@@ -37,7 +42,8 @@ SOURCES = {"fir_bank": CSRC / "fir_bank.cu",
            "normal": CSRC / "normal.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
@@ -80,8 +86,8 @@ _SIGNATURES = {
         "bbm_matmul_error_string": ([_I], ctypes.c_char_p),
     },
     "flash_attention": {
-        "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [_F, _P], _I),
-        "flash_attention_amm_launch": ([_P] * 14 + [_I] * 13 + [_F, _P],
+        "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [_F, _I, _P], _I),
+        "flash_attention_amm_launch": ([_P] * 14 + [_I] * 13 + [_F, _I, _P],
                                        _I),
         "flash_attention_error_string": ([_I], ctypes.c_char_p),
     },

@@ -1,7 +1,11 @@
-// Flash attention for Hopper (sm_90a), exact and on the amm datapath: the
-// kernels, their launch helpers and the entry points' bodies, instantiated
-// by flash_attention.cu (head dims 16, 32, 64) and flash_attention_wide.cu
-// (80, 128), two sources that nvcc builds side by side.
+// Flash attention for Hopper (sm_90a), exact and on the amm datapath, at
+// head dims 16, 32 and 64: the kernels, their launch helpers and the entry
+// points' bodies, instantiated by flash_attention.cu.  The pieces both
+// head-dim ranges share (the copies, the live-tile count, the TF32 split,
+// the quad and group reductions, the amm kernels' arguments) live here too;
+// flash_attention_wide.cuh includes them for head dims 80 and 128, whose
+// kernels are designed apart (flash_attention_wide.cu builds them in a
+// library of its own, beside this one).
 //
 //   flash_attention      replaces repro/kernels/flash_attention.py
 //                        _attn_kernel (ROADMAP B4): the exact forward,
@@ -43,16 +47,17 @@
 // V tiles arrive by cp.async, 16-byte copies of f32 rows and 8-byte copies
 // of int16 code rows, rows past the valid length zero-filled by the copy.
 //
-// The exact kernel (128 threads, 4 warps of 16 query rows, 64 x 64 tiles;
-// up to D = 64 two 103 KiB blocks per SM, at D = 80 and 128 one block of
-// 123 and 183 KiB) double-buffers K and V: the copy of tile j + 1
-// runs while tile j computes.  Its score product runs on the tensor cores
+// The exact kernel (128 threads, 4 warps of 16 query rows, 64 x 64 tiles,
+// two 103 KiB blocks per SM) double-buffers K and V: the copy of tile j +
+// 1 runs while tile j computes.  Its score product runs on the tensor cores
 // in 3xTF32 (mma.sync m16n8k8): each f32 operand x is split into hi =
-// tf32(x) and lo = tf32(x - hi) (cvt.rna, round to nearest), and
-// lo*hi, hi*lo and hi*hi go through one accumulator in that order, which
-// is drained into f32 registers with a round-to-nearest add after every
-// 8-term step.  Its P V product runs with FFMA on the CUDA cores from P
-// in shared memory.
+// tf32(x) and lo = tf32(x - hi) (cvt.rna, round to nearest), and lo*hi,
+// hi*lo and hi*hi go through one accumulator in that order, which is
+// drained into f32 registers with a round-to-nearest add after every
+// 8-term step.  Q's split fragments stay in registers for the whole KV
+// loop.  Its P V product runs with FFMA on the CUDA cores from P in
+// shared memory, summed apart per tile and added to the rescaled
+// accumulator.
 //
 // Error model of the score product (u = 2^-24; a term is q_i k_i, T their
 // absolute sum, A = max|q| / sqrt(d), K = max|k|, S = d A K >= T/sqrt(d)):
@@ -69,27 +74,18 @@
 //     2 u T_b, where max_b <= sqrt(d) A K;
 //   * d/8 blocks drain into f32 registers: the first add is exact, the
 //     other d/8 - 1 round (u T each); the scale 1/sqrt(d) is a power of
-//     two at d = 16 and 64 (exact) and rounds once at d = 32, 80, 128.
+//     two at d = 16 and 64 (exact) and rounds once at d = 32.
 // So |s - s_exact| <= (12.006 + 2 + d/8 - 1 + r) u S + 16.03 u (d/8) A K
 // = (15.04 + d/8 + r) u S, r = 1 where the scale rounds: 17.04 u S at
-// d = 16, 20.04 at d = 32, 23.04 at d = 64, 26.04 at d = 80, 32.04 at
-// d = 128, inside the score term (d + 2) u S of flash_tolerance (18, 34,
-// 66, 82, 130).  For P V the same model gives (30 +
-// Skv/8) u of the sum (12 u split, 16 u per step's largest term summing
-// to 16 u of the sum, 2 u and Skv/8 drains), inside the tolerance's sum
-// term (Skv + 8) u from Skv = 26 on but not over shorter KV lengths; the
-// kernel keeps that product in f32 FFMA, whose error is that term's, at
-// every length.
+// d = 16, 20.04 at d = 32, 23.04 at d = 64, inside the score term (d + 2)
+// u S of flash_tolerance (18, 34, 66).
 //
 // The amm kernel (256 threads on a 128 x 128 tile, 8 x 8 each: rows ty +
-// 16i, columns tx + 16j; 199 KiB at D = 64, 223 KiB at D = 80 and 128,
-// one block per SM) holds one K-or-V buffer beside Q, P and P's codes:
-// V's copy is issued when the score products are done and runs under the
-// softmax and P's quantization; the next K's copy runs under the P V
-// epilogue.  At D = 128 the buffer holds a quarter of a tile (AmmPlan):
-// K in slices of 32 keys, V in slices of 32 columns, each slice's copy
-// issued when the one before is consumed.  Its float products stay f32
-// FFMA (flash_amm_compare derives its code-movement bound from two f32
+// 16i, columns tx + 16j; 199 KiB at D = 64, one block per SM) holds one
+// K-or-V buffer beside Q, P and P's codes: V's copy is issued when the
+// score products are done and runs under the softmax and P's quantization;
+// the next K's copy runs under the P V epilogue.  Its float products stay
+// f32 FFMA (flash_amm_compare derives its code-movement bound from two f32
 // evaluations); its integer products use bbm_dot.cuh, shared with the
 // contracted matmul kernel, and are bit-equal to it: given equal codes,
 // the approximate score products are equal (checked through s_out).  A
@@ -115,13 +111,17 @@
 // moved from a wrong scale, mask or rescale.
 //
 // Bounds on this card.  The exact function, over the live (query, key)
-// pairs: from Skv = 26 on, where the model above admits 3xTF32 for both
-// products, 3 * 4 * pairs * d TF32 operations at 495 TFLOP/s (0.0114 ms
-// at (4, 14, 512, 64) causal, above its bytes' 0.0088 ms); over shorter
-// KV lengths P V's 2 * pairs * d f32 operations at 67 TFLOP/s.  The
-// kernel's own FFMA P V takes 0.014 ms at that rate.  The amm kernel adds
-// the integer products (22 instructions each at wl 16 / vbl 13) of both
-// products, which bound it.
+// pairs: from Skv = 26 on, where the model above (flash_attention_wide.cuh
+// carries it to P V) admits 3xTF32 for both products, 3 * 4 * pairs * d
+// TF32 operations at 495 TFLOP/s (0.0114 ms at (4, 14, 512, 64) causal,
+// above its bytes' 0.0088 ms); over shorter KV lengths P V's 2 * pairs * d
+// f32 operations at 67 TFLOP/s.  The kernel's own FFMA P V takes 0.014 ms
+// at that rate.  The amm kernel adds the integer products of both
+// products: at the int8 tensor-core rate, as the contracted form computes
+// them (34 byte products a code product at wl 16 / vbl 13 kind 0), they
+// take less than its f32 FFMA products, which bound it; its own
+// Broken-Booth products run as 22 int32 instructions each on the CUDA
+// cores, far above that bound.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -133,6 +133,9 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kDeadScale = 1e-12f;
+// the entry points' error codes beside cudaError_t
+constexpr int kBadHeadDim = -1;   // no instantiation at this head dim
+constexpr int kBadRoute = -2;     // the route does not exist at this head dim
 
 // ------------------------------------------------------------ shared pieces
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -209,14 +212,6 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// a[e] += p v.e, one rounding each
-__device__ __forceinline__ void fma4(float (&a)[4], float p, float4 v) {
-  a[0] = fmaf(p, v.x, a[0]);
-  a[1] = fmaf(p, v.y, a[1]);
-  a[2] = fmaf(p, v.z, a[2]);
-  a[3] = fmaf(p, v.w, a[3]);
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(~0u, v, 1));
   return fmaxf(v, __shfl_xor_sync(~0u, v, 2));
@@ -231,39 +226,24 @@ __device__ __forceinline__ float quad_sum(float v) {
 // q.  In the score product lane (g, t) = (lane / 4, lane % 4) holds the
 // rows g and g + 8 of its warp's 16, columns 8n + 2t and 8n + 2t + 1 (the
 // mma accumulator layout).  In P V it holds the rows rg + RG i (rg = lane
-// / PC, RG = 32 / PC rows apart) and the output columns 4 (dg + PC c) ..
-// 4 (dg + PC c) + 3 for c < NC (dg = lane % PC), PC the largest power of
-// two up to 16 that divides D / 4: D / 8 rows by 4 columns at D <= 64 (a
-// key's P values and V row cost 12 shared-memory wavefronts a warp at d =
-// 64), 8 rows by 2 x 4 columns at D = 128, 2 rows by 5 x 4 at D = 80.  Up
-// to D = 64 the split Q fragments stay in registers for the whole KV loop
-// and a tile's P V sum is formed apart, then added to the rescaled
-// accumulator.  Above, that would spill: Q's fragments are split again
-// from shared memory at every step, and the keys' products are added onto
-// the rescaled accumulator itself (the same terms summed in another
-// order, inside flash_tolerance's sum term).  At D = 80 and 128 a block's
-// shared memory leaves room for one block per SM.
+// / (D / 4), RG = 128 / D rows apart) and the output columns 4 dg .. 4 dg
+// + 3 (dg = lane % (D / 4)): D / 8 rows by 4 columns, so a key's P values
+// and V row cost 12 shared-memory wavefronts a warp at d = 64.
 template <int D>
-__global__ void __launch_bounds__(kExThreads, D <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(kExThreads, 2)
 flash_exact_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ out,
                    int BH, int Sq, int Skv, int causal, float scale) {
   constexpr int KS = D / 8;        // 8-deep steps of the score product
   constexpr int NT = kExBN / 8;    // 8-key column tiles of a KV tile
   constexpr int RC = D / 4;        // 16-byte chunks per row
-  constexpr int PC = RC % 16 == 0 ? 16 : RC % 8 == 0 ? 8 : 4;
-  static_assert(RC % PC == 0 && 32 % PC == 0, "D in steps of 16");
-  constexpr int RG = 32 / PC;      // P V: row groups of a warp
+  constexpr int RG = 32 / RC;      // P V: row groups of a warp
   constexpr int RT = 16 / RG;      // P V: rows per thread
-  constexpr int NC = RC / PC;      // P V: 16-byte column chunks per thread
-  constexpr bool kSmall = D <= 64; // Q in registers, P V summed apart
-  constexpr int KU = kSmall ? KS : 1;
-  constexpr int PU = kSmall ? 4 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ExactSmem<D>& sm = *reinterpret_cast<ExactSmem<D>*>(smem_raw);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
-  const int rg = lane / PC, dg = lane % PC;
+  const int rg = lane / RC, dg = lane % RC;
   const int nq = (Sq + kExBM - 1) / kExBM;
   const int bh = blockIdx.x % BH, q0 = (nq - 1 - blockIdx.x / BH) * kExBM;
   const float* qb = q + (size_t)bh * Sq * D;
@@ -290,23 +270,13 @@ flash_exact_kernel(const float* __restrict__ q, const float* __restrict__ k,
   load_kv(0, 0);
 
   const int wr = warp * 16;        // the warp's first row in the block
-  // Q's A fragments of step ks, split into TF32 high and low parts
-  auto q_split = [&](int ks, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-    const int c = ks * 8 + t;
-    split(sm.q[wr + g][c], hi[0], lo[0]);
-    split(sm.q[wr + g + 8][c], hi[1], lo[1]);
-    split(sm.q[wr + g][c + 4], hi[2], lo[2]);
-    split(sm.q[wr + g + 8][c + 4], hi[3], lo[3]);
-  };
-  uint32_t qhi[kSmall ? KS : 1][4], qlo[kSmall ? KS : 1][4];
+  uint32_t qhi[KS][4], qlo[KS][4];
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
-  float acc[RT][NC][4];
+  float acc[RT][4];
 #pragma unroll
   for (int i = 0; i < RT; ++i)
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][c][e] = 0.0f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.0f;
   float(*pw)[kExBN + 8] = sm.p[warp];
   float* aw = sm.alpha[warp];
 
@@ -319,10 +289,14 @@ flash_exact_kernel(const float* __restrict__ q, const float* __restrict__ k,
       copy_wait<0>();
     }
     __syncthreads();
-    if constexpr (kSmall) {
-      if (tile == 0) {
+    if (tile == 0) {
 #pragma unroll
-        for (int ks = 0; ks < KS; ++ks) q_split(ks, qhi[ks], qlo[ks]);
+      for (int ks = 0; ks < KS; ++ks) {
+        const int c = ks * 8 + t;
+        split(sm.q[wr + g][c], qhi[ks][0], qlo[ks][0]);
+        split(sm.q[wr + g + 8][c], qhi[ks][1], qlo[ks][1]);
+        split(sm.q[wr + g][c + 4], qhi[ks][2], qlo[ks][2]);
+        split(sm.q[wr + g + 8][c + 4], qhi[ks][3], qlo[ks][3]);
       }
     }
     // the score product, 3xTF32
@@ -331,27 +305,17 @@ flash_exact_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll KU
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ah[4], al[4];
-      if constexpr (kSmall) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          ah[e] = qhi[ks][e];
-          al[e] = qlo[ks][e];
-        }
-      } else {
-        q_split(ks, ah, al);
-      }
+    for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         uint32_t bh0, bl0, bh1, bl1;
         split(sm.k[st][n * 8 + g][ks * 8 + t], bh0, bl0);
         split(sm.k[st][n * 8 + g][ks * 8 + t + 4], bh1, bl1);
         float d4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_tf32(d4, al, bh0, bh1);
-        mma_tf32(d4, ah, bl0, bl1);
-        mma_tf32(d4, ah, bh0, bh1);
+        mma_tf32(d4, qlo[ks], bh0, bh1);
+        mma_tf32(d4, qhi[ks], bl0, bl1);
+        mma_tf32(d4, qhi[ks], bh0, bh1);
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = __fadd_rn(s[n][e], d4[e]);
       }
@@ -392,51 +356,31 @@ flash_exact_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if (t == 0) aw[g + 8 * h] = alpha;
     }
     __syncwarp();
-    // P V with FFMA, the keys in order
-    float pv[kSmall ? RT : 1][kSmall ? NC : 1][4];
+    // P V with FFMA
+    float pv[RT][4];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) pv[i][c] = 0.0f;
+#pragma unroll 4
+    for (int kk = 0; kk < kExBN; ++kk) {
+      const float4 vv =
+          *reinterpret_cast<const float4*>(&sm.v[st][kk][4 * dg]);
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const float pr = pw[rg + RG * i][kk];
+        pv[i][0] = fmaf(pr, vv.x, pv[i][0]);
+        pv[i][1] = fmaf(pr, vv.y, pv[i][1]);
+        pv[i][2] = fmaf(pr, vv.z, pv[i][2]);
+        pv[i][3] = fmaf(pr, vv.w, pv[i][3]);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
       const float alpha = aw[rg + RG * i];
 #pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if constexpr (kSmall)
-            pv[i][c][e] = 0.0f;
-          else
-            acc[i][c][e] = __fmul_rn(acc[i][c][e], alpha);
-        }
-    }
-#pragma unroll PU
-    for (int kk = 0; kk < kExBN; ++kk) {
-      float4 vv[NC];
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-        vv[c] = *reinterpret_cast<const float4*>(
-            &sm.v[st][kk][4 * (dg + PC * c)]);
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float pr = pw[rg + RG * i][kk];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          if constexpr (kSmall)
-            fma4(pv[i][c], pr, vv[c]);
-          else
-            fma4(acc[i][c], pr, vv[c]);
-        }
-      }
-    }
-    if constexpr (kSmall) {
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const float alpha = aw[rg + RG * i];
-#pragma unroll
-        for (int c = 0; c < NC; ++c)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][c][e] = __fadd_rn(__fmul_rn(acc[i][c][e], alpha),
-                                     pv[i][c][e]);
-      }
+      for (int c = 0; c < 4; ++c)
+        acc[i][c] = __fadd_rn(__fmul_rn(acc[i][c], alpha), pv[i][c]);
     }
     __syncthreads();               // the stage, P and the rescales are free
   }
@@ -450,12 +394,9 @@ flash_exact_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int row = q0 + wr + rg + RG * i;
     if (row >= Sq) continue;
     const float den = fmaxf(aw[rg + RG * i], 1e-30f);
-    float* o = out + ((size_t)bh * Sq + row) * D;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      *reinterpret_cast<float4*>(o + 4 * (dg + PC * c)) = make_float4(
-          __fdiv_rn(acc[i][c][0], den), __fdiv_rn(acc[i][c][1], den),
-          __fdiv_rn(acc[i][c][2], den), __fdiv_rn(acc[i][c][3], den));
+    *reinterpret_cast<float4*>(&out[((size_t)bh * Sq + row) * D + 4 * dg]) =
+        make_float4(__fdiv_rn(acc[i][0], den), __fdiv_rn(acc[i][1], den),
+                    __fdiv_rn(acc[i][2], den), __fdiv_rn(acc[i][3], den));
   }
 }
 
@@ -476,31 +417,12 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
-// The K and V tiles share one buffer.  Up to D = 80 it holds a whole
-// tile (K, then V).  At D = 128 a whole f32 tile and its codes beside Q's,
-// P's and P's codes would take 301,568 bytes, above the 232,448 a block
-// may have, so K streams in KSL slices of BK / KSL keys (all D columns)
-// and V in VSL slices of D / VSL columns (all BK keys).  A thread's score
-// columns tx + 16 j fall in K slice j / (8 / KSL) and its output columns
-// tx + 16 c in V slice c / (DC / VSL), so each product's sum over d or
-// over the keys runs whole, in the same order, inside one slice: the
-// slicing changes no bit.
-template <int D>
-struct AmmPlan {
-  static constexpr int KSL = D > 80 ? 4 : 1;
-  static constexpr int VSL = D > 80 ? 4 : 1;
-  static constexpr int KR = BK / KSL;          // keys of a K slice
-  static constexpr int VC = D / VSL;           // columns of a V slice
-  static constexpr int KV = KR * (D + 4) > BK * (VC + 4) ? KR * (D + 4)
-                                                        : BK * (VC + 4);
-};
-
 template <int D>
 struct AmmSmem {
   float q[BQ][D + 4];       // row-major, stride D + 4: float4 reads of
   short qc[BQ][D + 4];      // 8 rows hit distinct banks, code reads of
-  float kv[AmmPlan<D>::KV]; // 16 rows too; a K slice (stride D + 4), then
-  short kvc[AmmPlan<D>::KV];// a V slice (stride D / VSL + 4)
+  float kv[BK][D + 4];      // 16 rows too; K, then V
+  short kvc[BK][D + 4];
   float p[BQ][BK + 1];
   short pc[BQ][BK];
   float red[kThreads / 32];
@@ -511,20 +433,19 @@ struct AmmArgs {
   float scale2vbl, inv_lim, lim;
 };
 
-// Rows [0, rows) of COLS columns of a (., D) f32 array and of its int16
-// codes into shared memory at stride COLS + 4; the rows up to ROWS
-// zero-filled.
-template <int D, int ROWS, int COLS>
-__device__ __forceinline__ void load_block(float* dst, short* dstc,
-                                           const float* src, const short* srcc,
-                                           int rows) {
-  constexpr int CH = COLS / 4, ST = COLS + 4;
-  for (int e = threadIdx.x; e < ROWS * CH; e += kThreads) {
-    const int r = e / CH, c = (e % CH) * 4;
+// Rows [0, rows) of a (., D) f32 array and of its int16 codes into
+// shared memory; the rows up to 128 zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(float (*dst)[D + 4],
+                                          short (*dstc)[D + 4],
+                                          const float* src, const short* srcc,
+                                          int rows) {
+  for (int e = threadIdx.x; e < 128 * (D / 4); e += kThreads) {
+    const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     const bool ok = r < rows;
     const size_t off = ok ? (size_t)r * D + c : 0;
-    copy16(dst + r * ST + c, src + off, ok);
-    copy8(dstc + r * ST + c, srcc + off, ok);
+    copy16(&dst[r][c], src + off, ok);
+    copy8(&dstc[r][c], srcc + off, ok);
   }
   copy_commit();
 }
@@ -546,14 +467,7 @@ flash_amm_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
                  float* __restrict__ s_out, float* __restrict__ pv_out,
                  short* __restrict__ pc_out, float* __restrict__ ps_out,
                  AmmArgs g) {
-  using Plan = AmmPlan<D>;
-  constexpr int DC = D / 16;               // output columns of a thread
-  constexpr int KSL = Plan::KSL, VSL = Plan::VSL;
-  constexpr int KR = Plan::KR, VC = Plan::VC;
-  constexpr int JS = 8 / KSL;              // a thread's columns in a K slice
-  constexpr int CS = DC / VSL;             // ... and in a V slice
-  constexpr int KST = D + 4, VST = VC + 4; // the slices' strides
-  static_assert(D % 16 == 0 && DC % VSL == 0, "D in steps of 16");
+  constexpr int DC = D / 16;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   AmmSmem<D>& sm = *reinterpret_cast<AmmSmem<D>*>(smem_raw);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -566,21 +480,10 @@ flash_amm_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
   const int n_live = KIND ? nk
                           : live_tiles(q0 + g.bq - 1, g.kv_len, g.bk,
                                        g.causal);
-  // K slice s of tile kv: its keys [s KR, (s + 1) KR), every column
-  auto load_k = [&](int kv, int s) {
-    const size_t o = (kvrow + (size_t)kv * g.bk + (size_t)s * KR) * D;
-    load_block<D, KR, D>(sm.kv, sm.kvc, kf + o, kc + o,
-                         min(max(g.bk - s * KR, 0), KR));
-  };
-  // V slice s of tile kv: its columns [s VC, (s + 1) VC), every key
-  auto load_v = [&](int kv, int s) {
-    const size_t o = (kvrow + (size_t)kv * g.bk) * D + (size_t)s * VC;
-    load_block<D, BK, VC>(sm.kv, sm.kvc, vf + o, vc + o, g.bk);
-  };
 
-  load_block<D, BQ, D>(&sm.q[0][0], &sm.qc[0][0], qf + qbase, qc + qbase,
-                       g.bq);
-  if (n_live > 0) load_k(0, 0);
+  load_tile<D>(sm.q, sm.qc, qf + qbase, qc + qbase, g.bq);
+  if (n_live > 0)
+    load_tile<D>(sm.kv, sm.kvc, kf + kvrow * D, kc + kvrow * D, g.bk);
   const float sq = qs[(size_t)bh * nq + qi];
   float m[8], l[8], acc[8][DC];
 #pragma unroll
@@ -592,89 +495,80 @@ flash_amm_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
   }
   for (int kv = 0; kv < n_live; ++kv) {
     const int k0 = kv * g.bk;
-    float yq[8][8];
+    const size_t kbase = (kvrow + k0) * D;
+    copy_wait<0>();                // K (and at kv = 0, Q) have landed
+    __syncthreads();
+    // the exact f32 score product, parked in P's buffer
+    {
+      float s[8][8];
 #pragma unroll
-    for (int ksl = 0; ksl < KSL; ++ksl) {
-      copy_wait<0>();              // the K slice (and at first, Q) landed
-      __syncthreads();
-      // the exact f32 score product, parked in P's buffer
-      {
-        float s[8][JS];
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = 0.0f;
+      for (int d = 0; d < D; d += 4) {
+        float4 a[8], b[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          a[i] = *reinterpret_cast<const float4*>(&sm.q[ty + 16 * i][d]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          b[j] = *reinterpret_cast<const float4*>(&sm.kv[tx + 16 * j][d]);
 #pragma unroll
         for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < JS; ++j) s[i][j] = 0.0f;
-        for (int d = 0; d < D; d += 4) {
-          float4 a[8], b[JS];
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            a[i] = *reinterpret_cast<const float4*>(&sm.q[ty + 16 * i][d]);
-#pragma unroll
-          for (int j = 0; j < JS; ++j)
-            b[j] = *reinterpret_cast<const float4*>(
-                &sm.kv[(tx + 16 * j) * KST + d]);
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < JS; ++j) {
-              s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
-              s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
-              s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
-              s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < JS; ++j)
-            sm.p[ty + 16 * i][tx + 16 * (ksl * JS + j)] = s[i][j];
+          for (int j = 0; j < 8; ++j) {
+            s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+          }
       }
-      // the Broken-Booth score product of the codes, K^T as the multiplier
-      {
-        int part[8][JS];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < JS; ++j) {
-            part[i][j] = 0;
-            yq[i][ksl * JS + j] = 0.0f;
-          }
-        int left = g.chunk;
-        for (int d = 0; d < D; ++d) {
-          int a[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = sm.qc[ty + 16 * i][d];
-#pragma unroll
-          for (int j = 0; j < JS; ++j) {
-            const bbm::Unpacked u = bbm::unpack(bbm::decode(
-                sm.kvc[(tx + 16 * j) * KST + d], g.wl, g.vbl, g.R));
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-              part[i][j] += bbm::scaled_product<KIND>(a[i], u, g.vbl, g.R);
-          }
-          if (--left == 0) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-              for (int j = 0; j < JS; ++j)
-                bbm::flush(yq[i][ksl * JS + j], part[i][j]);
-            left = g.chunk;
-          }
-        }
-        if (left != g.chunk) {
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < JS; ++j)
-              bbm::flush(yq[i][ksl * JS + j], part[i][j]);
-        }
-      }
-      __syncthreads();   // the K slice is no longer read: the next copy
-      if (ksl + 1 < KSL) // (V's first, under P's work) runs
-        load_k(kv, ksl + 1);
-      else
-        load_v(kv, 0);
+        for (int j = 0; j < 8; ++j) sm.p[ty + 16 * i][tx + 16 * j] = s[i][j];
     }
+    // the Broken-Booth score product of the codes, K^T as the multiplier
+    float yq[8][8];
+    {
+      int part[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          part[i][j] = 0;
+          yq[i][j] = 0.0f;
+        }
+      int left = g.chunk;
+      for (int d = 0; d < D; ++d) {
+        int a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = sm.qc[ty + 16 * i][d];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const bbm::Unpacked u = bbm::unpack(
+              bbm::decode(sm.kvc[tx + 16 * j][d], g.wl, g.vbl, g.R));
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            part[i][j] += bbm::scaled_product<KIND>(a[i], u, g.vbl, g.R);
+        }
+        if (--left == 0) {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) bbm::flush(yq[i][j], part[i][j]);
+          left = g.chunk;
+        }
+      }
+      if (left != g.chunk) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) bbm::flush(yq[i][j], part[i][j]);
+      }
+    }
+    __syncthreads();   // K is no longer read: V's copy runs under P's work
+    load_tile<D>(sm.kv, sm.kvc, vf + kbase, vc + kbase, g.bk);
     const float sqk = __fmul_rn(sq, ks[(size_t)bh * nk + kv]);
     float alpha[8];
     float pmax = 0.0f;
@@ -734,85 +628,79 @@ flash_amm_kernel(const float* __restrict__ qf, const float* __restrict__ kf,
           pc_out[((size_t)bh * g.Sqp + q0 + r) * g.Skvp + k0 + c] =
               static_cast<short>(code);
       }
-    const float spv = __fmul_rn(sp, vs[(size_t)bh * nk + kv]);
+    copy_wait<0>();                // V has landed
+    __syncthreads();
+    float pe[8][DC];
 #pragma unroll
-    for (int vsl = 0; vsl < VSL; ++vsl) {
-      copy_wait<0>();              // the V slice has landed
-      __syncthreads();
-      float pe[8][CS];
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) pe[i][c] = 0.0f;
+    for (int kk = 0; kk < g.bk; ++kk) {
+      float a[8], b[DC];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) a[i] = sm.p[ty + 16 * i][kk];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) b[c] = sm.kv[kk][tx + 16 * c];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int c = 0; c < CS; ++c) pe[i][c] = 0.0f;
-      for (int kk = 0; kk < g.bk; ++kk) {
-        float a[8], b[CS];
+        for (int c = 0; c < DC; ++c) pe[i][c] = fmaf(a[i], b[c], pe[i][c]);
+    }
+    float yv[8][DC];
+    {
+      int part[8][DC];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) a[i] = sm.p[ty + 16 * i][kk];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int c = 0; c < CS; ++c) b[c] = sm.kv[kk * VST + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < CS; ++c) pe[i][c] = fmaf(a[i], b[c], pe[i][c]);
-      }
-      float yv[8][CS];
-      {
-        int part[8][CS];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int c = 0; c < CS; ++c) {
-            part[i][c] = 0;
-            yv[i][c] = 0.0f;
-          }
-        int left = g.chunk;
-        for (int kk = 0; kk < g.bk; ++kk) {
-          int a[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = sm.pc[ty + 16 * i][kk];
-#pragma unroll
-          for (int c = 0; c < CS; ++c) {
-            const bbm::Unpacked u = bbm::unpack(
-                bbm::decode(sm.kvc[kk * VST + tx + 16 * c], g.wl, g.vbl, g.R));
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-              part[i][c] += bbm::scaled_product<KIND>(a[i], u, g.vbl, g.R);
-          }
-          if (--left == 0) {
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-              for (int c = 0; c < CS; ++c) bbm::flush(yv[i][c], part[i][c]);
-            left = g.chunk;
-          }
+        for (int c = 0; c < DC; ++c) {
+          part[i][c] = 0;
+          yv[i][c] = 0.0f;
         }
-        if (left != g.chunk) {
+      int left = g.chunk;
+      for (int kk = 0; kk < g.bk; ++kk) {
+        int a[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i] = sm.pc[ty + 16 * i][kk];
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          const bbm::Unpacked u = bbm::unpack(
+              bbm::decode(sm.kvc[kk][tx + 16 * c], g.wl, g.vbl, g.R));
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            part[i][c] += bbm::scaled_product<KIND>(a[i], u, g.vbl, g.R);
+        }
+        if (--left == 0) {
 #pragma unroll
           for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int c = 0; c < CS; ++c) bbm::flush(yv[i][c], part[i][c]);
+            for (int c = 0; c < DC; ++c) bbm::flush(yv[i][c], part[i][c]);
+          left = g.chunk;
         }
       }
-      __syncthreads();   // the V slice is no longer read: the next copy
-      if (vsl + 1 < VSL) // (the next tile's K, under the epilogue) runs
-        load_v(kv, vsl + 1);
-      else if (kv + 1 < n_live)
-        load_k(kv + 1, 0);
+      if (left != g.chunk) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int cc = 0; cc < CS; ++cc) {
-          const int c = vsl * CS + cc;
-          const float approx =
-              __fmul_rn(__fmul_rn(yv[i][cc], g.scale2vbl), spv);
-          const int r = ty + 16 * i;
-          if (pv_out != nullptr && r < g.bq)
-            pv_out[(((size_t)bh * nk + kv) * g.Sqp + q0 + r) * D + tx +
-                   16 * c] = approx;
-          const float pv = __fadd_rn(pe[i][cc], __fsub_rn(approx, pe[i][cc]));
-          acc[i][c] = __fadd_rn(__fmul_rn(acc[i][c], alpha[i]), pv);
-        }
+          for (int c = 0; c < DC; ++c) bbm::flush(yv[i][c], part[i][c]);
+      }
     }
+    __syncthreads();   // V is no longer read: the next K's copy runs
+    if (kv + 1 < n_live)            // under the epilogue
+      load_tile<D>(sm.kv, sm.kvc, kf + kbase + (size_t)g.bk * D,
+                   kc + kbase + (size_t)g.bk * D, g.bk);
+    const float spv = __fmul_rn(sp, vs[(size_t)bh * nk + kv]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        const float approx = __fmul_rn(__fmul_rn(yv[i][c], g.scale2vbl), spv);
+        const int r = ty + 16 * i;
+        if (pv_out != nullptr && r < g.bq)
+          pv_out[(((size_t)bh * nk + kv) * g.Sqp + q0 + r) * D + tx +
+                 16 * c] = approx;
+        const float pv = __fadd_rn(pe[i][c], __fsub_rn(approx, pe[i][c]));
+        acc[i][c] = __fadd_rn(__fmul_rn(acc[i][c], alpha[i]), pv);
+      }
   }
   // the skipped tiles' residuals: a dead kind-0 tile's values
   for (int kv = n_live; kv < nk; ++kv) {
@@ -876,26 +764,10 @@ int amm_launch(const float* qf, const float* kf, const float* vf,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The entry points' bodies over the head dims DS... that a source
-// instantiates; -1 for any other.
-template <int... DS>
-int exact_dispatch(const float* q, const float* k, const float* v,
-                   float* out, int BH, int Sq, int Skv, int D, int causal,
-                   float scale, cudaStream_t st) {
-  int err = -1;
-  ((D == DS ? (err = exact_launch<DS>(q, k, v, out, BH, Sq, Skv, causal,
-                                      scale, st), 0) : 0), ...);
-  return err;
-}
-
-template <int... DS>
-int amm_dispatch(const float* qf, const float* kf, const float* vf,
-                 const short* qc, const short* kc, const short* vc,
-                 const float* qs, const float* ks, const float* vs, float* out,
-                 float* s_out, float* pv_out, short* pc_out, float* ps_out,
-                 int BH, int Sqp, int Skvp, int D, int bq, int bk, int kv_len,
-                 int causal, int wl, int vbl, int kind, int R, int chunk,
-                 float inv_lim, cudaStream_t st) {
+// The amm entry points' arguments, as the kernels take them.
+inline AmmArgs make_amm_args(int BH, int Sqp, int Skvp, int bq, int bk,
+                             int kv_len, int causal, int wl, int vbl, int R,
+                             int chunk, float inv_lim) {
   AmmArgs g;
   g.BH = BH;
   g.Sqp = Sqp;
@@ -911,7 +783,28 @@ int amm_dispatch(const float* qf, const float* kf, const float* vf,
   g.scale2vbl = static_cast<float>(1u << vbl);
   g.inv_lim = inv_lim;
   g.lim = static_cast<float>((1 << (wl - 1)) - 1);
-  int err = -1;
+  return g;
+}
+
+// The entry points' bodies over the head dims DS... that a source
+// instantiates; kBadHeadDim for any other.
+template <int... DS>
+int exact_dispatch(const float* q, const float* k, const float* v,
+                   float* out, int BH, int Sq, int Skv, int D, int causal,
+                   float scale, cudaStream_t st) {
+  int err = kBadHeadDim;
+  ((D == DS ? (err = exact_launch<DS>(q, k, v, out, BH, Sq, Skv, causal,
+                                      scale, st), 0) : 0), ...);
+  return err;
+}
+
+template <int... DS>
+int amm_dispatch(const float* qf, const float* kf, const float* vf,
+                 const short* qc, const short* kc, const short* vc,
+                 const float* qs, const float* ks, const float* vs, float* out,
+                 float* s_out, float* pv_out, short* pc_out, float* ps_out,
+                 const AmmArgs& g, int D, int kind, cudaStream_t st) {
+  int err = kBadHeadDim;
   ((D == DS ? (err = kind ? amm_launch<DS, 1>(qf, kf, vf, qc, kc, vc, qs, ks,
                                               vs, out, s_out, pv_out, pc_out,
                                               ps_out, g, st)
@@ -922,9 +815,9 @@ int amm_dispatch(const float* qf, const float* kf, const float* vf,
 }
 
 inline const char* error_string(int err) {
-  if (err == -1) return "unsupported head dimension";
+  if (err == kBadHeadDim) return "unsupported head dimension";
+  if (err == kBadRoute) return "no such route at this head dimension";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // namespace
-

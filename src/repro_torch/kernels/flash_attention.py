@@ -1,10 +1,11 @@
 """Flash attention, exact and on the Broken-Booth datapath.
 
 Counterpart of ``repro.kernels.flash_attention``.  Two hand-written CUDA
-kernels (``csrc/flash_attention.cuh``; the library ``flash_attention``
-holds head dims 16, 32 and 64, ``flash_attention_wide`` 80 and 128, so
-that nvcc builds the two sources side by side), each with a plain
-PyTorch version of the same function beside it:
+kernels (the library ``flash_attention`` holds head dims 16, 32 and 64,
+``csrc/flash_attention.cuh``; ``flash_attention_wide`` 80 and 128,
+``csrc/flash_attention_wide.cuh``, so that nvcc builds the two sources
+side by side), each with a plain PyTorch version of the same function
+beside it:
 
   ``flash_attention``      replaces the Pallas kernel
       ``repro/kernels/flash_attention.py::_attn_kernel``: the exact
@@ -20,8 +21,9 @@ scaled by 1/sqrt(d)), K and V per (batch*head, block) with the amm
 quantizer, on the host side of the grid, and hands the kernel codes (as
 int16) and scales.  The plain version (the counterpart of
 ``_flash_amm_xla``) also decodes K's digit planes there, once per call;
-the kernel decodes the digits of K's and V's codes in registers (the
-planes would not fit in shared memory beside the tiles).
+the kernels decode K's and V's codes themselves: at head dims 16-64 the
+digits in registers, at 80 and 128 (tensor-core route) the byte planes
+once per tile into shared memory.
 
 Dead tiles.  A KV tile is dead for a q-block when every (row, key) pair
 in it is masked: under causal, when its first key lies past the block's
@@ -46,30 +48,34 @@ Schedule.  Each kernel block owns one (q-block, batch*head) and walks
 the live tiles of its q-block; blocks are numbered heaviest first (the
 last causal q-block of every head, then the one before), so the card
 takes the longest blocks in its first wave.  K and V tiles arrive by
-``cp.async`` in 16-byte (f32) and 8-byte (int16 code) copies: the exact
-kernel double-buffers them, so the next tile's copy runs under the
-current tile's products; the amm kernel, whose tiles fill its shared
-memory, copies V while P is formed and quantized and the next K while
-the P V epilogue runs.  At head dim 128 a whole f32 tile with its codes
-does not fit beside Q, P and P's codes, so the amm kernel streams K in
-four slices of 32 keys and V in four slices of 32 columns through one
-buffer; every product's sum still runs whole, in the same order, inside
-one slice.
+``cp.async`` in 16-byte (f32) and 8-byte (int16 code) copies, the next
+copy under the current products.
 
-Arithmetic and bounds.  The exact kernel forms Q K^T on the tensor cores
-in 3xTF32 (each f32 operand split into a TF32 high and low part, hi*hi +
-hi*lo + lo*hi with the f32 accumulator drained into f32 registers after
-every 8-term step; the error model is in the CUDA source and stays
-inside ``flash_tolerance``'s score term at every head dim the kernel
-takes) and P V with FFMA on
-the CUDA cores.  By the same error model 3xTF32 would also fit the
-tolerance's sum term for P V from 26 keys on, so on this card the
-function is bounded by both products at the 3xTF32 rate there (and by
-P V's f32 FFMA over shorter KV lengths); the FFMA P V is the kernel's
-choice, not the bound.  The amm kernel keeps both float products in f32
-FFMA (``flash_amm_compare`` derives its code-movement bound from two f32
-evaluations) and its integer Broken-Booth products on ``bbm_dot.cuh``,
-so it is bounded by its int32 operations.
+Head dims 16-64 keep the design of ``csrc/flash_attention.cuh``: the
+exact kernel forms Q K^T on the tensor cores in 3xTF32 (each f32 operand
+split into a TF32 high and low part, hi*hi + hi*lo + lo*hi with the f32
+accumulator drained into f32 registers after every 8-term step; the
+error model is in the CUDA source and stays inside ``flash_tolerance``'s
+score term) and P V with FFMA on the CUDA cores; the amm kernel forms
+its integer Broken-Booth products on the CUDA cores (``bbm_dot.cuh``).
+
+Head dims 80 and 128 have kernels of their own
+(``csrc/flash_attention_wide.cuh``), each with two routes that a pure
+function of the call picks and ``<wrapper>.mma_launches`` counts apart
+from ``.launches``; neither falls back to the other.  The exact kernel
+(``flash_exact_route``): from ``PV_3XTF32_MIN_SKV`` keys on ("tf32") P V
+also runs in 3xTF32 on the tensor cores, P kept in registers from the
+score accumulator to P V's operand, which the same error model admits
+inside the tolerance's sum term from that length on; over shorter KV
+lengths ("ffma") P V runs with FFMA.  The amm kernel (``flash_amm_route``):
+where ``bbm_dot_route`` says "mma", both integer products run on the
+int8 tensor cores in the contracted form of ``csrc/bbm_mma.cuh``, the
+multiplier's Booth planes (K's, V's) decoded once per tile, each product
+one chunk (every such operating point's chunk holds a tile) whose int32
+sum is flushed to f32 as before, so every residual keeps its bits;
+elsewhere ("tile") the CUDA-core products.  Both amm
+routes keep the float products in f32 FFMA (``flash_amm_compare``
+derives its code-movement bound from two f32 evaluations).
 
 A wrapper runs the plain version only for tensors on the CPU; on CUDA
 tensors it launches its kernel or raises, and counts its launches in
@@ -102,12 +108,14 @@ import torch.nn.functional as F
 
 from ..device import pin_fp32
 from .booth_rows import amm_chunk_len, booth_precode, num_corr_rows
-from .bbm_matmul import dot_scaled_chunked
+from .bbm_matmul import bbm_dot_route, dot_scaled_chunked
 
 __all__ = ["DEAD_SCORE", "FLASH_AMM_BK", "FLASH_AMM_BQ", "NEG_INF",
-           "flash_amm_compare", "flash_amm_operands", "flash_amm_plain",
+           "PV_3XTF32_MIN_SKV", "flash_amm_compare", "flash_amm_operands",
+           "flash_amm_plain", "flash_amm_route",
            "flash_attention", "flash_attention_amm", "flash_attention_plain",
-           "flash_tolerance", "live_kv_tiles", "quantize_blocks"]
+           "flash_exact_route", "flash_tolerance", "live_kv_tiles",
+           "quantize_blocks"]
 
 NEG_INF = -1e30
 # the score residual of a skipped tile (read by nothing: the mask covers it)
@@ -124,7 +132,16 @@ _EXP_REL = 2.0 ** -21         # two f32 exps of one argument: a few ulps
 # through them (whisper-base 64; zamba2-2.7b 80; grok-1-314b,
 # llama3.2-3b, yi-34b, qwen1.5-110b, chameleon-34b 128) and 16, 32
 _HEAD_DIMS = (16, 32, 64, 80, 128)
+_WIDE_DIMS = (80, 128)        # the kernels of csrc/flash_attention_wide.cuh
 _MAX_TILE = 128
+# the fewest keys at which the exact kernels' error model
+# (csrc/flash_attention_wide.cuh) admits 3xTF32 for P V inside
+# flash_tolerance's sum term: (30.04 + ceil(Skv / 8) + ceil(Skv / 32) - 2) u
+# <= (Skv + 8) u
+PV_3XTF32_MIN_SKV = 26
+# the C entry points' route numbers
+_EXACT_ROUTES = {"ffma": 0, "tf32": 1}
+_AMM_ROUTES = {"tile": 0, "mma": 1}
 
 
 def quantize_blocks(t: torch.Tensor, wl: int, dtype=torch.int32):
@@ -180,6 +197,27 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     rows with 16-byte ``cp.async``)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_exact_route(d: int, skv: int) -> str:
+    """The exact kernel's P V route at head dim ``d`` over ``skv`` keys:
+    "tf32" (3xTF32 on the tensor cores) at the wide head dims from
+    ``PV_3XTF32_MIN_SKV`` keys on, else "ffma" (the only route at d <=
+    64).  A pure function of its arguments."""
+    return "tf32" if d in _WIDE_DIMS and skv >= PV_3XTF32_MIN_SKV \
+        else "ffma"
+
+
+def flash_amm_route(d: int, wl: int, vbl: int, kind: int) -> str:
+    """The amm kernel's integer route at head dim ``d``: "mma" (the int8
+    tensor cores) at the wide head dims where ``bbm_dot_route`` says
+    "mma" and a chunk (``amm_chunk_len``) holds a whole tile's product,
+    as every such chunk does (511 products at least), so that each
+    product is flushed once; else "tile" (the CUDA cores; the only route
+    at d <= 64).  A pure function of its arguments."""
+    return "mma" if d in _WIDE_DIMS \
+        and bbm_dot_route(wl, vbl, kind) == "mma" \
+        and amm_chunk_len(wl, vbl) >= _MAX_TILE else "tile"
 
 
 def live_kv_tiles(sq: int, skv: int, bq: int, bk: int, *, causal: bool,
@@ -251,11 +289,14 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     Returns (B, H, Sq, D) in q's dtype.
 
     ``bq`` and ``bk`` (1..128) are the plain version's tiles, which it
-    runs on CPU tensors.  The kernel takes its own, 64 query rows by 64
-    keys: rows are independent, so the row tile changes no bit, and the
-    KV tile moves only the rounding of the sums, within
-    ``flash_tolerance``.  The kernel takes head dims 16, 32, 64, 80 and
-    128; the plain version any.
+    runs on CPU tensors.  The kernels take their own (64 query rows by
+    64 keys at head dims 16-64, 128 by 32 at 80 and 128): rows are
+    independent, so the row tile changes no bit, and the KV tile moves
+    only the rounding of the sums, within ``flash_tolerance``.  The
+    kernels take head dims 16, 32, 64, 80 and 128; the plain version
+    any.  On a CUDA tensor the call runs ``flash_exact_route(d, Skv)``'s
+    route (counted in ``.mma_launches`` where P V ran on the tensor
+    cores).
     """
     _check_qkv(q, k, v, "flash_attention")
     if not q.is_cuda:
@@ -270,21 +311,24 @@ def flash_attention(q, k, v, *, causal: bool = True, bq: int = 128,
     qc, kc, vc = (_aligned(t.to(torch.float32).reshape(b * h, t.shape[2], d))
                   for t in (q, k, v))
     out = torch.empty((b * h, sq, d), dtype=torch.float32, device=q.device)
+    route = flash_exact_route(d, skv)
     lib = _library(d)
     with torch.cuda.device(q.device):
         err = lib.flash_attention_launch(
             qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
             b * h, sq, skv, d, int(causal), 1.0 / (d ** 0.5),
-            _stream(q.device))
+            _EXACT_ROUTES[route], _stream(q.device))
     if err != 0:
         raise RuntimeError(
-            f"flash_attention failed: error {err} "
+            f"flash_attention failed on route {route}: error {err} "
             f"({lib.flash_attention_error_string(err).decode()})")
     flash_attention.launches += 1
+    flash_attention.mma_launches += route == "tf32"
     return out.reshape(b, h, sq, d).to(q.dtype)
 
 
 flash_attention.launches = 0
+flash_attention.mma_launches = 0     # P V on the tensor cores ("tf32")
 
 
 def _stats(q, k, v):
@@ -462,7 +506,11 @@ def flash_amm_plain(ops: dict, *, wl: int, vbl: int, kind: int,
 
 
 def _amm_launch(ops: dict, *, wl: int, vbl: int, kind: int, causal: bool,
-                residuals: bool = False):
+                residuals: bool = False, route=None):
+    """One counted launch of the amm kernel on ``ops`` (CUDA tensors):
+    ``route`` None takes ``flash_amm_route``'s; "mma" or "tile" forces
+    one (for comparing the two on the same inputs), and the kernel
+    refuses a route it cannot compute."""
     bh, sqp, d = ops["qf"].shape
     if d not in _HEAD_DIMS:
         raise ValueError(f"flash_attention_amm's kernel takes head_dim in "
@@ -487,6 +535,11 @@ def _amm_launch(ops: dict, *, wl: int, vbl: int, kind: int, causal: bool,
     tiles = [_aligned(ops[n]) for n in ("qf", "kf", "vf", "qc", "kc",
                                         "vc")] + [
         ops[n].contiguous() for n in ("qs", "ks", "vs")]
+    if route is None:
+        route = flash_amm_route(d, wl, vbl, kind)
+    elif route not in _AMM_ROUTES:
+        raise ValueError(f"unknown route {route!r} (expected one of "
+                         f"{tuple(_AMM_ROUTES)})")
     lib = _library(d)
     with torch.cuda.device(dev):
         err = lib.flash_attention_amm_launch(
@@ -494,12 +547,13 @@ def _amm_launch(ops: dict, *, wl: int, vbl: int, kind: int, causal: bool,
             out.data_ptr(), ptr("s"), ptr("pv"), ptr("pc"), ptr("ps"),
             bh, sqp, skvp, d, bq, bk, ops["skv"], int(causal),
             wl, vbl, kind, num_corr_rows(wl, vbl), amm_chunk_len(wl, vbl),
-            inv_lim, _stream(dev))
+            inv_lim, _AMM_ROUTES[route], _stream(dev))
     if err != 0:
         raise RuntimeError(
-            f"flash_attention_amm failed: error {err} "
+            f"flash_attention_amm failed on route {route}: error {err} "
             f"({lib.flash_attention_error_string(err).decode()})")
     flash_attention_amm.launches += 1
+    flash_attention_amm.mma_launches += route == "mma"
     return (out, res) if residuals else out
 
 
@@ -510,8 +564,10 @@ def flash_attention_amm(q, k, v, *, wl: int, vbl: int, kind: int,
 
     q: (B, H, Sq, D); k, v: (B, H, Skv, D) with matched head counts.
     wl/vbl/kind: the dot-form lowering (``AmmRuntime.attn_lowering``).
-    The kernel takes head dims 16, 32, 64, 80 and 128; the plain version
-    any.  ``residuals``: also return the dict of what every tile formed: the
+    The kernels take head dims 16, 32, 64, 80 and 128; the plain version
+    any.  On a CUDA tensor the call runs ``flash_amm_route``'s route
+    (counted in ``.mma_launches`` on the tensor cores).  ``residuals``:
+    also return the dict of what every tile formed: the
     approximate score products ``s`` (B*H, Sq_pad, Skv_pad), P's codes
     ``pc`` (int16, the same shape) and scales ``ps`` (B*H, nq, nk), the
     approximate P V products ``pv`` (B*H, nk, Sq_pad, D), and the tiling
@@ -533,6 +589,7 @@ def flash_attention_amm(q, k, v, *, wl: int, vbl: int, kind: int,
 
 
 flash_attention_amm.launches = 0
+flash_attention_amm.mma_launches = 0     # the int8 tensor cores ("mma")
 
 # exp(-110) is below the smallest f32: larger score gaps weigh nothing
 _GAP_CAP = 110.0

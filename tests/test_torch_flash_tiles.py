@@ -12,8 +12,8 @@
   run computes its dead tiles;
 * the precision control of ``chip_smoke.py``: its TF32 rounding, and 16
   times the plain version's f32 error against float64 attention below
-  the error of 1xTF32 score products and of 3xTF32 ones short of a
-  cross term;
+  the error of 1xTF32 score products, of 3xTF32 ones short of a cross
+  term, and (head dims 80 and 128) of a P V with V or P in TF32;
 * the plain version of the exact kernel against the reference's exact
   flash attention (``kernels.ops.flash_attention``, interpret mode)
   within ``flash_tolerance``, with tiles of 64 and 128 and Sq != Skv.
@@ -224,12 +224,14 @@ def test_tf32_round_rounds_to_nearest_with_ties_away():
     assert got[1] == 1 + ulp and got[8] == -(1 + ulp)
 
 
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
 def test_precision_control_separates_f32_from_tf32_scores(d):
     """The separation ``chip_smoke.py``'s precision control relies on,
     with the plain version on the CPU: 16 times its f32 error against
     float64 attention stays below the error of every lower-precision
-    score product it holds the kernel apart from."""
+    score product it holds the kernel apart from, and, at the head dims
+    whose kernel forms P V in 3xTF32 (80, 128), below the error of a P V
+    that lost its low TF32 part (V or P rounded by ``tf32_round``)."""
     cs = _chip_smoke()
     q, k, v = _operands(b=1, h=2, s=200, d=d, seed=d)
     ref = cs.attention_f64(torch, q, k, v)
@@ -239,3 +241,7 @@ def test_precision_control_separates_f32_from_tf32_scores(d):
     qt, kt = cs.tf32_round(torch, q), cs.tf32_round(torch, k)
     for a, b in ((qt, kt), (qt, k), (q, kt)):
         assert err(cs.attention_f64(torch, a, b, v)) > 4 * limit
+    if d in (80, 128):
+        vt = cs.tf32_round(torch, v)
+        assert err(cs.attention_f64(torch, q, k, vt)) > 4 * limit
+        assert err(cs.attention_f64_p_tf32(torch, q, k, v)) > 4 * limit
