@@ -1383,25 +1383,19 @@ def flash_amm_check(torch, tf, q, k, v, *, kind, causal, what,
     by ``flash_amm_compare``: score products bit-equal, P's codes and
     scales within what float rounding moves, P V products bit-equal where
     P's codes agree, the output within the bound of the codes that moved.
-    ``plain_cpu``: the operands formed and the plain version run on CPU
-    copies (an operating point with no f32 envelope: its int32
-    contraction runs on the CPU only), the kernel on their card copies.
-    Returns the report (and the kernel's residuals with ``want_res``)."""
+    ``plain_cpu``: the plain version run on CPU copies of the operands
+    (an operating point with no f32 envelope: its int32 contraction runs
+    on the CPU only), the wrapper and the operands on the card as
+    always.  Returns the report (and the kernel's residuals with
+    ``want_res``)."""
     b, h, s_len, d = q.shape
+    ops = tf.flash_amm_operands(q, k, v, wl=wl)
+    got, res = tf.flash_attention_amm(q, k, v, wl=wl, vbl=vbl, kind=kind,
+                                      causal=causal, residuals=True)
     if plain_cpu:
-        ops = tf.flash_amm_operands(q.cpu(), k.cpu(), v.cpu(), wl=wl)
-        got, res = tf._amm_launch(
-            {n: t.to(q.device) if torch.is_tensor(t) else t
-             for n, t in ops.items()}, wl=wl, vbl=vbl, kind=kind,
-            causal=causal, residuals=True)
-        got = got[:, :s_len].cpu()
-        res = {n: t.cpu() if torch.is_tensor(t) else t
-               for n, t in res.items()}
-    else:
-        ops = tf.flash_amm_operands(q, k, v, wl=wl)
-        got, res = tf.flash_attention_amm(q, k, v, wl=wl, vbl=vbl,
-                                          kind=kind, causal=causal,
-                                          residuals=True)
+        cpu = lambda tree: {  # noqa: E731
+            n: t.cpu() if torch.is_tensor(t) else t for n, t in tree.items()}
+        ops, res, got = cpu(ops), cpu(res), got.cpu()
     want, wres = tf.flash_amm_plain(ops, wl=wl, vbl=vbl, kind=kind,
                                     causal=causal, residuals=True)
     rep = tf.flash_amm_compare(
@@ -1937,19 +1931,19 @@ B2_BEFORE_MS = {(2048, 896, 4864): 15.095584, (2048, 4864, 896): 17.864314}
 
 
 def flash_raw_ms(torch, q, k, v, reps: int = 50,
-                 causal: bool = True, route=None) -> float:
+                 causal: bool = True) -> float:
     """ms per launch of the exact flash kernel alone, between CUDA events
-    over back-to-back launches through its C entry point: the wrapper's
-    host work (checks, layout, about 20 us of Python) exceeds the
-    kernel's time, so timing wrapper calls measures the host.  ``route``:
-    the P V route (default the wrapper's rule, ``flash_exact_route``)."""
+    over back-to-back launches through its C entry point, on the P V
+    route of ``flash_exact_route``: the wrapper's host work (checks,
+    layout, about 20 us of Python) exceeds the kernel's time, so timing
+    wrapper calls measures the host."""
     from repro_torch.kernels.flash_attention import (_EXACT_ROUTES,
                                                      _library,
                                                      flash_exact_route)
     b, h, s_len, d = q.shape
     lib = _library(d)
     skv = k.shape[2]
-    rt = _EXACT_ROUTES[route or flash_exact_route(d, skv)]
+    rt = _EXACT_ROUTES[flash_exact_route(d, skv)]
     qc = q.reshape(b * h, s_len, d).contiguous()
     kc, vc = (t.reshape(b * h, skv, d).contiguous() for t in (k, v))
     out = torch.empty_like(qc)
@@ -5319,7 +5313,9 @@ HD_SHORT_KV = 20                  # below PV_3XTF32_MIN_SKV: the FFMA P V
 HD_TILE_VBL = 3                   # wl 16 / vbl 3: the amm "tile" route
 # the wide kernels' ms before their redesign (PERF.md's kernel table, PR
 # 26 call 7, an NVIDIA H100 80GB HBM3 at 700.00 W): (exact, amm) at each
-# config's (4, H, 512, D) causal shape
+# config's (4, H, 512, D) causal shape; the amm times are of the wrapper
+# with its quantization, so they print beside the new ones and go on no
+# kernels line
 HD_BEFORE_MS = {"grok-1-314b": (0.554449, 21.476349),
                 "llama3.2-3b": (0.281333, 11.386592),
                 "yi-34b": (0.644632, 24.473795),
@@ -5477,8 +5473,7 @@ def hd_flash_phase(torch, dev, tf) -> tuple:
                     row = dict(config=name, shape=list(q.shape), ms=r["ms"],
                                plain_ms=r["plain_ms"], bound_ms=r["bound"],
                                bound_by=r["by"], library_ms=r["lib_ms"],
-                               timed_by=r["how"], max_abs_err=r["err"],
-                               before_ms=before)
+                               timed_by=r["how"], max_abs_err=r["err"])
                     extra = ""
                     if kern == "flash_attention_amm" \
                             and name == "grok-1-314b":
@@ -5492,7 +5487,10 @@ def hd_flash_phase(torch, dev, tf) -> tuple:
                         f"{kern} at {name}'s training shape {tuple(q.shape)} "
                         f"causal ({heads} / {kv} heads, head dim {d}): "
                         f"{r['ms']:.6f} ms ({r['how']}), before the redesign "
-                        f"{before} ms (PR 26), plain {r['plain_ms']:.6f} ms, "
+                        f"{before} ms (PERF.md, PR 26"
+                        + (", the wrapper with its quantization"
+                           if kern == "flash_attention_amm" else "")
+                        + f"), plain {r['plain_ms']:.6f} ms, "
                         f"bound {r['bound']:.6f} ms ({r['by']}; bound / time "
                         f"{r['bound'] / r['ms']:.4g}), max abs error "
                         f"{r['err']!r}"
@@ -5566,22 +5564,22 @@ def mt_loss_and_grads(torch, dev, cfg, params, counters, *, capture=None,
                       keep_grads=False) -> dict:
     """``loss_and_grads`` of ``cfg`` at batch 4 x 512 on the card, twice
     (the second timed warm); each call's launches of every counted
-    kernel, the loss terms, the peak allocated bytes.  Fails on a
-    non-finite loss, term or gradient.  ``capture``: a ``KernelCapture``
-    that records the first call's kernel calls."""
+    kernel (and, in ``mma``, of those with a tensor-core route on it),
+    the loss terms, the peak allocated bytes.  Fails on a non-finite
+    loss, term or gradient.  ``capture``: a ``KernelCapture`` that
+    records the first call's kernel calls."""
     from repro_torch.core import prng
     from repro_torch.models import ModelRuntime
     from repro_torch.train.optimizer import tree_leaves
     from repro_torch.train.trainstep import loss_and_grads
     rt = ModelRuntime.build(cfg, use_pallas=True)
     toks, labels = mt_batch(torch, dev, cfg)
-    out = {"launches": [], "ms": []}
+    out = {"launches": [], "mma": [], "ms": []}
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(2):
         if capture is not None and i == 0:
             capture.calls = []
-        for f in counters.values():
-            f.launches = 0
+        zero_counts(counters)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss, grads, metrics = loss_and_grads(params, cfg, rt, toks, labels,
@@ -5590,6 +5588,7 @@ def mt_loss_and_grads(torch, dev, cfg, params, counters, *, capture=None,
         torch.cuda.synchronize()
         out["ms"].append((time.perf_counter() - t0) * 1e3)
         out["launches"].append({n: f.launches for n, f in counters.items()})
+        out["mma"].append(mma_counts(counters))
         if capture is not None and i == 0:
             out["calls"] = capture.take()
         terms = {k: float(v) for k, v in metrics.items()}
@@ -5605,6 +5604,31 @@ def mt_loss_and_grads(torch, dev, cfg, params, counters, *, capture=None,
         del grads
     out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
+
+
+def zero_counts(counters) -> None:
+    """Every wrapper's launches, and its tensor-core launches where it
+    counts them, set to 0."""
+    for f in counters.values():
+        f.launches = 0
+        if hasattr(f, "mma_launches"):
+            f.mma_launches = 0
+
+
+def mma_counts(counters) -> dict:
+    """The tensor-core launches of each wrapper that counts them."""
+    return {n: f.mma_launches for n, f in counters.items()
+            if hasattr(f, "mma_launches")}
+
+
+def main_routes(res: dict, kern: str) -> dict:
+    """A flash kernel's launches per route over ``res``'s calls of
+    ``mt_loss_and_grads``, as its wrapper counted them."""
+    total = sum(c[kern] for c in res["launches"])
+    mma = sum(c[kern] for c in res["mma"])
+    names = ("tf32", "ffma") if kern == "flash_attention" \
+        else ("mma", "tile")
+    return {names[0]: mma, names[1]: total - mma}
 
 
 def mt_check_launches(name: str, res: dict, want: dict) -> None:
@@ -5730,15 +5754,15 @@ def mt_loop(torch, counters) -> dict:
         step = make(cfg_, rt, tc)
 
         def counted(*args, **kw):
-            for f in counters.values():
-                f.launches = 0
+            zero_counts(counters)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = step(*args, **kw)
             float(out[2]["loss"])
             torch.cuda.synchronize()
             steps.append({"wall": time.perf_counter() - t0, "launches": {
-                n: f.launches for n, f in counters.items()}})
+                n: f.launches for n, f in counters.items()},
+                "mma": mma_counts(counters)})
             return out
         return counted
 
@@ -5887,6 +5911,23 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def rule(tag, cfg):
+        """The flash kernel a grok-1 call of ``tag`` takes and the route
+        its wrapper's rule gives it (T1: bbm0, kind 0)."""
+        d = cfg.resolved_head_dim
+        if tag == "T1":
+            return "flash_attention_amm", tf.flash_amm_route(
+                d, MT_T1["wl"], MT_T1["param"], 0)
+        return "flash_attention", tf.flash_exact_route(d, TRAIN_SEQ)
+
+    def check_routes(what, tag, cfg, res):
+        kern, route = rule(tag, cfg)
+        got = main_routes(res, kern)
+        if got[route] != sum(got.values()):
+            fail(f"{what}: {kern} launched {got} per route, predicted all "
+                 f"on {route!r}")
+        return f"{kern} per route {got} as its rule gives"
+
     hd_lines, timed, _, hd_routes = hd_flash_phase(torch, dev, tf)
     lines += hd_lines
     lap("flash kernels at head dims 80 and 128")
@@ -5904,6 +5945,7 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
                             if tag == "T1" else
                             {"flash_attention": cfg.n_layers}))
         mt_check_launches(f"grok-1 {tag}", res, want)
+        by_route = check_routes(f"grok-1 {tag}", tag, cfg, res)
         runs[tag] = res
         lines.append(
             f"grok-1-314b at full width cut to {cfg.n_layers} layer "
@@ -5912,8 +5954,9 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
             f"the flash kernels), loss_and_grads at {TRAIN_BATCH} x "
             f"{TRAIN_SEQ}: loss {res['loss']!r}, terms {res['terms']}, "
             f"{res['ms'][0]:.1f} ms cold and {res['ms'][1]:.1f} ms warm, "
-            f"launches per call {res['launches'][0]} as predicted, peak "
-            f"{res['peak_gb']:.2f} GB allocated")
+            f"launches per call {res['launches'][0]} as predicted "
+            f"({by_route} over both calls), peak {res['peak_gb']:.2f} GB "
+            f"allocated")
     lap("grok-1 T1 and T2")
 
     # the launcher's loop on grok-1 cut in width
@@ -5932,6 +5975,8 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
         if st["launches"] != want:
             fail(f"grok-1 loop step {i} launched {st['launches']}, "
                  f"predicted {want}")
+    by_route = check_routes("the grok-1 loop", "T1", cfg, {
+        n: [st[n] for st in loop["steps"]] for n in ("launches", "mma")})
     if loop["ckpt_step"] != MT_LOOP_STEPS - 1:
         fail(f"the loop's checkpoint holds step {loop['ckpt_step']}")
     lines.append(
@@ -5942,7 +5987,8 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
         f"moe_aux {[round(h['moe_aux'], 6) for h in hist]}, step walls "
         f"{[round(st['wall'] * 1e3, 1) for st in loop['steps']]} ms, "
         f"launches per step {want['flash_attention_amm']} "
-        f"flash_attention_amm as predicted, run {loop['run_s']:.1f} s with "
+        f"flash_attention_amm as predicted ({by_route} over the steps), "
+        f"run {loop['run_s']:.1f} s with "
         f"its final checkpoint (step {loop['ckpt_step']}), peak "
         f"{loop['peak_gb']:.2f} GB")
     del loop
@@ -6024,9 +6070,7 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
             "ms": main["ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
             "library_ms": main["library_ms"], "timed_by": main["timed_by"],
-            "before_ms": main["before_ms"],
-            "routes": {"main path": "tf32" if kern == "flash_attention"
-                       else "mma",
+            "routes": {"main path": main_routes(run, kern),
                        "launches at head dims 80 and 128": hd_routes[kern]},
             "per_config": rows})
     lap("kernel timing")

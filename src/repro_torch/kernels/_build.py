@@ -4,12 +4,12 @@ Each source under ``csrc/`` compiles into one shared library with a plain
 C interface (no PyTorch headers, so a build takes seconds):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -split-compile=0 -o <lib>.so
-         csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v [<the source's own flags>]
+         -o <lib>.so csrc/<name>.cu
 
-(``-split-compile=0`` optimizes a source's kernels on every core: the
-flash library of head dims 80 and 128, the slowest source, holds ten
-heavy kernels, and ``chip_smoke.py`` prints the whole build's time.)
+The flash library of head dims 80 and 128, the slowest source with ten
+heavy kernels, alone adds ``-split-compile=0`` (its kernels optimized on
+every core); ``chip_smoke.py`` prints the whole build's time.
 
 Libraries land in ``build/repro_torch_kernels/`` at the repository root
 (git-ignored), named by a hash of the source, the shared headers
@@ -42,8 +42,9 @@ SOURCES = {"fir_bank": CSRC / "fir_bank.cu",
            "normal": CSRC / "normal.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-split-compile=0"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source beside NVCC_FLAGS
+SOURCE_FLAGS = {"flash_attention_wide": ["-split-compile=0"]}
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
@@ -120,11 +121,15 @@ def nvcc_path() -> str:
                        "the kernels in src/repro_torch/kernels/csrc")
 
 
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -143,7 +148,7 @@ def build_all(names=None) -> dict:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[n])]
+        cmd = [nvcc_path(), *_flags(n), "-o", tmp, str(SOURCES[n])]
         jobs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                          stderr=subprocess.STDOUT,
                                          text=True))
