@@ -271,6 +271,21 @@ of the JAX package.  Phases, each of which fails the run:
      moe_aux and mtp; both against the CPU port on 2-layer cuts (T2, 64
      tokens, the CPU on the card's routing); deepseek-v3's T1 kernel
      calls at their training shapes against their bounds.
+ 27. slice 11, the parallel layer (``parallel_phase``) on a world-1
+     NCCL mesh from ``make_host_mesh`` (failing unless the backend is
+     NCCL): ``sharded_filterbank`` at flush A's operands, exactly one
+     ``fir_bank_rows`` on the tensor cores, equal to the unsharded call
+     and, on 8 sampled channels, to the plain version on the CPU; the
+     per-shard body on 4 blocks of 16 channels, exactly 4
+     ``fir_bank_dot`` on the tensor cores (the auto form per shard),
+     each block equal to its rows; ``compressed_allreduce`` with both
+     codecs over qwen2-0.5b's full-width parameter shapes, sampled
+     leaves bit-equal to the plain per-leaf formula on CPU copies, its ms
+     and the bytes each collective moved (ROADMAP C18);
+     ``init_train_state`` for qwen2-0.5b at full width, bit-equal to
+     ``lm_init`` + ``init_opt``, saved and restored with ``shardings=``
+     bit for bit, the peak and the seconds.  One card cannot hold two
+     NCCL ranks, so the multi-rank arithmetic is the CPU tests' (gloo).
 
 The line before the last is a JSON object with every kernel's launches,
 error, time, plain time and bound; the last line is the run's verdict.
@@ -6077,6 +6092,311 @@ def moe_train_phase(torch, dev, tb, tf, qm, nm) -> tuple:
     return lines, entries
 
 
+# ------------------------------------------------ slice 11: the parallel layer
+PAR_SHARDS = 4           # (b): flush A's bank in 4 blocks of 16 channels
+PAR_SEED = 27
+PAR_ERR_SCALE = 1e-3     # the error buffer's draws, beside unit gradients
+WIRE = {"int8": "C18: the int8 codes cross as int32",
+        "bf16": "the bf16 codes cross as f32"}
+
+
+def par_flush_a(torch, dev):
+    """Flush A's operands as the engine dispatches them: 64 x 65,536 wl-16
+    codes of ``make_filterbank_signals(64, seed=0)``, the fir30 banks
+    alternating over the channels (their int32 codes and digit planes)."""
+    from repro_torch.configs.fir30 import SPEC_APPROX, WL
+    from repro_torch.dsp import design_lowpass, make_filterbank_signals
+    from repro_torch.dsp import fir as dfir
+    banks = dfir.PrecodedBank(np.stack([design_lowpass(), design_lowpass(
+        stop_weight=0.5)]), SPEC_APPROX, device=dev).take(
+            [c % 2 for c in range(64)])
+    x = np.stack([s.x for s in make_filterbank_signals(64, n=65536, seed=0)])
+    xc = dfir._to_device(dfir._codes32(dfir._quantize64(
+        x * dfir._amp(x), WL), WL), dev)
+    h = dfir._to_device(dfir._codes32(banks.hq, WL), dev)
+    return xc, h, banks.planes
+
+
+def par_filterbank(torch, fk, mesh, dev) -> tuple:
+    """(a) ``sharded_filterbank`` on the world-1 mesh at flush A's operands
+    (one ``fir_bank_rows`` on the tensor cores, the output equal to the
+    unsharded call and 8 sampled channels to the plain version on the
+    CPU); (b) the per-shard body on 4 blocks of 16 channels (4
+    ``fir_bank_dot`` on the tensor cores, each block equal to its rows of
+    (a)).  Returns (lines, kernel entries)."""
+    from repro_torch.configs.fir30 import WL
+    from repro_torch.parallel import filterbank
+    xc, h, (hm, hn) = par_flush_a(torch, dev)
+    c, n = xc.shape
+    taps = hm.shape[2]
+    shift = fk.min_safe_shift(taps, WL)
+    kw = dict(wl=WL, vbl=13, kind=0, shift=shift)
+    if fk.fir_bank_route(WL, 13, 0, shift, taps) != "mma":
+        fail("flush A's operating point does not take the tensor cores")
+    wrappers = {"fir_bank_rows": fk.fir_bank_rows,
+                "fir_bank_dot": fk.fir_bank_dot}
+
+    def counted(fn):
+        for f in wrappers.values():
+            f.launches = f.mma_launches = 0
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: {"mma": f.mma_launches,
+                         "cuda-core": f.launches - f.mma_launches}
+                     for k, f in wrappers.items()}
+
+    def sharded():
+        return filterbank.sharded_filterbank(xc, h, mesh, h_planes=(hm, hn),
+                                             **kw)
+    y, a_routes = counted(sharded)
+    want = {"fir_bank_rows": {"mma": 1, "cuda-core": 0},
+            "fir_bank_dot": {"mma": 0, "cuda-core": 0}}
+    if a_routes != want:
+        fail(f"sharded_filterbank launched {a_routes}, predicted {want}")
+    y = y.to_local()
+    whole = fk.fir_bbm_bank_precoded(xc, hm, hn, **kw)
+    if tuple(y.shape) != (c, n) or not torch.equal(y, whole):
+        fail("sharded_filterbank differs from the unsharded call")
+    pick = sorted(np.random.default_rng(PAR_SEED).choice(
+        c, 8, replace=False).tolist())
+    cpu = fk.fir_bank_rows_plain(xc[pick].cpu(), hm[:, pick].cpu(),
+                                 hn[:, pick].cpu(), **kw)
+    err_a = int((y[pick].cpu().to(torch.int64) - cpu).abs().max())
+    if err_a:
+        fail(f"sharded_filterbank's sampled channels differ from the plain "
+             f"version on the CPU (max abs error {err_a})")
+
+    def blocks():
+        return [filterbank._shard(xc, hm, hn, i, PAR_SHARDS, form=None, **kw)
+                for i in range(PAR_SHARDS)]
+    parts, b_routes = counted(blocks)
+    want = {"fir_bank_rows": {"mma": 0, "cuda-core": 0},
+            "fir_bank_dot": {"mma": PAR_SHARDS, "cuda-core": 0}}
+    if b_routes != want:
+        fail(f"the per-shard body on {PAR_SHARDS} blocks launched "
+             f"{b_routes}, predicted {want}")
+    per = c // PAR_SHARDS
+    err_b = max(int((part.to(torch.int64) - y[i * per:(i + 1) * per]).abs()
+                    .max()) for i, part in enumerate(parts))
+    if err_b:
+        fail(f"a block differs from its rows of the sharded call (max abs "
+             f"error {err_b})")
+
+    # timing: the entry point, the unsharded call, each kernel alone
+    sh_ms = cuda_ms(torch, sharded, 20)
+    whole_ms = cuda_ms(torch, lambda: fk.fir_bbm_bank_precoded(
+        xc, hm, hn, **kw), 20)
+    blk = (xc[:per].contiguous(), hm[:, :per].contiguous(),
+           hn[:, :per].contiguous())
+    entries, lines = [], []
+    for name, args, routes, err, what in (
+            ("fir_bank_rows", (xc, hm, hn), a_routes, err_a,
+             "sharded_filterbank, flush A on a 1 x 1 mesh"),
+            ("fir_bank_dot", blk, b_routes, err_b,
+             f"the per-shard body, flush A in {PAR_SHARDS} blocks")):
+        kern = wrappers[name]
+        plain = getattr(fk, name + "_plain")
+        cc, nn = args[0].shape
+        ms, how = launch_ms(torch, lambda: kern(*args, **kw), 20,
+                            FIR_KERNELS["mma"])
+        plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 2)
+        bound, by, _ = fir_bound_ms(name, cc, nn, taps, **kw)
+        entries.append({
+            "name": f"{name} ({what})", "route": "cuda",
+            "source": FIR_MMA_SOURCE, "replaces": REPLACES[name],
+            "launches": sum(routes[name].values()), "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "timed_by": how,
+            "launches_by_route": routes[name]})
+        lines.append(
+            f"{name} at ({cc}, {nn}) x {taps} taps ({what}): launches on "
+            f"the path per route {routes[name]}, {ms:.6f} ms "
+            f"({how}), plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by}), "
+            f"bound / time {bound / ms:.4g}")
+    lines.insert(0, (
+        f"sharded_filterbank (flush A: {c} x {n} codes, {taps} taps, wl 16 "
+        f"vbl 13 shift {shift}) on the world-1 NCCL mesh: launches per "
+        f"route {a_routes}, torch.equal to the unsharded call, 8 sampled "
+        f"channels equal to the plain rows form on the CPU; {sh_ms:.6f} ms "
+        f"a call against the unsharded {whole_ms:.6f} (CUDA events); its "
+        f"{PAR_SHARDS}-way decomposition (the per-shard body on 16-channel "
+        f"blocks, auto form per shard) launched {b_routes}, each block "
+        f"torch.equal to its rows"))
+    return lines, entries
+
+
+def par_compressor(torch, mesh, dev, cfg) -> list:
+    """(c) ``compressed_allreduce`` with both codecs over ``cfg``'s
+    full-width parameter shapes (every ``lm_table`` leaf), gradients and a
+    non-zero error buffer drawn from a seeded generator on the card: each
+    codec's ms and the bytes each collective moved (C18), sampled leaves
+    bit-equal to the plain per-leaf formula on CPU copies."""
+    import torch.distributed as dist
+    from repro_torch.models import lm_table
+    from repro_torch.parallel import compress
+    from repro_torch.train.optimizer import tree_leaves, tree_map
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(PAR_SEED)
+    table = lm_table(cfg)
+    grads = tree_map(lambda s: torch.randn(s.shape, generator=gen,
+                                           device=dev), table)
+    errs = tree_map(lambda s: torch.randn(
+        s.shape, generator=gen, device=dev).mul_(PAR_ERR_SCALE), table)
+    g_leaves, e_leaves = tree_leaves(grads), tree_leaves(errs)
+    numel = sum(g.numel() for g in g_leaves)
+    sample = sorted({0, len(g_leaves) // 2, len(g_leaves) - 1})
+    wire = []
+    orig = compress._all_reduce
+
+    def recorded(t, op, group):
+        wire.append(("max" if op == dist.ReduceOp.MAX else "sum",
+                     t.numel() * t.element_size()))
+        return orig(t, op, group)
+
+    lines = []
+    compress._all_reduce = recorded
+    try:
+        for codec in ("int8", "bf16"):
+            compress.compressed_allreduce(grads, mesh, codec,
+                                          error_buf=errs)     # warm
+            wire.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, new_e = compress.compressed_allreduce(grads, mesh, codec,
+                                                        error_buf=errs)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            by_op = {}
+            for op, b in wire:
+                by_op[op] = by_op.get(op, 0) + b
+            m_leaves, ne_leaves = tree_leaves(mean), tree_leaves(new_e)
+            for i in sample:
+                g_fb = g_leaves[i].cpu() + e_leaves[i].cpu()
+                sent = compress.compress_decompress(g_fb, codec)
+                if not (torch.equal(m_leaves[i].cpu(), sent)
+                        and torch.equal(ne_leaves[i].cpu(), g_fb - sent)):
+                    fail(f"compressed_allreduce {codec}: leaf {i} "
+                         f"{tuple(g_leaves[i].shape)} differs from the plain "
+                         f"formula on the CPU")
+                if not torch.isfinite(m_leaves[i]).all():
+                    fail(f"compressed_allreduce {codec}: leaf {i} not finite")
+            del mean, new_e, m_leaves, ne_leaves
+            lines.append(
+                f"compressed_allreduce {codec} over {cfg.name}'s "
+                f"{len(g_leaves)} full-width leaves ({numel} f32 values): "
+                f"{ms:.3f} ms (host clock, warm, one rank); {len(wire)} "
+                f"all-reduces moved {sum(b for _, b in wire)} bytes "
+                f"({by_op}) against {4 * numel} for the f32 values "
+                f"themselves ({WIRE[codec]}); leaves "
+                f"{sample} bit-equal to compress_decompress of g + e on the "
+                f"CPU, and their error feedback")
+    finally:
+        compress._all_reduce = orig
+    return lines
+
+
+def par_train_state(torch, mesh, dev, cfg) -> list:
+    """(d) ``init_train_state`` for ``cfg`` at full width on the 1 x 1
+    mesh, bit-equal to ``lm_init`` + ``init_opt``; a checkpoint saved and
+    restored with ``shardings=``, bit-equal; the peak and the seconds."""
+    import shutil
+    from repro_torch.models import lm_init
+    from repro_torch.parallel.logical import NamedSharding, PartitionSpec
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import OptState, init_opt, tree_leaves
+    from repro_torch.train.trainstep import (TrainConfig, init_train_state,
+                                             train_step_shardings)
+    from torch.distributed.tensor import DTensor
+    tc = TrainConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, tc, mesh, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(state)
+    if not all(isinstance(t, DTensor) for t in leaves):
+        fail("init_train_state returned a leaf that is not a DTensor")
+    params = lm_init(cfg, 0, device=dev)
+    plain = tree_leaves((params, init_opt(params, tc.opt)))
+    if len(plain) != len(leaves) or not all(
+            torch.equal(a.to_local(), b) for a, b in zip(leaves, plain)):
+        fail("init_train_state differs from lm_init + init_opt")
+    del params, plain
+    ckpt = ROOT / "build" / "chip_smoke_parallel_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    p_sh, o_sh, _ = train_step_shardings(cfg, mesh)
+    rep = NamedSharding(mesh, PartitionSpec())
+    try:
+        t0 = time.perf_counter()
+        checkpoint.save(state, 1, str(ckpt))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, at = checkpoint.restore(state, str(ckpt), shardings=(
+            p_sh, OptState(rep, o_sh, o_sh)))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in ckpt.rglob("*.npy"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    got = tree_leaves(back)
+    if at != 1 or not all(
+            isinstance(b, DTensor) and b.placements == a.placements
+            and torch.equal(b.to_local(), a.to_local())
+            for a, b in zip(leaves, got)):
+        fail("the restored train state differs from the saved one")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in tree_leaves(state[0]))
+    return [
+        f"init_train_state {cfg.name} at full width ({n_params} parameters, "
+        f"{len(leaves)} leaves with AdamW's moments) on the 1 x 1 card "
+        f"mesh: {init_s:.2f} s, bit-equal to lm_init + init_opt; checkpoint "
+        f"of {nbytes} bytes saved in {save_s:.2f} s (warm page cache) and "
+        f"restored with shardings= in {restore_s:.2f} s, bit-equal with the "
+        f"same placements; peak {peak:.2f} GB allocated"]
+
+
+def parallel_phase(torch, fk) -> tuple:
+    """Slice 11, the parallel layer: a world-1 NCCL mesh from
+    ``make_host_mesh`` (failing unless the backend is NCCL), then (a) and
+    (b) ``par_filterbank``, (c) ``par_compressor`` and (d)
+    ``par_train_state`` on qwen2-0.5b at full width.  The card machine has
+    one GPU, so the multi-rank arithmetic is the CPU tests' (gloo).
+    Returns (printed lines, kernel entries)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import make_host_mesh
+    lines, entries = [], []
+    t_lap = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        lines.append(f"  ({what}: {now - t_lap[0]:.1f} s)")
+        t_lap[0] = now
+
+    mesh = make_host_mesh()
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            fail(f"the host mesh's backend is {backend!r}, not NCCL")
+        dev = resolve_device(mesh.device_type)
+        lines.append(f"host mesh {mesh} on backend {backend}, world size "
+                     f"{dist.get_world_size()}")
+        f_lines, entries = par_filterbank(torch, fk, mesh, dev)
+        lines += f_lines
+        lap("sharded filterbank")
+        cfg = get_arch("qwen2-0.5b")
+        lines += par_compressor(torch, mesh, dev, cfg)
+        lap("compressed all-reduce")
+        lines += par_train_state(torch, mesh, dev, cfg)
+        lap("train state")
+    finally:
+        dist.destroy_process_group()
+    return lines, entries
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -6722,6 +7042,16 @@ def main() -> None:
     for line in lines:
         print(line)
     print(f"slice 10 phase: {time.perf_counter() - t0:.1f} s")
+    kernels += entries
+
+    # ------------------------------------ slice 11: the parallel layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines, entries = parallel_phase(torch, fk)
+    for line in lines:
+        print(line)
+    print(f"slice 11 phase: {time.perf_counter() - t0:.1f} s")
     kernels += entries
 
     print(f"gpu: {gpu_line()}")

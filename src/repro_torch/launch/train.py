@@ -21,7 +21,7 @@ start over).  An encoder-decoder arch (``whisper-base``) is fed the
 reference's frame embeddings: zeros, f32, (batch, encoder_len, d_model),
 at every step.  A MoE arch (grok-1-314b, deepseek-v3-671b) trains on
 ``lm_loss``'s load-balance term and, for deepseek-v3, its MTP block.  A
-mesh other than 1 x 1 is the parallel item, ROADMAP A13.
+mesh other than 1 x 1 is the sharded step, ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ from ..train.optimizer import OptConfig, init_opt
 from ..train.trainstep import TrainConfig, make_train_step
 from . import add_amm_attn_arg, resolve_amm_apply_to, validate_amm_args
 
-_MESH = "a sharded mesh is ROADMAP item A13 (parallel/logical.py)"
+_MESH = "a sharded train step is ROADMAP item A13b"
 
 
 def main(argv=None):

@@ -36,8 +36,9 @@ from ..kernels.ref import (AMM_BOOTH_KINDS, amm_approx_ref,
                            amm_effective_vbl, amm_quantize,
                            amm_quantize_slices, amm_scale)
 
-__all__ = ["Spec", "init_params", "rmsnorm", "rope_freqs", "apply_rope",
-           "amm_dense", "amm_dot", "AmmRuntime", "cross_entropy_loss"]
+__all__ = ["Spec", "init_params", "param_logical_axes", "rmsnorm",
+           "rope_freqs", "apply_rope", "amm_dense", "amm_dot", "AmmRuntime",
+           "cross_entropy_loss"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +81,16 @@ def init_params(table: Dict[str, Any], generator: torch.Generator, *,
                                dtype=dtype) for k in sorted(table)}
     return [init_params(t, generator, device=device, dtype=dtype)
             for t in table]
+
+
+def param_logical_axes(table: Dict[str, Any]):
+    """The same tree with each ``Spec`` replaced by its logical axis
+    tuple (mapped to mesh axes by ``parallel.logical``)."""
+    if isinstance(table, Spec):
+        return table.axes
+    if isinstance(table, dict):
+        return {k: param_logical_axes(table[k]) for k in sorted(table)}
+    return [param_logical_axes(t) for t in table]
 
 
 # ---------------------------------------------------------------- numerics

@@ -79,12 +79,12 @@ from ..device import pin_fp32, resolve_device
 from .attention import (_expand_f32, attention, attn_table, mla_attention,
                         mla_table)
 from .common import (AmmRuntime, Spec, apply_rope, cross_entropy_loss,
-                     init_params, rmsnorm)
+                     init_params, param_logical_axes, rmsnorm)
 from .mamba2 import mamba_apply, mamba_table
 from .moe import mlp_apply, mlp_table, moe_apply, moe_table
 
 __all__ = ["ModelRuntime", "lm_table", "lm_init", "lm_apply", "lm_loss",
-           "lm_amm_planes", "init_cache"]
+           "lm_amm_planes", "lm_logical_axes", "init_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,6 +220,11 @@ def lm_init(cfg: ArchConfig, seed: int = 0, *, device=None,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return init_params(lm_table(cfg), gen, device=dev, dtype=dtype)
+
+
+def lm_logical_axes(cfg: ArchConfig):
+    """``lm_table``'s tree of logical axis tuples."""
+    return param_logical_axes(lm_table(cfg))
 
 
 def lm_amm_planes(cfg: ArchConfig, amm: AmmRuntime, params):

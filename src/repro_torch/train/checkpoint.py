@@ -11,8 +11,12 @@ dicts in sorted-key order, tuples and ``OptState`` in order).  Layout:
 The step directory is written under a ``.tmp`` name and renamed once its
 manifest (``done`` last) is on disk, so a crash mid-write leaves the
 previous checkpoint as the newest complete one.  bf16 leaves are stored
-as their 16-bit patterns (numpy has no bf16).  Restoring onto another
-mesh (the reference's ``shardings``) is the parallel item, ROADMAP A13.
+as their 16-bit patterns (numpy has no bf16).
+
+DTensor leaves are gathered on every rank (``save`` and ``save_async``
+are collective then) and rank 0 writes.  ``restore(shardings=)`` lays
+the host arrays out on the given mesh's shardings whatever mesh wrote
+them (the elastic path); the training loop's rescale is ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -25,8 +29,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .optimizer import tree_leaves
+from .optimizer import tree_leaves, tree_unflatten
 
 __all__ = ["save", "save_async", "wait_pending", "restore", "latest_step",
            "gc_old"]
@@ -36,8 +41,16 @@ def _leaf_name(i: int) -> str:
     return f"leaf_{i:05d}.npy"
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def _to_host(t) -> np.ndarray:
-    """(array to save, logical dtype name) of one leaf."""
+    """(array to save, logical dtype name) of one leaf; a DTensor is
+    gathered first."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = torch.as_tensor(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -45,22 +58,11 @@ def _to_host(t) -> np.ndarray:
     return arr, str(arr.dtype)
 
 
-def _from_host(arr: np.ndarray, dtype: str, like) -> torch.Tensor:
+def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    """The saved array as a tensor on the host."""
     if dtype == "bfloat16":
-        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(np.array(arr))     # 0-d stays 0-d
-    return t.to(torch.as_tensor(like).device)
-
-
-def _unflatten(like, it):
-    if isinstance(like, dict):
-        return {k: _unflatten(like[k], it) for k in sorted(like)}
-    if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(_unflatten(x, it) for x in like))
-    if isinstance(like, (tuple, list)):
-        return type(like)(_unflatten(x, it) for x in like)
-    return next(it)
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))     # 0-d stays 0-d
 
 
 def _write(host, step: int, ckpt_dir: str, keep: int) -> str:
@@ -84,9 +86,16 @@ def _write(host, step: int, ckpt_dir: str, keep: int) -> str:
 
 
 def save(tree, step: int, ckpt_dir: str, *, keep: int = 3) -> str:
-    """Synchronous checkpoint write.  Returns the step directory."""
-    return _write([_to_host(x) for x in tree_leaves(tree)], step, ckpt_dir,
-                  keep)
+    """Synchronous checkpoint write (rank 0's; every rank returns once it
+    is on disk).  Returns the step directory."""
+    host = [_to_host(x) for x in tree_leaves(tree)]
+    if _rank() == 0:
+        d = _write(host, step, ckpt_dir, keep)
+    else:
+        d = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+    return d
 
 
 _pending: list = []
@@ -95,8 +104,11 @@ _pending_lock = threading.Lock()
 
 def save_async(tree, step: int, ckpt_dir: str, *, keep: int = 3):
     """Checkpoint on a writer thread; the leaves are copied to the host on
-    the caller's thread first, so the snapshot is consistent."""
+    the caller's thread first, so the snapshot is consistent.  Returns the
+    thread, or None on a rank other than 0 (which writes nothing)."""
     host = [_to_host(x) for x in tree_leaves(tree)]
+    if _rank() != 0:
+        return None
     t = threading.Thread(target=_write, args=(host, step, ckpt_dir, keep),
                          daemon=True)
     t.start()
@@ -136,10 +148,13 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return best
 
 
-def restore(tree_like, ckpt_dir: str, *, step: Optional[int] = None):
+def restore(tree_like, ckpt_dir: str, *, step: Optional[int] = None,
+            shardings=None):
     """Restore into the structure of ``tree_like``, each leaf on the
-    device of its counterpart there.  Returns (tree, step), or (None,
-    None) when there is nothing to restore."""
+    device of its counterpart there, or, with ``shardings`` (a matching
+    tree of ``parallel.logical.NamedSharding``), laid out as a DTensor on
+    its sharding's mesh, whatever mesh wrote the checkpoint.  Returns
+    (tree, step), or (None, None) when there is nothing to restore."""
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         return None, None
@@ -150,10 +165,21 @@ def restore(tree_like, ckpt_dir: str, *, step: Optional[int] = None):
     if len(likes) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint {d} holds {len(manifest['leaves'])} "
                          f"leaves, the model {len(likes)}")
-    leaves = [_from_host(np.load(os.path.join(d, n)), dt, like)
-              for n, dt, like in zip(manifest["leaves"], manifest["dtypes"],
-                                     likes)]
-    return _unflatten(tree_like, iter(leaves)), step
+    saved = list(zip(manifest["leaves"], manifest["dtypes"]))
+
+    def load(i: int) -> torch.Tensor:
+        return _from_host(np.load(os.path.join(d, saved[i][0])), saved[i][1])
+    if shardings is None:
+        leaves = [load(i).to(torch.as_tensor(like).device)
+                  for i, like in enumerate(likes)]
+    else:
+        from ..parallel.logical import device_put
+        places = tree_leaves(shardings)
+        if len(places) != len(likes):
+            raise ValueError(f"{len(places)} shardings for {len(likes)} "
+                             f"leaves")
+        leaves = [device_put(load(i), sh) for i, sh in enumerate(places)]
+    return tree_unflatten(tree_like, leaves), step
 
 
 def gc_old(ckpt_dir: str, *, keep: int = 3) -> None:

@@ -17,7 +17,7 @@ import torch
 
 __all__ = ["OptConfig", "OptState", "init_opt", "apply_updates",
            "warmup_cosine", "global_norm", "clip_by_global_norm",
-           "tree_leaves", "tree_map"]
+           "tree_leaves", "tree_map", "tree_unflatten"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +47,23 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (tuple, list)):
         return [x for t in tree for x in tree_leaves(t)]
     return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure (dicts in sorted-key order, lists,
+    tuples, ``NamedTuple``s) holding ``leaves`` in ``tree_leaves``'
+    order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(x) for x in node))
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(x) for x in node)
+        return next(it)
+    return build(like)
 
 
 def tree_map(fn, tree, *rest):

@@ -1,10 +1,14 @@
-"""The train step: microbatched loss and gradients, then the update.
+"""The train step: microbatched loss and gradients, then the update;
+the train state laid out on a mesh.
 
-Counterpart of ``repro.train.trainstep`` on one device: the body of the
-reference's jitted ``step`` without its mesh and shardings (those are
-ROADMAP item A13, the parallel half).  Gradients come from autograd
-through ``lm_loss``; the kernels' forward values enter it through the
-straight-through rule, so no gradient passes through a kernel.
+Counterpart of ``repro.train.trainstep``.  ``make_train_step`` is the
+body of the reference's jitted ``step`` on one device; the sharded step
+on a mesh is ROADMAP item A13b.  ``train_step_shardings`` and
+``init_train_state`` lay parameters and optimizer state out by the
+logical rules (``parallel.logical``) as DTensors on a ``DeviceMesh``.
+Gradients come from autograd through ``lm_loss``; the kernels' forward
+values enter it through the straight-through rule, so no gradient passes
+through a kernel.
 """
 from __future__ import annotations
 
@@ -15,10 +19,18 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..core import prng
-from ..models import ModelRuntime, lm_loss
-from .optimizer import OptConfig, apply_updates, tree_leaves, tree_map
+from ..device import resolve_device
+from ..models import (ModelRuntime, lm_init, lm_logical_axes, lm_loss,
+                      lm_table)
+from ..parallel.logical import (OPT_RULES, OPT_RULES_MULTIPOD, RULES,
+                                RULES_MULTIPOD, NamedSharding, PartitionSpec,
+                                batch_pspec, device_put, is_multipod,
+                                tree_shardings)
+from .optimizer import (OptConfig, OptState, apply_updates, init_opt,
+                        tree_leaves, tree_map)
 
-__all__ = ["TrainConfig", "loss_and_grads", "make_train_step"]
+__all__ = ["TrainConfig", "loss_and_grads", "make_train_step",
+           "train_step_shardings", "init_train_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +104,32 @@ def make_train_step(cfg: ArchConfig, rt: ModelRuntime, tc: TrainConfig):
             params, grads, opt_state, tc.opt)
         return new_params, new_opt, dict(metrics, **opt_metrics, loss=loss)
     return step
+
+
+def train_step_shardings(cfg: ArchConfig, mesh, global_batch=None):
+    """(param_shardings, opt_shardings, batch_sharding) on ``mesh``:
+    parameters by ``RULES`` (``RULES_MULTIPOD`` with a pod axis), the
+    optimizer's moments by ``OPT_RULES*``, each dimension checked against
+    ``lm_table``'s shapes; the batch by ``batch_pspec``."""
+    axes = lm_logical_axes(cfg)
+    table = lm_table(cfg)
+    mp = is_multipod(mesh)
+    p_sh = tree_shardings(axes, mesh, RULES_MULTIPOD if mp else RULES,
+                          shapes_tree=table)
+    o_sh = tree_shardings(axes, mesh,
+                          OPT_RULES_MULTIPOD if mp else OPT_RULES,
+                          shapes_tree=table)
+    return p_sh, o_sh, NamedSharding(mesh, batch_pspec(mesh, global_batch))
+
+
+def init_train_state(cfg: ArchConfig, tc: TrainConfig, mesh, seed: int = 0):
+    """``lm_init(cfg, seed)`` and ``init_opt`` on the mesh's device, laid
+    out by ``train_step_shardings`` (the step replicated): (params,
+    OptState) of DTensors."""
+    p_sh, o_sh, _ = train_step_shardings(cfg, mesh)
+    params = lm_init(cfg, seed, device=resolve_device(mesh.device_type),
+                     dtype=tc.param_dtype)
+    opt = init_opt(params, tc.opt)
+    return device_put(params, p_sh), OptState(
+        device_put(opt.step, NamedSharding(mesh, PartitionSpec())),
+        device_put(opt.m, o_sh), device_put(opt.v, o_sh))

@@ -140,7 +140,9 @@ def _no_gpu():
                                    "bbm_matmul_precoded", "plane_fault_mask",
                                    "random_bits", "uniform", "bernoulli",
                                    "normal", "normal_draw", "characterize",
-                                   "error_histogram"])
+                                   "error_histogram", "make_host_mesh",
+                                   "sharded_filterbank",
+                                   "init_train_state"])
 def test_entry_points_default_to_the_gpu(entry):
     h = t_fir.design_lowpass()
     x = np.ones((2, 64))
@@ -151,6 +153,11 @@ def test_entry_points_default_to_the_gpu(entry):
     from repro_torch.core.faults import FaultSpec, plane_fault_mask
     from repro_torch.dsp.testbed import run_filter_case
     from repro_torch.kernels.normal import normal_draw
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharded_filterbank
+    from repro_torch.train.trainstep import TrainConfig, init_train_state
+    from repro_torch.configs import get_arch, reduced
+    tiny = reduced(get_arch("qwen2-0.5b"), layers=1, d_model=16, vocab=32)
     calls = {
         "fir_apply": lambda **kw: t_fir.fir_apply(x, h, SPEC, **kw),
         "PrecodedBank": lambda **kw: t_fir.PrecodedBank(h, SPEC, **kw),
@@ -177,6 +184,12 @@ def test_entry_points_default_to_the_gpu(entry):
                                                   **kw),
         "error_histogram": lambda **kw: error_histogram(
             MulSpec("etm", 4, 1), bins=9, **kw),
+        "make_host_mesh": lambda **kw: make_host_mesh(2, 1, **kw),
+        "sharded_filterbank": lambda **kw: sharded_filterbank(
+            codes, codes[:, :31], make_host_mesh(**kw), wl=16, vbl=13,
+            shift=5),
+        "init_train_state": lambda **kw: init_train_state(
+            tiny, TrainConfig(), make_host_mesh(**kw), 0),
     }
     with _no_gpu():
         with pytest.raises(RuntimeError, match="no CUDA device"):
